@@ -2,10 +2,13 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--gaussians 1000000] [--views 4]
+                          [--train_points 300000] [--iterations 60]
+
+The serving path:
 
 1. Device and build: the card's name and power limit, torch/CUDA versions,
    and the nvcc build of every kernel in gaussian_transformer_tpu_torch/csrc
-   (into build/torch_kernels/).
+   (into build/torch_kernels/, one nvcc per source, all at once).
 2. A seeded synthetic trained-looking scene (1,000,000 Gaussians at SH
    degree 3 on a few surfaces) written as a trained model dir with a
    Blender-layout dataset of 1920x1080 test views; the ground truth is the
@@ -16,9 +19,30 @@
    ``main(argv)``, with the kernel launch counters zeroed just before and
    read just after; checks overflow, SSIM, and the PSNR against a numpy
    recomputation from the written PNGs.
-5. Times (CUDA events) of each kernel (over repeated launches, and with the
-   L2 cache flushed before each launch) and its plain version, the per-view
-   render time, and each kernel's bound.
+5. Times (CUDA events) of K1 and K3 (over repeated launches, and with the
+   L2 cache flushed before each launch) and their plain versions, the
+   per-view render time, and each kernel's bound.
+
+The training path:
+
+6. A Blender-layout training dataset of the same scene: 8 train and 2 test
+   1920x1080 orbit views (ground truth: the port's renders, written with its
+   PNG codec) and a ``points3d.ply`` of 300,000 points sampled from the same
+   surfaces with jitter and their DC colours.
+7. The main path: ``cli.train`` through ``main(argv)`` for 60 steps at full
+   resolution with one densify/prune pass at step 40, counters zeroed just
+   before and read just after; checks K2 and K4 ran once per step, the loss
+   is finite and falls, the densify pass changed the alive count, the PLY and
+   checkpoint exist and restore, and ``cli.render`` + ``cli.metrics`` score
+   the trained model.
+8. Kernel checks on train view 0 from the first step's state (the point
+   cloud's Gaussians at 4x capacity) at the render budgets the trainer tuned
+   (so the chunk size and stream length of the main path's K2 launches):
+   K2 (stream compositor backward, fed the loss's true cotangents) and K4
+   (fused SSIM backward on the render/GT pair) against their plain versions.
+9. Times: the median train step (steps 11-60 without the densify step) split
+   into forward, loss, backward and Adam; K2 and K4 and their plain versions
+   with their bounds.
 
 The last three lines of standard output are the kernels JSON line, the
 card's ``name, power.limit`` as nvidia-smi prints them, and
@@ -48,10 +72,25 @@ PEAK_FP32_FLOPS = 67e12
 # Operation counts used for the bounds (fp32, outside the tensor cores).
 K1_OPS_PER_PAIR = 20  # power (10), exp, alpha cap/skip tests, T update, 3 FMAs
 K3_OPS_PER_PIXEL = 3 + 2 * (5 * 11 * 2) + 17  # products, two 11-tap passes x 5 fields, map
+# K1's walk (20), then per live pair: w, <rgb, gC> and the prefix (8), w gC
+# (3), g_alpha (7), g_power and its 5 weighted copies (8), and the 9 sums
+# over the tile's pixels (9 adds per pair).
+K2_OPS_PER_PAIR = 20 + 8 + 3 + 7 + 8 + 9
+# Products (3), fields by two 11-tap passes (220), partials (30), scale (4),
+# four maps filtered back (176), combine (8).
+K4_OPS_PER_PIXEL = 3 + 2 * (5 * 11 * 2) + 30 + 4 + 2 * (4 * 11 * 2) + 8
 K1_ATOL = 2e-5
 K1_MAX_ERR = 1e-3
 K1_MAX_SHARE = 1e-4
 K3_ATOL = 1e-5
+# K2: a pixel whose T lands near 1e-4 may stop one contribution apart
+# between the kernel's sequential product and the plain version's cumprod
+# (K1's tolerance), which moves its rows' gradients; relative to the largest.
+K2_MAX_ERR = 1e-3
+K2_ATOL = 2e-4
+K2_MAX_SHARE = 1e-4
+K4_MAX_ERR = 1e-4  # relative to the largest gradient
+SH_C0 = 0.28209479177387814
 
 
 class CheckFailed(RuntimeError):
@@ -186,6 +225,44 @@ def write_model_dir(work: Path, scene, n_views, width, height, fovx, seed, devic
     return model, splits
 
 
+def surface_points(n: int, seed: int):
+    """A point cloud of the synthetic scene's surfaces: n points with
+    N(0, 0.01) jitter and their DC colours (uint8 RGB)."""
+    f = synthetic_scene(n, seed)
+    rng = np.random.RandomState(seed + 7)
+    xyz = (f["xyz"] + rng.normal(0.0, 0.01, f["xyz"].shape)).astype(np.float32)
+    rgb = np.clip(f["features_dc"][:, 0, :] * SH_C0 + 0.5, 0.0, 1.0) * 255.0
+    return xyz, rgb.astype(np.uint8)
+
+
+def write_train_dataset(data: Path, scene, points, n_train, n_test, width, height, fovx, device):
+    """Blender-layout dataset of ``scene``: orbit views whose ground truth is
+    the port's render (PNG), and ``points3d.ply``. Returns {split: [c2w]}."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.render import render
+    from gaussian_transformer_tpu_torch.scene.ply import store_point_cloud
+    from gaussian_transformer_tpu_torch.utils.png import write_png
+
+    splits = {
+        "train": [orbit_c2w(2 * math.pi * i / n_train) for i in range(n_train)],
+        "test": [orbit_c2w(2 * math.pi * (i + 0.5) / n_test + 0.2) for i in range(n_test)],
+    }
+    for split, c2ws in splits.items():
+        (data / split).mkdir(parents=True, exist_ok=True)
+        frames = []
+        for i, c2w in enumerate(c2ws):
+            with torch.no_grad():
+                img = render(camera_from_c2w(c2w, fovx, width, height, device), scene)["render"]
+            img = torch.clamp(img, 0.0, 1.0).cpu().numpy().transpose(1, 2, 0)
+            write_png(str(data / split / f"r_{i}.png"), (img * 255).astype(np.uint8))
+            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": c2w})
+        with open(data / f"transforms_{split}.json", "w") as f:
+            json.dump({"camera_angle_x": fovx, "frames": frames}, f)
+    store_point_cloud(str(data / "points3d.ply"), points[0], points[1])
+    return splits
+
+
 # ---------------------------------------------------------------- timing ----
 
 
@@ -232,6 +309,30 @@ def render_profile(fn, top: int = 12) -> str:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
+        torch.cuda.synchronize()
+    return prof.key_averages().table(sort_by="cuda_time_total", row_limit=top, max_name_column_width=60)
+
+
+def train_step_profile(ckpt: Path, cam, gt, cfg, device, top: int = 25) -> str:
+    """Device time by op over one warm train step of the trained state in
+    ``ckpt`` on ``cam`` (torch.profiler), at the trainer's render budgets
+    ``cfg``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaussian_transformer_tpu_torch.train.splat import OptConfig, restore, train_step
+
+    scene, adam, stats, it, slrs = restore(dict(np.load(ckpt, allow_pickle=False)), device)
+    cam.original_image = gt
+    bg = torch.zeros(3, device=device)
+
+    def step():
+        train_step(scene, adam, stats, cam, bg, it, slrs, OptConfig(), cfg)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
         torch.cuda.synchronize()
     return prof.key_averages().table(sort_by="cuda_time_total", row_limit=top, max_name_column_width=60)
 
@@ -296,7 +397,6 @@ def run(args, device) -> dict:
 
     print("== 3. kernel checks on test view 0")
     cam0 = camera_from_c2w(splits["test"][0], fovx, args.width, args.height, device)
-    results = []
     with torch.no_grad():
         s = prepare_stream(cam0, scene)
         props = s.props()
@@ -354,65 +454,258 @@ def run(args, device) -> dict:
     summary.update(cli_render_s=t_render, cli_metrics_s=t_metrics, ssim=res["SSIM"],
                    psnr=res["PSNR"], views_stats=stats)
 
-    if not on_card:
-        return summary
+    kernels_line = {"kernels": []}
+    if on_card:
+        print("== 5. times (CUDA events)")
+        smi = smi_line()
+        with torch.no_grad():
+            render_ms = cuda_ms(lambda: render(cam0, scene), reps=5)
+            stages = {
+                "project": cuda_ms(lambda: project_view(cam0, scene, 1.0, None), reps=5),
+                "project+bin": cuda_ms(lambda: prepare_stream(cam0, scene), reps=5),
+                "gather": cuda_ms(lambda: s.props(), reps=5),
+            }
+            profile = render_profile(lambda: render(cam0, scene))
+            k1_ms = cuda_ms(lambda: stream.composite_stream_tiles(props, ct, s.grid_w, s.grid_h), reps=20)
+            k1_plain_ms = cuda_ms(lambda: stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h), reps=2)
+            k3_ms = cuda_ms(lambda: fused_ssim.fused_ssim(img, gt), reps=50)
+            k3_plain_ms = cuda_ms(lambda: fused_ssim.ssim_plain(img, gt), reps=5)
+            k1_cold_ms = cuda_ms_cold(lambda: stream.composite_stream_tiles(props, ct, s.grid_w, s.grid_h), reps=10)
+            k3_cold_ms = cuda_ms_cold(lambda: fused_ssim.fused_ssim(img, gt), reps=20)
+        T = s.grid_w * s.grid_h
+        real_rows = int(s.binned.tile_counts.sum())
+        k1_bytes = real_rows * 9 * 4 + T * 4 * 256 * 4 + 2 * T * 4
+        k1_ops = pairs * K1_OPS_PER_PAIR
+        n_px = img.numel()
+        k3_bytes = 2 * n_px * 4 + 4 * math.ceil(args.height / 32) * math.ceil(args.width / 32) * img.shape[0]
+        k3_ops = n_px * K3_OPS_PER_PIXEL
+        k1_bound, k1_by = bound(k1_bytes, k1_ops)
+        k3_bound, k3_by = bound(k3_bytes, k3_ops)
+        print(f"[{smi}] render {render_ms:.3f} ms/view: project {stages['project']:.3f} ms, "
+              f"bin {stages['project+bin'] - stages['project']:.3f} ms, gather {stages['gather']:.3f} ms, "
+              f"K1 {k1_ms:.3f} ms (stages timed apart)")
+        print(f"top CUDA kernels of one render (torch.profiler, device time):\n{profile}")
+        print(f"[{smi}] K1 {k1_ms:.4f} ms (L2 cold {k1_cold_ms:.4f}), plain {k1_plain_ms:.2f} ms, "
+              f"bound {k1_bound:.4f} ms ({k1_by}: {k1_bytes} B, {k1_ops} fp32 ops)")
+        print(f"[{smi}] K3 {k3_ms:.4f} ms (L2 cold {k3_cold_ms:.4f}), plain {k3_plain_ms:.3f} ms, "
+              f"bound {k3_bound:.4f} ms ({k3_by}: {k3_bytes} B, {k3_ops} fp32 ops)")
+        kernels_line["kernels"] += [
+            {"name": "stream_fwd", "route": "cuda",
+             "source": "gaussian_transformer_tpu_torch/csrc/stream_fwd.cu",
+             "replaces": "gaussian_transformer_tpu/render/stream.py:266",
+             "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms, "ms_l2_cold": k1_cold_ms,
+             "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+             "tolerance": {"atol": K1_ATOL, "max_share_beyond": K1_MAX_SHARE, "max_abs": K1_MAX_ERR},
+             "share_beyond_atol": k1_share},
+            {"name": "ssim_fwd", "route": "cuda",
+             "source": "gaussian_transformer_tpu_torch/csrc/ssim_fwd.cu",
+             "replaces": "gaussian_transformer_tpu/ops/fused_ssim.py:106",
+             "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms, "ms_l2_cold": k3_cold_ms,
+             "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
+             "tolerance": {"atol": K3_ATOL}},
+        ]
+        summary.update(smi=smi, render_ms=render_ms, stage_ms=stages, evaluated_pairs=pairs,
+                       real_rows=real_rows, render_profile=profile)
+    del s, props, ct, color, t_fin, p_color, p_t, img, gt
 
-    print("== 5. times (CUDA events)")
-    smi = smi_line()
-    with torch.no_grad():
-        render_ms = cuda_ms(lambda: render(cam0, scene), reps=5)
-        stages = {
-            "project": cuda_ms(lambda: project_view(cam0, scene, 1.0, None), reps=5),
-            "project+bin": cuda_ms(lambda: prepare_stream(cam0, scene), reps=5),
-            "gather": cuda_ms(lambda: s.props(), reps=5),
-        }
-        profile = render_profile(lambda: render(cam0, scene))
-        k1_ms = cuda_ms(lambda: stream.composite_stream_tiles(props, ct, s.grid_w, s.grid_h), reps=20)
-        k1_plain_ms = cuda_ms(lambda: stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h), reps=2)
-        k3_ms = cuda_ms(lambda: fused_ssim.fused_ssim(img, gt), reps=50)
-        k3_plain_ms = cuda_ms(lambda: fused_ssim.ssim_plain(img, gt), reps=5)
-        k1_cold_ms = cuda_ms_cold(lambda: stream.composite_stream_tiles(props, ct, s.grid_w, s.grid_h), reps=10)
-        k3_cold_ms = cuda_ms_cold(lambda: fused_ssim.fused_ssim(img, gt), reps=20)
-    T = s.grid_w * s.grid_h
-    real_rows = int(s.binned.tile_counts.sum())
-    k1_bytes = real_rows * 9 * 4 + T * 4 * 256 * 4 + 2 * T * 4
-    k1_ops = pairs * K1_OPS_PER_PAIR
-    n_px = img.numel()
-    k3_bytes = 2 * n_px * 4 + 4 * math.ceil(args.height / 32) * math.ceil(args.width / 32) * img.shape[0]
-    k3_ops = n_px * K3_OPS_PER_PIXEL
-
-    def bound(nbytes, ops):
-        b_ms, o_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
-        return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-
-    k1_bound, k1_by = bound(k1_bytes, k1_ops)
-    k3_bound, k3_by = bound(k3_bytes, k3_ops)
-    print(f"[{smi}] render {render_ms:.3f} ms/view: project {stages['project']:.3f} ms, "
-          f"bin {stages['project+bin'] - stages['project']:.3f} ms, gather {stages['gather']:.3f} ms, "
-          f"K1 {k1_ms:.3f} ms (stages timed apart)")
-    print(f"top CUDA kernels of one render (torch.profiler, device time):\n{profile}")
-    print(f"[{smi}] K1 {k1_ms:.4f} ms (L2 cold {k1_cold_ms:.4f}), plain {k1_plain_ms:.2f} ms, "
-          f"bound {k1_bound:.4f} ms ({k1_by}: {k1_bytes} B, {k1_ops} fp32 ops)")
-    print(f"[{smi}] K3 {k3_ms:.4f} ms (L2 cold {k3_cold_ms:.4f}), plain {k3_plain_ms:.3f} ms, "
-          f"bound {k3_bound:.4f} ms ({k3_by}: {k3_bytes} B, {k3_ops} fp32 ops)")
-    kernels_line = {"kernels": [
-        {"name": "stream_fwd", "route": "cuda",
-         "source": "gaussian_transformer_tpu_torch/csrc/stream_fwd.cu",
-         "replaces": "gaussian_transformer_tpu/render/stream.py:266",
-         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms, "ms_l2_cold": k1_cold_ms,
-         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
-         "tolerance": {"atol": K1_ATOL, "max_share_beyond": K1_MAX_SHARE, "max_abs": K1_MAX_ERR},
-         "share_beyond_atol": k1_share},
-        {"name": "ssim_fwd", "route": "cuda",
-         "source": "gaussian_transformer_tpu_torch/csrc/ssim_fwd.cu",
-         "replaces": "gaussian_transformer_tpu/ops/fused_ssim.py:106",
-         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms, "ms_l2_cold": k3_cold_ms,
-         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
-         "tolerance": {"atol": K3_ATOL}},
-    ]}
-    summary.update(smi=smi, render_ms=render_ms, stage_ms=stages, evaluated_pairs=pairs,
-                   real_rows=real_rows, render_profile=profile, **kernels_line)
+    kernels_line["kernels"] += train_path(args, device, scene, summary)
+    summary.update(kernels_line)
     return summary
+
+
+def bound(nbytes, ops):
+    """(least ms, "bytes" or "operations") on the published H100 peaks."""
+    b_ms, o_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def train_path(args, device, scene, summary) -> list:
+    """Sections 6-9: the training dataset, ``cli.train``, the K2/K4 checks
+    at the trainer's budgets, and the times. Returns the K2 and K4 entries of
+    the kernels line (none off the card)."""
+    import shutil
+
+    import torch
+
+    from gaussian_transformer_tpu_torch.cli import metrics as cli_metrics
+    from gaussian_transformer_tpu_torch.cli import render as cli_render
+    from gaussian_transformer_tpu_torch.cli import train as cli_train
+    from gaussian_transformer_tpu_torch.ops import fused_ssim
+    from gaussian_transformer_tpu_torch.ops.losses import l1_loss
+    from gaussian_transformer_tpu_torch.render import prepare_stream, render, stream
+    from gaussian_transformer_tpu_torch.scene.gaussians import GaussianScene
+    from gaussian_transformer_tpu_torch.scene.ply import fetch_point_cloud
+    from gaussian_transformer_tpu_torch.train.splat import PHASES, restore
+    from gaussian_transformer_tpu_torch.utils.png import read_png
+
+    on_card = device.type == "cuda"
+    W, H = args.width, args.height
+    fovx = math.radians(50.0)
+    work = Path(args.work)
+    data, model = work / "train_data", work / "train_model"
+    for d in (data, model):
+        shutil.rmtree(d, ignore_errors=True)
+
+    print("== 6. training dataset")
+    t0 = time.time()
+    points = surface_points(args.train_points, args.seed + 3)
+    splits = write_train_dataset(data, scene, points, args.train_views, 2, W, H, fovx, device)
+    print(f"{args.train_views} train + 2 test views at {W}x{H}, {args.train_points} points: "
+          f"{time.time() - t0:.1f} s")
+
+    print("== 7. main path: cli.train, then cli.render and cli.metrics on the trained model")
+    counters = {"K1": stream.STREAM_FWD, "K2": stream.STREAM_BWD, "K3": fused_ssim.SSIM_FWD,
+                "K4": fused_ssim.SSIM_BWD}
+    for k in counters.values():
+        k.launches = 0
+    dev_arg = [] if on_card else ["--device", str(device)]
+    n = args.iterations
+    third = n // 3
+    t0 = time.time()
+    res = cli_train.main([
+        "-s", str(data), "-m", str(model), "-r", "1", "--eval", "--iterations", str(n),
+        "--densify_from_iter", str(third), "--densification_interval", str(third),
+        "--densify_until_iter", str(n), "--test_iterations", str(n), "--save_iterations", str(n),
+        "--checkpoint_iterations", str(n), "--quiet",
+    ] + dev_arg)
+    t_train = time.time() - t0
+    launches = {k: v.launches for k, v in counters.items()}
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    print(f"cli.train {n} steps: {t_train:.1f} s; launches {launches}")
+    print(f"loss by step: {[round(v, 5) for v in losses]}")
+    print(f"overflow by step: {[h['overflow'] for h in hist]}")
+    if on_card:
+        check(launches["K2"] == n and launches["K4"] == n, f"K2 and K4 launched once per step ({n})")
+    check(len(losses) == n and all(math.isfinite(v) for v in losses), "every loss is finite")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last < first, f"mean loss of the last 10 steps {last:.5f} < first 10 {first:.5f}")
+    dens = [h for h in hist if "densify" in h]
+    check(len(dens) == 1, f"one densify pass (at steps {[h['iteration'] for h in dens]})")
+    rep = dens[0]["densify"]
+    print(f"densify at step {dens[0]['iteration']}: {rep}")
+    check(rep["n_alive"] != args.train_points,
+          f"the densify pass changed the alive count ({args.train_points} -> {rep['n_alive']})")
+    ply = model / "point_cloud" / f"iteration_{n}" / "point_cloud.ply"
+    ckpt = model / f"chkpnt{n}.npz"
+    check(ply.exists() and ckpt.exists() and (model / "input.ply").exists()
+          and (model / "cameras.json").exists(), "input.ply, cameras.json, the PLY and the checkpoint exist")
+    restored = restore(dict(np.load(ckpt, allow_pickle=False)), device)[0]
+    check(restored.num_alive == res["n_alive"], f"the checkpoint restores {res['n_alive']} alive Gaussians")
+    del restored
+    stats = cli_render.main(["-m", str(model), "--skip_train", "--quiet"] + dev_arg)
+    scores = cli_metrics.main(["-m", str(model)] + dev_arg)[str(model)][f"ours_{n}"]
+    check(math.isfinite(scores["PSNR"]) and math.isfinite(scores["SSIM"]),
+          f"trained model: PSNR {scores['PSNR']:.3f} dB, SSIM {scores['SSIM']:.4f} on the test views")
+    summary.update(train_s=t_train, train_losses=losses, train_launches=launches, densify=rep,
+                   train_evals=res["evals"], train_scores=scores, train_render_stats=stats,
+                   train_overflow=[h["overflow"] for h in hist])
+    # The budgets the trainer tuned from its probe render, and the step from
+    # which each held (a compaction re-tunes them).
+    cfg = res["render_cfgs"][0][1]
+    print("trainer's render budgets: " + ", ".join(
+        f"from step {it}: max_instances {c.max_instances}, max_stream {c.max_stream}"
+        for it, c in res["render_cfgs"]))
+
+    print("== 8. kernel checks K2 and K4 on train view 0, first step's state, the trainer's budgets")
+    g0 = GaussianScene.from_pcd(fetch_point_cloud(str(data / "points3d.ply")), 1,
+                                capacity=4 * args.train_points, device=device)
+    cam = camera_from_c2w(splits["train"][0], fovx, W, H, device)
+    gt = torch.as_tensor(read_png(str(data / "train" / "r_0.png"))[..., :3].transpose(2, 0, 1) / 255.0,
+                         dtype=torch.float32, device=device)
+    bg = torch.zeros(3, device=device)
+    with torch.no_grad():
+        s = prepare_stream(cam, g0, cfg)
+        props, ct = s.props(), s.chunk_tile
+        chunk = props.shape[0] // ct.shape[0]
+        gw, gh = s.grid_w, s.grid_h
+        color, final_t = stream.composite_stream_tiles(props, ct, gw, gh)
+    # The loss's true cotangents of the compositor's outputs.
+    c, t = color.clone().requires_grad_(), final_t.clone().requires_grad_()
+    img = stream.tiles_to_image(c, t, s.binned.covered, bg, grid_w=gw, grid_h=gh)[0][:, :H, :W]
+    loss = 0.8 * l1_loss(img, gt) + 0.2 * (1.0 - fused_ssim.ssim_plain(img, gt))
+    g_color, g_t = torch.autograd.grad(loss, [c, t])
+    img = img.detach()
+    g_one = torch.ones((), device=device)
+    entries = []
+    with torch.no_grad():
+        k2_in = (props, ct, gw, gh, color, final_t, g_color, g_t)
+        d_plain = stream.composite_stream_tiles_bwd_plain(*k2_in)
+        d_plain_ssim = fused_ssim.ssim_bwd_plain(img, gt, g_one)
+        if on_card:
+            d_k2 = stream._launch_stream_bwd(*k2_in)
+            scale = float(d_plain.abs().max())
+            err = (d_k2 - d_plain)[:, :stream.GRAD_F].abs()
+            k2_err = float(err.max())
+            k2_share = float((err > K2_ATOL * scale).float().mean())
+            print(f"K2: chunk {chunk}, {props.shape[0]} stream rows, {int(s.binned.n_instances)} "
+                  f"instances; max |plain| {scale:.3e}")
+            print(f"K2 vs plain: max abs diff {k2_err:.3e} = {k2_err / scale:.3e} of max |plain| "
+                  f"(tolerance {K2_MAX_ERR}), share beyond {K2_ATOL} of max: {k2_share:.3e} "
+                  f"(tolerance {K2_MAX_SHARE})")
+            check(k2_err <= K2_MAX_ERR * scale and k2_share <= K2_MAX_SHARE and torch.all(d_k2[:, stream.GRAD_F:] == 0),
+                  "K2 agrees with its plain version")
+            d_k4 = fused_ssim._launch_ssim_bwd(img, gt, g_one)
+            scale4 = float(torch.cat([d.abs().flatten() for d in d_plain_ssim]).max())
+            k4_err = max(float((a - b).abs().max()) for a, b in zip(d_k4, d_plain_ssim))
+            print(f"K4 vs plain: max abs diff {k4_err:.3e} = {k4_err / scale4:.3e} of max |plain| "
+                  f"{scale4:.3e} (tolerance {K4_MAX_ERR})")
+            check(k4_err <= K4_MAX_ERR * scale4, "K4 agrees with its plain version")
+    del d_plain, d_plain_ssim, g0
+    summary.update(train_k2_chunk=chunk, train_k2_rows=props.shape[0])
+
+    if not on_card:
+        return entries
+
+    print("== 9. train times (CUDA events)")
+    smi = smi_line()
+    steady = [h for h in hist if h["iteration"] > 10 and "densify" not in h]
+    med = {k: float(np.median([h["phase_ms"][k] for h in steady])) for k in PHASES}
+    step_ms = float(np.median([sum(h["phase_ms"].values()) for h in steady]))
+    print(f"[{smi}] median train step {step_ms:.3f} ms over {len(steady)} steps "
+          f"(steps 11-{n} without the densify step): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()))
+    step_profile = train_step_profile(ckpt, cam, gt, res["render_cfgs"][-1][1], device)
+    print(f"top CUDA ops of one train step (torch.profiler, device time):\n{step_profile}")
+    with torch.no_grad():
+        k2_ms = cuda_ms(lambda: stream._launch_stream_bwd(*k2_in), reps=20)
+        k2_cold_ms = cuda_ms_cold(lambda: stream._launch_stream_bwd(*k2_in), reps=10)
+        k2_plain_ms = cuda_ms(lambda: stream.composite_stream_tiles_bwd_plain(*k2_in), reps=2)
+        k4_ms = cuda_ms(lambda: fused_ssim._launch_ssim_bwd(img, gt, g_one), reps=50)
+        k4_cold_ms = cuda_ms_cold(lambda: fused_ssim._launch_ssim_bwd(img, gt, g_one), reps=20)
+        k4_plain_ms = cuda_ms(lambda: fused_ssim.ssim_bwd_plain(img, gt, g_one), reps=5)
+        pairs = stream.composite_stream_tiles_plain(props, ct, gw, gh, count_work=True)[2]
+    T = gw * gh
+    real_rows = int(s.binned.tile_counts.sum())
+    k2_bytes = real_rows * 9 * 4 + T * 8 * 256 * 4 + props.shape[0] * 16 * 4
+    k2_ops = pairs * K2_OPS_PER_PAIR
+    n_px = img.numel()
+    k4_bytes = 4 * n_px * 4
+    k4_ops = n_px * K4_OPS_PER_PIXEL
+    k2_bound, k2_by = bound(k2_bytes, k2_ops)
+    k4_bound, k4_by = bound(k4_bytes, k4_ops)
+    print(f"[{smi}] K2 (chunk {chunk}, {props.shape[0]} stream rows) {k2_ms:.4f} ms "
+          f"(L2 cold {k2_cold_ms:.4f}), plain {k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms ({k2_by}: {k2_bytes} B, {k2_ops} fp32 ops, {pairs} pairs)")
+    print(f"[{smi}] K4 {k4_ms:.4f} ms (L2 cold {k4_cold_ms:.4f}), plain {k4_plain_ms:.3f} ms, "
+          f"bound {k4_bound:.4f} ms ({k4_by}: {k4_bytes} B, {k4_ops} fp32 ops)")
+    summary.update(train_step_ms=step_ms, train_phase_ms=med, train_pairs=pairs,
+                   train_real_rows=real_rows, train_step_profile=step_profile)
+    return [
+        {"name": "stream_bwd", "route": "cuda",
+         "source": "gaussian_transformer_tpu_torch/csrc/stream_bwd.cu",
+         "replaces": "gaussian_transformer_tpu/render/stream.py:411",
+         "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms, "ms_l2_cold": k2_cold_ms,
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+         "tolerance": {"max_abs_of_max": K2_MAX_ERR, "atol_of_max": K2_ATOL,
+                       "max_share_beyond": K2_MAX_SHARE},
+         "share_beyond_atol": k2_share, "chunk": chunk, "stream_rows": props.shape[0]},
+        {"name": "ssim_bwd", "route": "cuda",
+         "source": "gaussian_transformer_tpu_torch/csrc/ssim_bwd.cu",
+         "replaces": "gaussian_transformer_tpu/ops/fused_ssim.py:132",
+         "launches": launches["K4"], "max_abs_err": k4_err, "ms": k4_ms, "ms_l2_cold": k4_cold_ms,
+         "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
+         "tolerance": {"max_abs_of_max": K4_MAX_ERR}},
+    ]
 
 
 def main(argv=None) -> int:
@@ -422,6 +715,9 @@ def main(argv=None) -> int:
     parser.add_argument("--views", type=int, default=4)
     parser.add_argument("--width", type=int, default=1920)
     parser.add_argument("--height", type=int, default=1080)
+    parser.add_argument("--train_points", type=int, default=300_000)
+    parser.add_argument("--train_views", type=int, default=8)
+    parser.add_argument("--iterations", type=int, default=60)
     parser.add_argument("--work", default=str(ROOT / "build" / "chip_smoke"),
                         help="scratch dir for the model dir (default build/chip_smoke)")
     args = parser.parse_args(argv)

@@ -17,7 +17,7 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from gaussian_transformer_tpu_torch.config import ModelParams, get_combined_args
+from gaussian_transformer_tpu_torch.config import ModelParams, PipelineParams, get_combined_args
 from gaussian_transformer_tpu_torch.device import resolve_device
 from gaussian_transformer_tpu_torch.render import RenderConfig, render
 from gaussian_transformer_tpu_torch.scene import Scene
@@ -78,6 +78,7 @@ def main(argv=None):
     per-view diagnostics (overflow, instance counts)."""
     parser = ArgumentParser(description="Testing script parameters")
     model = ModelParams(parser, sentinel=True)
+    PipelineParams(parser)
     parser.add_argument("--iteration", default=-1, type=int)
     parser.add_argument("--skip_train", action="store_true")
     parser.add_argument("--skip_test", action="store_true")

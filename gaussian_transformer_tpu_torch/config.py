@@ -1,7 +1,8 @@
 """Config / flag system (port of ``gaussian_transformer_tpu/config.py``).
 
-Declarative param groups whose attributes become argparse options (a leading
-``_`` adds a one-letter alias), the reference's defaults (``sh_degree=1``),
+Declarative param groups (model, pipeline, optimization) whose attributes
+become argparse options (a leading ``_`` adds a one-letter alias), the
+reference's defaults (``sh_degree=1``),
 and ``cfg_args`` persistence merged under the CLI. ``data_device`` is a torch
 device string. The persisted ``Namespace(...)`` string is parsed with ``ast``,
 never ``eval``.
@@ -10,6 +11,7 @@ never ``eval``.
 from __future__ import annotations
 
 import ast
+import dataclasses
 import os
 import sys
 from argparse import ArgumentParser, Namespace
@@ -68,6 +70,57 @@ class ModelParams(ParamGroup):
         g = super().extract(args)
         g.source_path = os.path.abspath(g.source_path)
         return g
+
+
+class PipelineParams(ParamGroup):
+    """The reference's pipeline flags, accepted by ``cli.train`` and
+    ``cli.render`` as the reference's scripts accept them. The stream renderer
+    has no Python-side SH or covariance path and no debug mode, so they change
+    nothing, as in the JAX package."""
+
+    def __init__(self, parser):
+        self.convert_SHs_python = False
+        self.compute_cov3D_python = False
+        self.debug = False
+        super().__init__(parser, "Pipeline Parameters")
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    """The full 3DGS optimization schedule (the reference's defaults); the
+    one place they are written."""
+
+    iterations: int = 30_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 500
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 100
+    densify_until_iter: int = 10_000
+    densify_grad_threshold: float = 0.0002
+    random_background: bool = False
+
+    @staticmethod
+    def from_args(args) -> "OptConfig":
+        fields = {f.name for f in dataclasses.fields(OptConfig)}
+        return OptConfig(**{k: v for k, v in vars(args).items() if k in fields})
+
+
+class OptimizationParams(ParamGroup):
+    """``OptConfig``'s fields as flags, with its defaults."""
+
+    def __init__(self, parser):
+        for f in dataclasses.fields(OptConfig):
+            setattr(self, f.name, f.default)
+        super().__init__(parser, "Optimization Parameters")
 
 
 def _parse_namespace_literal(text: str) -> Namespace:

@@ -1,8 +1,10 @@
-"""Carry a scene and a camera across from the JAX package's layouts.
+"""Carry a scene, a camera and the training state across from the JAX
+package's layouts.
 
-The inputs are numpy arrays exactly as the JAX ``GaussianScene`` fields and
-``Camera`` arrays hold them, so both packages render the same scene from the
-same camera. No JAX import: the caller converts with ``np.asarray``.
+The inputs are numpy arrays exactly as the JAX ``GaussianScene`` fields,
+``Camera`` arrays, ``AdamState`` and ``DensifyStats`` hold them, so both
+packages render, and train, the same scene from the same camera and state.
+No JAX import: the caller converts with ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -54,3 +56,25 @@ def camera_from_numpy(world_view_transform, full_proj_transform, camera_center, 
         camera_center=as_t(camera_center),
         original_image=None if original_image is None else as_t(original_image),
     )
+
+
+def adam_from_numpy(mu: Dict[str, np.ndarray], nu: Dict[str, np.ndarray],
+                    counts: Dict[str, np.ndarray], device=None):
+    """An ``AdamState`` from the JAX one's mu, nu and per-leaf counts."""
+    from gaussian_transformer_tpu_torch.train.optim import AdamState
+
+    device = resolve_device(device)
+    as_t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+    return AdamState(mu={k: as_t(v) for k, v in mu.items()},
+                     nu={k: as_t(v) for k, v in nu.items()},
+                     counts={k: as_t(v).reshape(()) for k, v in counts.items()})
+
+
+def stats_from_numpy(xyz_gradient_accum, denom, max_radii2d, device=None):
+    """``DensifyStats`` from the JAX one's three [C] arrays."""
+    from gaussian_transformer_tpu_torch.scene.densify import DensifyStats
+
+    device = resolve_device(device)
+    as_t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+    return DensifyStats(xyz_gradient_accum=as_t(xyz_gradient_accum), denom=as_t(denom),
+                        max_radii2d=as_t(max_radii2d))

@@ -1,0 +1,52 @@
+// Shared per-(row, pixel) arithmetic of the stream compositor kernels.
+//
+// The forward (stream_fwd.cu) and the backward (stream_bwd.cu) must agree
+// bit for bit on every alpha and on the transmittance walk: the backward
+// recomputes T, and a pixel whose T crosses 1e-4 one contribution earlier in
+// one kernel than in the other would get a gradient for a contribution the
+// image never had. So both kernels evaluate these inline functions, written
+// with explicitly rounded operations (__fmul_rn and friends are never fused
+// into FMAs), in the reference's operation order.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace stream_common {
+
+constexpr int kTile = 16;
+constexpr int kPixels = kTile * kTile;  // threads per block, one per pixel
+constexpr int kRowF = 16;               // floats per property row
+constexpr int kRowV = kRowF / 4;        // float4 per property row
+
+// The constants as the reference forms them: a double rounded to float.
+constexpr float kAlphaCap = (float)0.99;
+constexpr float kMinAlpha = (float)(1.0 / 255.0);
+constexpr float kMinT = (float)1e-4;
+
+// -0.5 * (a dx^2 + c dy^2) - b dx dy with dx = x - px, dy = y - py; x, y are
+// tile-local means, px, py the pixel's tile-local integer coordinates.
+__device__ __forceinline__ float splat_power(float x, float y, float a, float b, float c,
+                                             float px, float py) {
+  const float dx = __fsub_rn(x, px);
+  const float dy = __fsub_rn(y, py);
+  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx), __fmul_rn(__fmul_rn(c, dy), dy));
+  return __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(b, dx), dy));
+}
+
+// opacity * exp(min(power, 0)), before the 0.99 cap.
+__device__ __forceinline__ float splat_alpha_raw(float opac, float power) {
+  return __fmul_rn(opac, expf(fminf(power, 0.0f)));
+}
+
+// The upstream skip rule: no contribution where power > 0 or alpha < 1/255.
+__device__ __forceinline__ bool splat_skipped(float power, float alpha) {
+  return power > 0.0f || alpha < kMinAlpha;
+}
+
+// Transmittance after a contribution of alpha; the pixel stops BEFORE the
+// contribution that would take it below 1e-4.
+__device__ __forceinline__ float next_t(float T, float alpha) {
+  return __fmul_rn(T, __fsub_rn(1.0f, alpha));
+}
+
+}  // namespace stream_common

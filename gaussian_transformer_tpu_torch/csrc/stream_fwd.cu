@@ -27,24 +27,22 @@
 // is what keeps the pair count down. Load balance across tiles is uneven
 // (dense tiles have long runs); a later version can split long runs.
 //
+// The per-pair arithmetic lives in stream_common.cuh, shared with the
+// backward (stream_bwd.cu), which must replay this walk bit for bit.
+//
 // Property row layout (16 floats): x, y, conic a, b, c, r, g, b, opacity, pad.
 // Pixel centers are integer coordinates in the tile-local frame
 // (dx = (x - tile_origin) - px_local), as the TPU kernel evaluates them.
 
 #include <cuda_runtime.h>
 
+#include "stream_common.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;  // threads per block
-constexpr int kRowF = 16;               // floats per property row
-constexpr int kRowV = kRowF / 4;        // float4 per property row
-constexpr int kBatch = 256;             // rows staged per pass (16 KB)
+using namespace stream_common;
 
-// The constants as the reference forms them: a double rounded to float.
-constexpr float kAlphaCap = (float)0.99;
-constexpr float kMinAlpha = (float)(1.0 / 255.0);
-constexpr float kMinT = (float)1e-4;
+constexpr int kBatch = 256;  // rows staged per pass (16 KB)
 
 __global__ void __launch_bounds__(kPixels) stream_fwd_kernel(
     const float4* __restrict__ props, const int* __restrict__ chunk_start,
@@ -73,12 +71,11 @@ __global__ void __launch_bounds__(kPixels) stream_fwd_kernel(
         const float4 v0 = rows[k * kRowV];      // x, y, a, b
         const float4 v1 = rows[k * kRowV + 1];  // c, r, g, b
         const float opac = rows[k * kRowV + 2].x;
-        const float dx = (v0.x - ox) - px;
-        const float dy = (v0.y - oy) - py;
-        const float power = -0.5f * (v0.z * dx * dx + v1.x * dy * dy) - v0.w * dx * dy;
-        const float alpha = fminf(kAlphaCap, opac * expf(fminf(power, 0.0f)));
-        if (power > 0.0f || alpha < kMinAlpha) continue;
-        const float test_t = T * (1.0f - alpha);
+        const float power =
+            splat_power(__fsub_rn(v0.x, ox), __fsub_rn(v0.y, oy), v0.z, v0.w, v1.x, px, py);
+        const float alpha = fminf(kAlphaCap, splat_alpha_raw(opac, power));
+        if (splat_skipped(power, alpha)) continue;
+        const float test_t = next_t(T, alpha);
         if (test_t < kMinT) {
           done = 1;
           break;

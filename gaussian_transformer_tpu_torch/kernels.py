@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` source exposes a plain ``extern "C"`` interface and is
 compiled by ``nvcc`` into its own shared library at first use, then loaded
 with ``ctypes`` (no PyTorch headers, so a build takes seconds, and no
 ``ninja``). Libraries land in ``build/torch_kernels/`` at the repository root,
-keyed by a hash of the source and the flags, so an edited source rebuilds.
+keyed by a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header rebuilds.
 ``build()`` starts one ``nvcc`` per missing library, all at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
@@ -43,7 +44,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
+    """The library of ``source``, keyed by its text, every shared header in
+    ``csrc/`` and the flags."""
     text = (CSRC / source).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 

@@ -1,4 +1,5 @@
-"""Fused SSIM forward (port of ``gaussian_transformer_tpu/ops/fused_ssim.py``).
+"""Fused SSIM forward and backward (port of
+``gaussian_transformer_tpu/ops/fused_ssim.py``).
 
 Kernel K3: ``csrc/ssim_fwd.cu`` replaces the TPU kernel
 ``ops/fused_ssim.py:106 _fwd_kernel``: the mean 11x11, sigma 1.5 windowed
@@ -6,12 +7,21 @@ SSIM ('same' zero padding, C1 = 0.01^2, C2 = 0.03^2) in one pass that keeps
 the five filtered fields on chip. It is bound by operations (~240 fp32
 operations per pixel against 8 bytes read); its design answer is one CTA per
 (image, 32x32 tile) with the halo and the vertical-pass fields in shared
-memory (see the source's header). Images are CHW or BCHW; the batch is
-handled natively (the Pallas version had no batching rule).
+memory (see the source's header).
 
-``fused_ssim`` launches K3 for CUDA tensors and uses the plain version,
-``ssim_plain``, only for CPU tensors. The analytic backward (the reference's
-``_bwd_kernel``) comes with the training slice.
+Kernel K4: ``csrc/ssim_bwd.cu`` replaces the TPU kernel
+``ops/fused_ssim.py:132 _bwd_kernel``: the analytic gradient of the mean
+SSIM w.r.t. both images (the fields recomputed on the tile extended by the
+window, the map's closed-form partials, the same filter applied to the four
+cotangent maps, a pointwise combine). It is bound by operations (~700 fp32
+operations per pixel against 16 bytes moved); its design answer is one CTA
+per (image, 32x32 tile) with every intermediate in ~94 KB of dynamic shared
+memory.
+
+Images are CHW or BCHW; the batch is handled natively (the Pallas version had
+no batching rule). ``fused_ssim`` launches K3 (and K4 in its backward) for
+CUDA tensors and uses the plain versions, ``ssim_plain`` and
+``ssim_bwd_plain``, only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -35,6 +45,13 @@ SSIM_FWD = CudaKernel(
     "ssim_fwd",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+)
+SSIM_BWD = CudaKernel(
+    "ssim_bwd.cu",
+    "ssim_bwd",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p],
 )
 # Output tile of one K3 block (must match csrc/ssim_fwd.cu).
 _BX = _BY = 32
@@ -76,15 +93,35 @@ def filter2d_same(img: torch.Tensor, g1: np.ndarray) -> torch.Tensor:
     return pass_along(pass_along(img, -2), -1)
 
 
-def map_terms(mu1, mu2, m11, m22, m12):
-    """The SSIM map from the five filtered fields (the reference's
-    ``_map_partials`` form, map only)."""
+def _map_factors(mu1, mu2, m11, m22, m12):
+    """(A, B, C, D) of map = A B / (C D), from the five filtered fields."""
     a_ = 2.0 * mu1 * mu2 + C1
     sigma12 = m12 - mu1 * mu2
     b_ = 2.0 * sigma12 + C2
     c_ = mu1 * mu1 + mu2 * mu2 + C1
     d_ = (m11 - mu1 * mu1) + (m22 - mu2 * mu2) + C2
+    return a_, b_, c_, d_
+
+
+def map_terms(mu1, mu2, m11, m22, m12):
+    """The SSIM map from the five filtered fields (the reference's
+    ``_map_partials`` form, map only)."""
+    a_, b_, c_, d_ = _map_factors(mu1, mu2, m11, m22, m12)
     return a_ * b_ * (1.0 / (c_ * d_))
+
+
+def map_partials(mu1, mu2, m11, m22, m12):
+    """The map's partials w.r.t. the five fields (the reference's
+    ``_map_partials``): (d_mu1, d_mu2, d_m11, d_m12); d_m22 == d_m11."""
+    a_, b_, c_, d_ = _map_factors(mu1, mu2, m11, m22, m12)
+    inv_cd = 1.0 / (c_ * d_)
+    ssim_map = a_ * b_ * inv_cd
+    d_m12 = 2.0 * a_ * inv_cd
+    d_m11 = -ssim_map / d_
+    common = ssim_map * (d_ - c_) * inv_cd
+    d_mu1 = 2.0 * mu2 * (b_ - a_) * inv_cd - 2.0 * mu1 * common
+    d_mu2 = 2.0 * mu1 * (b_ - a_) * inv_cd - 2.0 * mu2 * common
+    return d_mu1, d_mu2, d_m11, d_m12
 
 
 def _flatten(img: torch.Tensor) -> torch.Tensor:
@@ -114,14 +151,34 @@ def ssim_plain(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     return windowed_ssim(img1, img2)
 
 
-def _launch_ssim_fwd(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+def ssim_bwd_plain(img1: torch.Tensor, img2: torch.Tensor, g: torch.Tensor):
+    """Plain PyTorch version of K4 (the reference's ``_jnp_bwd``): the
+    gradients (d_img1, d_img2) of g * mean-SSIM of [N, H, W] images."""
+    N, H, W = img1.shape
+    g1 = taps()
+    fields = torch.stack([img1, img2, img1 * img1, img2 * img2, img1 * img2], dim=0)
+    d_mu1, d_mu2, d_m11, d_m12 = map_partials(*filter2d_same(fields, g1))
+    scale = g / (N * H * W)
+    # d_m22 == d_m11 pointwise, so one transposed filter serves both.
+    cot = torch.stack([d_mu1, d_mu2, d_m11, d_m12], dim=0) * scale
+    t_mu1, t_mu2, t_m, t_m12 = filter2d_same(cot, g1)
+    d1 = t_mu1 + 2.0 * img1 * t_m + img2 * t_m12
+    d2 = t_mu2 + 2.0 * img2 * t_m + img1 * t_m12
+    return d1, d2
+
+
+def _check_images(img1: torch.Tensor, img2: torch.Tensor) -> None:
     if img1.shape != img2.shape or img1.ndim not in (3, 4):
         raise ValueError(f"need two CHW or BCHW images of one shape, got {tuple(img1.shape)}, {tuple(img2.shape)}")
     if img1.dtype != torch.float32 or img2.dtype != torch.float32:
         raise ValueError("fused SSIM takes float32 images")
     if img1.device != img2.device:
         raise ValueError("images must be on the same device")
-    a, b = _flatten(img1).contiguous(), _flatten(img2).contiguous()
+
+
+def _launch_ssim_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K3 on [N, H, W] images: the mean SSIM (a 0-dim tensor)."""
+    a, b = a.contiguous(), b.contiguous()
     N, H, W = a.shape
     dev = a.device
     g = torch.as_tensor(taps(), device=dev)
@@ -133,26 +190,51 @@ def _launch_ssim_fwd(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     return (partials.sum(dtype=torch.float64) / (N * H * W)).to(torch.float32)
 
 
-class _SsimFwd(torch.autograd.Function):
-    """K3 launch; the analytic backward arrives with the training slice."""
+def _launch_ssim_bwd(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor):
+    """K4 on [N, H, W] images: (d_img1, d_img2) of g * mean SSIM. ``g`` stays
+    on the card (no host read)."""
+    a, b = a.contiguous(), b.contiguous()
+    N, H, W = a.shape
+    dev = a.device
+    g1 = torch.as_tensor(taps(), device=dev)
+    g = g.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
+    d1 = torch.empty_like(a)
+    d2 = torch.empty_like(b)
+    SSIM_BWD.launch(
+        a.data_ptr(), b.data_ptr(), g1.data_ptr(), g.data_ptr(), 1.0 / (N * H * W), N, H, W,
+        d1.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return d1, d2
+
+
+class _FusedSsim(torch.autograd.Function):
+    """K3 forward and K4 backward on CUDA tensors; the plain versions on CPU
+    tensors. Saves both images."""
 
     @staticmethod
     def forward(ctx, img1, img2):
-        return _launch_ssim_fwd(img1, img2)
+        a, b = _flatten(img1), _flatten(img2)
+        ctx.save_for_backward(a, b)
+        ctx.shapes = (img1.shape, img2.shape)
+        if a.is_cuda:
+            return _launch_ssim_fwd(a, b)
+        return ssim_plain(a, b)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the fused SSIM backward (TPU kernel ops/fused_ssim.py:132) is "
-            "ported with the training slice"
-        )
+        a, b = ctx.saved_tensors
+        if a.is_cuda:
+            d1, d2 = _launch_ssim_bwd(a, b, g)
+        else:
+            d1, d2 = ssim_bwd_plain(a, b, g)
+        return d1.reshape(ctx.shapes[0]), d2.reshape(ctx.shapes[1])
 
 
 def fused_ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
-    """Mean 11x11/sigma-1.5 windowed SSIM of CHW or BCHW float32 images:
-    kernel K3 for CUDA tensors, the plain version for CPU tensors."""
-    if img1.is_cuda:
-        return _SsimFwd.apply(img1, img2)
-    if img1.device.type != "cpu":
+    """Mean 11x11/sigma-1.5 windowed SSIM of CHW or BCHW float32 images,
+    differentiable in both: kernels K3 and K4 for CUDA tensors, the plain
+    versions for CPU tensors."""
+    _check_images(img1, img2)
+    if not (img1.is_cuda or img1.device.type == "cpu"):
         raise ValueError(f"no fused SSIM for device {img1.device}")
-    return ssim_plain(img1, img2)
+    return _FusedSsim.apply(img1, img2)

@@ -5,7 +5,9 @@
 [3, H, W], ``viewspace_points``, ``visibility_filter``, ``radii``, plus the
 ``final_T``, ``overflow``, ``n_instances``, ``n_padded`` and ``n_tiles``
 diagnostics. Pipeline: project (project.py) -> padded-CSR binning
-(tiles.bin_stream) -> stream compositor (stream.py, kernel K1 on CUDA).
+(tiles.bin_stream) -> stream compositor (stream.py, kernels K1 and K2 on
+CUDA). ``render`` is differentiable in the scene's parameters and in
+``screenspace_offset`` (the screen-space gradient the densification reads).
 ``render_naive`` is the brute-force golden model the tests hold it against.
 
 Not yet ported: ``precision="bf16"``, ``use_pallas=False`` and
@@ -147,7 +149,8 @@ def project_view(viewpoint_camera, pc, scaling_modifier=1.0, override_color=None
 
 
 class StreamInputs(NamedTuple):
-    """What the compositor of one view consumes (also what K1 is checked on)."""
+    """What the compositor of one view consumes (also what K1 and K2 are
+    checked on)."""
 
     proj: Projected
     means2d: torch.Tensor
@@ -159,7 +162,8 @@ class StreamInputs(NamedTuple):
         """The stream's used property rows [n_padded, 16] (K1's input)."""
         p = self.proj
         stream_gauss, _ = used_stream(self.binned)
-        return stream_gather(pack_props(self.means2d, p.conics, p.rgbs, p.opacities), stream_gauss)
+        return stream_gather(pack_props(self.means2d, p.conics, p.rgbs, p.opacities), self.binned,
+                             stream_gauss)
 
     @property
     def chunk_tile(self) -> torch.Tensor:

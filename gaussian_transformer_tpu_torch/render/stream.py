@@ -1,5 +1,5 @@
-"""Stream compositor forward: front-to-back compositing of the padded-CSR
-instance stream (port of ``gaussian_transformer_tpu/render/stream.py``).
+"""Stream compositor: front-to-back compositing of the padded-CSR instance
+stream and its backward (port of ``gaussian_transformer_tpu/render/stream.py``).
 
 Kernel K1: ``csrc/stream_fwd.cu`` replaces the TPU kernel
 ``render/stream.py:266 _fwd_kernel``. It is bound by operations (~20 fp32
@@ -8,19 +8,29 @@ useful bytes shared by a tile's 256 pixels); its design answer is one CTA
 per tile with rows staged in shared memory and a block-wide early exit once
 every pixel has terminated (see the source's header).
 
-``composite_stream_tiles`` launches the kernel for CUDA tensors and uses the
-plain PyTorch version, ``composite_stream_tiles_plain``, only for CPU
-tensors. The backward (the reference's ``_bwd_kernel``) comes with the
-training slice: the autograd node raises if a gradient reaches it.
+Kernel K2: ``csrc/stream_bwd.cu`` replaces the TPU kernel
+``render/stream.py:411 _bwd_kernel``: it replays each tile's run with K1's
+own alpha and transmittance code (``csrc/stream_common.cuh``) and writes one
+gradient row per stream row. It is bound by operations (~45 per pair plus
+the per-row block reductions of 9 sums); its design answer is K1's geometry,
+warp-shuffle reductions skipped for warps with no live pixel, and a fixed-
+order cross-warp sum per row (no atomics: a row belongs to one tile).
+
+``composite_stream_tiles`` launches K1 (and K2 in its backward) for CUDA
+tensors and uses the plain PyTorch versions, ``composite_stream_tiles_plain``
+and ``composite_stream_tiles_bwd_plain``, only for CPU tensors.
+``stream_gather`` pulls the stream's gradient rows back to the Gaussians by a
+deterministic sum over each Gaussian's instance range (a float64 prefix sum).
 
 Property row layout (PROPS_F = 16):
   0: x  1: y  2: conic_a  3: conic_b  4: conic_c  5: r  6: g  7: b  8: opacity
+Gradient rows use the same columns (9-15 are zero).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -38,6 +48,14 @@ STREAM_FWD = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
 )
+STREAM_BWD = CudaKernel(
+    "stream_bwd.cu",
+    "stream_bwd",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+)
+# Columns of a gradient row that can be non-zero (x .. opacity).
+GRAD_F = 9
 
 
 def pack_props(means2d, conics, rgbs, opac):
@@ -50,9 +68,51 @@ def pack_props(means2d, conics, rgbs, opac):
     return torch.cat([cols, cols.new_zeros(1, PROPS_F)], dim=0)
 
 
-def stream_gather(props_full, stream_gauss):
-    """props_full[stream_gauss] -> the stream's property rows [rows, 16]."""
-    return props_full[stream_gauss.long()]
+class _StreamGather(torch.autograd.Function):
+    """props_full[stream_gauss] with the reference's pullback
+    (stream.py:670-689): each unsorted instance's cotangent row is read at
+    its stream row ``pos_unsorted`` (rows at or past the stream's length are
+    dropped instances), then summed over its Gaussian's contiguous instance
+    range [gauss_offsets, gauss_offsets + gauss_cov) as the difference of a
+    float64 prefix sum at the range's ends. Deterministic (a scan, no
+    atomics), and a Gaussian's small sum survives the subtraction where the
+    reference's float32 cumsum loses it. (``torch.segment_reduce`` gives the
+    same sums but took 70 ms at 1080p on the H100.)"""
+
+    @staticmethod
+    def forward(ctx, props_full, stream_gauss, pos_unsorted, gauss_offsets, gauss_cov):
+        ctx.save_for_backward(pos_unsorted, gauss_offsets, gauss_cov)
+        ctx.rows = stream_gauss.shape[0]
+        return props_full[stream_gauss.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, offsets, cov = ctx.saved_tensors
+        rows = ctx.rows
+        I = pos.shape[0]
+        pos = pos.long()
+        in_stream = (pos < rows)[:, None]
+        d_unsorted = torch.where(in_stream, g[torch.clamp(pos, max=rows - 1), :GRAD_F], 0.0)
+        # One flat scan of the columns laid end to end, column j at [j I,
+        # (j + 1) I): a range's sum is still the difference at its ends. (A
+        # scan along dim 0 of [I, 9] runs one serial thread per column, and
+        # along dim 1 of [9, I] one block per row: 1.3 s and 6.5 ms at 1080p on
+        # an H100.)
+        flat = d_unsorted.to(torch.float64).t().reshape(-1)
+        csum = torch.cat([flat.new_zeros(1), torch.cumsum(flat, dim=0)])  # [k]: the first k values
+        col = (torch.arange(GRAD_F, device=g.device) * I)[:, None]
+        lo = col + torch.clamp(offsets.long(), 0, I)[None, :]
+        hi = col + torch.clamp(offsets.long() + cov.long(), 0, I)[None, :]
+        d_full = g.new_zeros(offsets.shape[0] + 1, PROPS_F)  # sentinel row C stays 0
+        d_full[:-1, :GRAD_F] = (csum[hi] - csum[lo]).t().to(g.dtype)
+        return d_full, None, None, None, None
+
+
+def stream_gather(props_full, binned, stream_gauss):
+    """props_full[stream_gauss] -> the stream's property rows [rows, 16];
+    differentiable in ``props_full`` through the binning's instance map."""
+    return _StreamGather.apply(props_full, stream_gauss, binned.pos_unsorted,
+                               binned.gauss_offsets, binned.gauss_cov)
 
 
 def used_stream(binned):
@@ -84,17 +144,31 @@ def _termination(alpha, t_in, lv):
     return live_k, tstar, trigger
 
 
-def composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h, count_work=False):
-    """Plain PyTorch version of K1: (color [T, 3, P], final_T [T, 1, P]).
+class _Round(NamedTuple):
+    """One round of the plain replay: rows [r*B, (r+1)*B) of every tile run
+    that reaches them, as [Ta, B, ...] tensors."""
 
-    Rounds over row blocks: round r composites rows [r*B, (r+1)*B) of every
-    tile's run at once as [T_active, B, P] tensors, carrying T and a live
-    flag per tile-pixel. ``count_work=True`` also returns the number of
-    (row, pixel) pairs a sequential walk evaluates (real rows up to and
-    including each pixel's terminating row), for roofline accounting."""
+    tiles: torch.Tensor  # [Ta] tile ids
+    idx: torch.Tensor  # [Ta, B] stream rows
+    rows: torch.Tensor  # [Ta, B, 16]
+    x: torch.Tensor  # [Ta, B, 1] tile-local means
+    y: torch.Tensor
+    alpha_raw: torch.Tensor  # [Ta, B, P] before the cap
+    alpha: torch.Tensor  # [Ta, B, P] capped, 0 where skipped
+    t_in: torch.Tensor  # [Ta, B, P] transmittance before each row
+    live_k: torch.Tensor  # [Ta, B, P] 1 where the row contributes
+    lv: torch.Tensor  # [Ta, 1, P] live before the round
+    tstar: torch.Tensor  # [Ta, 1, P] T at the terminating row (0: none)
+    trigger: torch.Tensor  # [Ta, B, P]
+    t_after: torch.Tensor  # [Ta, 1, P] the carried T after the round
+
+
+def _plain_rounds(props, chunk_tile, grid_w, grid_h):
+    """The plain versions' walk: rounds of ``PLAIN_ROWS`` rows over every
+    tile's run at once, with the reference's scan-free termination, carrying
+    T and a live flag per tile-pixel between rounds. Yields a ``_Round``."""
     I_pad = props.shape[0]
-    G = chunk_tile.shape[0]
-    chunk = I_pad // G
+    chunk = I_pad // chunk_tile.shape[0]
     T = grid_w * grid_h
     dev = props.device
     B = min(PLAIN_ROWS, chunk)
@@ -109,25 +183,24 @@ def composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h, count_work=F
     ox = ((t_idx % grid_w) * TILE).to(torch.float32)
     oy = ((t_idx // grid_w) * TILE).to(torch.float32)
 
-    color = torch.zeros(T, 3, P, dtype=torch.float32, device=dev)
     t_run = torch.ones(T, 1, P, dtype=torch.float32, device=dev)
     live = torch.ones(T, 1, P, dtype=torch.float32, device=dev)
-    work = torch.zeros((), dtype=torch.int64, device=dev)
     k_iota = torch.arange(B, device=dev)
     r = 0
     while True:
         tiles = torch.nonzero(n_rows > r * B).flatten()
         if tiles.numel() == 0:
-            break
-        rows = props[row0[tiles, None] + r * B + k_iota]  # [Ta, B, 16]
+            return
+        idx = row0[tiles, None] + r * B + k_iota
+        rows = props[idx]
         x = rows[..., 0:1] - ox[tiles, None, None]
         y = rows[..., 1:2] - oy[tiles, None, None]
         a, b, c = rows[..., 2:3], rows[..., 3:4], rows[..., 4:5]
-        opac = rows[..., 8:9]
         dx = x - px
         dy = y - py
-        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy  # [Ta, B, P]
-        alpha = torch.clamp(opac * torch.exp(torch.clamp(power, max=0.0)), max=0.99)
+        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+        alpha_raw = rows[..., 8:9] * torch.exp(torch.clamp(power, max=0.0))
+        alpha = torch.clamp(alpha_raw, max=0.99)
         skip = (power > 0.0) | (alpha < 1.0 / 255.0)
         alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
 
@@ -135,39 +208,121 @@ def composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h, count_work=F
         lv = live[tiles]
         t_in = torch.cumprod(torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha[:, :-1]], 1), 1) * t0
         live_k, tstar, trigger = _termination(alpha, t_in, lv)
-        w = alpha * t_in * live_k
-        color[tiles] += torch.einsum("tkc,tkp->tcp", rows[..., 5:8], w)
-
+        # A dead pixel keeps its T; a live one takes T at its terminating
+        # row, or the product over the whole round.
         t_full = t_in[:, -1:] * (1.0 - alpha[:, -1:])
-        t_new = torch.where(tstar > 0.0, tstar, t_full)
-        t_run[tiles] = torch.where(lv > 0.0, t_new, t0)
+        t_after = torch.where(lv > 0.0, torch.where(tstar > 0.0, tstar, t_full), t0)
+        yield _Round(tiles, idx, rows, x, y, alpha_raw, alpha, t_in, live_k, lv, tstar, trigger, t_after)
+        t_run[tiles] = t_after
         live[tiles] = lv * (tstar <= 0.0).to(torch.float32)
-        if count_work:
-            real = opac > 0.0
-            work += ((live_k > 0.0) & real).sum() + (trigger & (t_in == tstar) & (lv > 0.0)).sum()
         r += 1
+
+
+def composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h, count_work=False):
+    """Plain PyTorch version of K1: (color [T, 3, P], final_T [T, 1, P]).
+
+    ``count_work=True`` also returns the number of (row, pixel) pairs a
+    sequential walk evaluates (real rows up to and including each pixel's
+    terminating row), for roofline accounting."""
+    T = grid_w * grid_h
+    color = torch.zeros(T, 3, P, dtype=torch.float32, device=props.device)
+    final_t = torch.ones(T, 1, P, dtype=torch.float32, device=props.device)
+    work = torch.zeros((), dtype=torch.int64, device=props.device)
+    for rd in _plain_rounds(props, chunk_tile, grid_w, grid_h):
+        w = rd.alpha * rd.t_in * rd.live_k
+        color[rd.tiles] += torch.einsum("tkc,tkp->tcp", rd.rows[..., 5:8], w)
+        final_t[rd.tiles] = rd.t_after
+        if count_work:
+            real = rd.rows[..., 8:9] > 0.0
+            work += ((rd.live_k > 0.0) & real).sum()
+            work += (rd.trigger & (rd.t_in == rd.tstar) & (rd.lv > 0.0)).sum()
     if count_work:
-        return color, t_run, int(work)
-    return color, t_run
+        return color, final_t, int(work)
+    return color, final_t
 
 
-class _StreamFwd(torch.autograd.Function):
-    """K1 launch; backward arrives with the training slice."""
+def composite_stream_tiles_bwd_plain(props, chunk_tile, grid_w, grid_h, color, final_t,
+                                     g_color, g_t):
+    """Plain PyTorch version of K2: dprops [I_pad, 16] from the forward's
+    outputs (color = C_total [T, 3, P], final_T [T, 1, P]) and their
+    cotangents, replaying the plain forward's rounds with the reference
+    kernel's formulas (stream.py:505-621): the suffix sums of the color
+    enter through sum_c gC_c S_kc = <gC, C_total> - prefix - P_u(k)."""
+    T = grid_w * grid_h
+    p = torch.arange(P, device=props.device)
+    px = (p % TILE).to(torch.float32)
+    py = (p // TILE).to(torch.float32)
+    gdot_total = (g_color[:, 0:1] * color[:, 0:1] + g_color[:, 1:2] * color[:, 1:2]
+                  + g_color[:, 2:3] * color[:, 2:3])  # [T, 1, P]
+    gt_final = g_t * final_t
+    pref = torch.zeros(T, 1, P, dtype=torch.float32, device=props.device)
+    dprops = torch.zeros_like(props)
+    rs = lambda v: v.sum(dim=2, keepdim=True)  # [Ta, B, P] -> [Ta, B, 1]
+    for rd in _plain_rounds(props, chunk_tile, grid_w, grid_h):
+        x, y, alpha, t_in = rd.x, rd.y, rd.alpha, rd.t_in
+        a, b, c = rd.rows[..., 2:3], rd.rows[..., 3:4], rd.rows[..., 4:5]
+        rgb, opac = rd.rows[..., 5:8], rd.rows[..., 8:9]
+        w = alpha * t_in * rd.live_k
+        gc = g_color[rd.tiles]  # [Ta, 3, P]
+        d_rgb = torch.einsum("tkp,tcp->tkc", w, gc)
+        rgb_dot_gc = rgb[..., 0:1] * gc[:, 0:1] + rgb[..., 1:2] * gc[:, 1:2] + rgb[..., 2:3] * gc[:, 2:3]
+        p_u = torch.cumsum(w * rgb_dot_gc, dim=1)
+        b_row = (gdot_total[rd.tiles] - pref[rd.tiles]) + gt_final[rd.tiles]  # [Ta, 1, P]
+        g_alpha = rgb_dot_gc * t_in + (p_u - b_row) / torch.clamp(1.0 - alpha, min=1e-6)
+        keep = (alpha > 0.0) & ~(rd.alpha_raw > 0.99)
+        g_power = g_alpha * torch.where(keep, rd.live_k, torch.zeros_like(rd.live_k)) * alpha
+
+        m0, m1, m2 = rs(g_power), rs(g_power * px), rs(g_power * py)
+        m3, m4, m5 = rs(g_power * (px * px)), rs(g_power * (py * py)), rs(g_power * (px * py))
+        s_dx = x * m0 - m1
+        s_dy = y * m0 - m2
+        grads = torch.cat([
+            -(a * s_dx + b * s_dy),
+            -(c * s_dy + b * s_dx),
+            -0.5 * (x * x * m0 - 2.0 * x * m1 + m3),
+            -(x * y * m0 - x * m2 - y * m1 + m5),
+            -0.5 * (y * y * m0 - 2.0 * y * m2 + m4),
+            d_rgb,
+            m0 / torch.clamp(opac, min=1e-12),
+        ], dim=2)  # [Ta, B, 9]
+        dprops[rd.idx.flatten(), :GRAD_F] = grads.reshape(-1, GRAD_F)
+        pref[rd.tiles] = pref[rd.tiles] + p_u[:, -1:]
+    return dprops
+
+
+class _StreamComposite(torch.autograd.Function):
+    """K1 forward and K2 backward on CUDA tensors; the plain versions on CPU
+    tensors. Saves the stream rows and the forward's outputs (the backward's
+    C_total and T_final)."""
 
     @staticmethod
     def forward(ctx, props, chunk_tile, grid_w, grid_h):
-        return _launch_stream_fwd(props, chunk_tile, grid_w, grid_h)
+        if props.is_cuda:
+            color, final_t = _launch_stream_fwd(props, chunk_tile, grid_w, grid_h)
+        else:
+            color, final_t = composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h)
+        ctx.save_for_backward(props, chunk_tile, color, final_t)
+        ctx.grid = (grid_w, grid_h)
+        return color, final_t
 
     @staticmethod
     def backward(ctx, g_color, g_t):
-        raise NotImplementedError(
-            "the stream compositor backward (TPU kernel render/stream.py:411) "
-            "is ported with the training slice"
-        )
+        props, chunk_tile, color, final_t = ctx.saved_tensors
+        grid_w, grid_h = ctx.grid
+        g_color = torch.zeros_like(color) if g_color is None else g_color
+        g_t = torch.zeros_like(final_t) if g_t is None else g_t
+        if props.is_cuda:
+            dprops = _launch_stream_bwd(props, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t)
+        else:
+            dprops = composite_stream_tiles_bwd_plain(
+                props, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t
+            )
+        return dprops, None, None, None
 
 
-def _launch_stream_fwd(props, chunk_tile, grid_w, grid_h):
-    T = grid_w * grid_h
+def _checked_props(props, chunk_tile):
+    """The stream rows as the kernels read them: contiguous, 16-byte aligned
+    float32 [I_pad, 16], a whole number of chunks, on chunk_tile's device."""
     G = chunk_tile.shape[0]
     if props.dtype != torch.float32 or props.ndim != 2 or props.shape[1] != PROPS_F:
         raise ValueError(f"props must be float32 [I_pad, {PROPS_F}], got {props.dtype} {tuple(props.shape)}")
@@ -178,25 +333,54 @@ def _launch_stream_fwd(props, chunk_tile, grid_w, grid_h):
     props = props.contiguous()
     if props.data_ptr() % 16:
         raise ValueError("props must be 16-byte aligned")
+    return props
+
+
+def _launch_stream_fwd(props, chunk_tile, grid_w, grid_h):
+    """K1: (color [T, 3, P], final_T [T, 1, P])."""
+    T = grid_w * grid_h
+    G = chunk_tile.shape[0]
+    props = _checked_props(props, chunk_tile)
     start, end = tile_chunk_ranges(chunk_tile.to(torch.int32).contiguous(), T)
     color = torch.empty(T, 3, P, dtype=torch.float32, device=props.device)
     final_t = torch.empty(T, 1, P, dtype=torch.float32, device=props.device)
-    stream = torch.cuda.current_stream(props.device).cuda_stream
     STREAM_FWD.launch(
         props.data_ptr(), start.data_ptr(), end.data_ptr(), props.shape[0] // G, grid_w, T,
-        color.data_ptr(), final_t.data_ptr(), stream,
+        color.data_ptr(), final_t.data_ptr(), torch.cuda.current_stream(props.device).cuda_stream,
     )
     return color, final_t
 
 
+def _launch_stream_bwd(props, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t):
+    """K2: dprops [I_pad, 16] from K1's outputs and their cotangents."""
+    T = grid_w * grid_h
+    G = chunk_tile.shape[0]
+    props = _checked_props(props, chunk_tile)
+    for name, v, rows in (("color", color, 3), ("final_t", final_t, 1), ("g_color", g_color, 3),
+                          ("g_t", g_t, 1)):
+        if tuple(v.shape) != (T, rows, P) or v.device != props.device:
+            raise ValueError(f"{name} must be [{T}, {rows}, {P}] on {props.device}, got {tuple(v.shape)}")
+    # Per-tile residual/cotangent table [T+1, 8, P] (zero trash row T):
+    # C_total 0:3, T_final 3:4, g_color 4:7, g_t 7:8 (stream.py:833-836).
+    pad1 = lambda v: torch.cat([v.float(), v.new_zeros(1, *v.shape[1:])], dim=0)
+    tiledata = torch.cat([pad1(color), pad1(final_t), pad1(g_color), pad1(g_t)], dim=1).contiguous()
+    start, end = tile_chunk_ranges(chunk_tile.to(torch.int32).contiguous(), T + 1)
+    dprops = torch.empty_like(props)
+    STREAM_BWD.launch(
+        props.data_ptr(), tiledata.data_ptr(), start.data_ptr(), end.data_ptr(),
+        props.shape[0] // G, grid_w, T, dprops.data_ptr(),
+        torch.cuda.current_stream(props.device).cuda_stream,
+    )
+    return dprops
+
+
 def composite_stream_tiles(props, chunk_tile, grid_w, grid_h) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(color [T, 3, P], final_T [T, 1, P]) pre-background. CUDA tensors go
-    through kernel K1; CPU tensors through the plain version."""
-    if props.is_cuda:
-        return _StreamFwd.apply(props, chunk_tile, grid_w, grid_h)
-    if props.device.type != "cpu":
+    """(color [T, 3, P], final_T [T, 1, P]) pre-background, differentiable in
+    ``props``. CUDA tensors go through kernels K1 and K2; CPU tensors through
+    the plain versions."""
+    if not (props.is_cuda or props.device.type == "cpu"):
         raise ValueError(f"no stream compositor for device {props.device}")
-    return composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h)
+    return _StreamComposite.apply(props, chunk_tile, grid_w, grid_h)
 
 
 def stream_image(binned, means2d, conics, rgbs, opac, bg, *, grid_w: int, grid_h: int):
@@ -204,10 +388,16 @@ def stream_image(binned, means2d, conics, rgbs, opac, bg, *, grid_w: int, grid_h
     the instance stream. The property arrays are in the original per-Gaussian
     order that ``binned.stream_gauss`` indexes."""
     stream_gauss, chunk_tile = used_stream(binned)
-    props = stream_gather(pack_props(means2d, conics, rgbs, opac), stream_gauss)
+    props = stream_gather(pack_props(means2d, conics, rgbs, opac), binned, stream_gauss)
     color, final_t = composite_stream_tiles(props, chunk_tile, grid_w, grid_h)
+    return tiles_to_image(color, final_t, binned.covered, bg, grid_w=grid_w, grid_h=grid_h)
+
+
+def tiles_to_image(color, final_t, covered, bg, *, grid_w: int, grid_h: int):
+    """The compositor's per-tile outputs -> (padded image [3, H_pad, W_pad],
+    transmittance map [H_pad, W_pad]) over the background."""
     # Tiles no chunk reached (empty, or beyond the budget) are background.
-    covered = binned.covered[:, None]
+    covered = covered[:, None]
     final_t = torch.where(covered, final_t[:, 0, :], torch.ones_like(final_t[:, 0, :]))
     color = torch.where(covered[:, :, None], color, torch.zeros_like(color))
     color = color + final_t[:, None, :] * bg[None, :, None]

@@ -1,5 +1,5 @@
-"""Camera loading helpers: resolution logic (port of
-``gaussian_transformer_tpu/scene/camera_utils.py``).
+"""Camera loading helpers: resolution logic and the ``cameras.json`` entry
+(port of ``gaussian_transformer_tpu/scene/camera_utils.py``).
 
 Same policy as the reference: -1 downscales images wider than 1600 px to
 1600, 1/2/4/8 divide the resolution, any other value is a target width.
@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from gaussian_transformer_tpu_torch.scene.cameras import Camera
+from gaussian_transformer_tpu_torch.utils.graphics import fov2focal
 
 _warned = False
 
@@ -94,3 +95,25 @@ def load_cam(args, id, cam_info, resolution_scale, device=None) -> Camera:
 
 def camera_list_from_cam_infos(cam_infos, resolution_scale, args, device=None):
     return [load_cam(args, id, c, resolution_scale, device) for id, c in enumerate(cam_infos)]
+
+
+def camera_to_json(id, camera) -> dict:
+    """One ``cameras.json`` entry of a ``CameraInfo`` (the reference's
+    layout: camera-to-world position and rotation, focal lengths in pixels)."""
+    Rt = np.zeros((4, 4))
+    Rt[:3, :3] = camera.R.transpose()
+    Rt[:3, 3] = camera.T
+    Rt[3, 3] = 1.0
+    W2C = np.linalg.inv(Rt)
+    pos = W2C[:3, 3]
+    rot = W2C[:3, :3]
+    return {
+        "id": id,
+        "img_name": camera.image_name,
+        "width": camera.width,
+        "height": camera.height,
+        "position": pos.tolist(),
+        "rotation": [x.tolist() for x in rot],
+        "fy": fov2focal(camera.FovY, camera.height),
+        "fx": fov2focal(camera.FovX, camera.width),
+    }

@@ -5,7 +5,9 @@ Same learnable tensors and activation pairs as the reference (exp/log
 scaling, sigmoid opacity, normalized quaternion rotation, SH features split
 DC/rest), held as ``nn.Parameter``s at a static ``capacity`` with an ``alive``
 buffer, so densify slot edits and optimizer state map one to one onto the
-JAX layout. PLY save/load keeps the reference's field order.
+JAX layout. Densification edits slots in place; growing the capacity is
+``compact``, which returns a new scene. PLY save/load keeps the reference's
+field order.
 """
 
 from __future__ import annotations
@@ -18,7 +20,10 @@ import torch
 from torch import nn
 
 from gaussian_transformer_tpu_torch.device import resolve_device
+from gaussian_transformer_tpu_torch.ops.knn import mean_sq_dist_to_3nn
 from gaussian_transformer_tpu_torch.scene.ply import read_ply_vertex_table, write_ply_vertex_table
+from gaussian_transformer_tpu_torch.utils.general import inverse_sigmoid
+from gaussian_transformer_tpu_torch.utils.sh import rgb_to_sh
 
 FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
 
@@ -53,6 +58,54 @@ class GaussianScene(nn.Module):
     def empty(cls, capacity: int, max_sh_degree: int, device=None) -> "GaussianScene":
         return cls(capacity, max_sh_degree, device)
 
+    @classmethod
+    @torch.no_grad()
+    def from_pcd(cls, pcd, max_sh_degree: int, capacity: Optional[int] = None,
+                 device=None) -> "GaussianScene":
+        """Initialize from a point cloud: colors -> SH DC band, log-scales
+        from sqrt(mean 3-NN squared distance), identity rotations, opacity
+        0.1 (the reference's ``from_pcd``)."""
+        device = resolve_device(device)
+        points = torch.as_tensor(np.asarray(pcd.points, dtype=np.float32), device=device)
+        colors = torch.as_tensor(np.asarray(pcd.colors, dtype=np.float32), device=device)
+        n = points.shape[0]
+        capacity = n if capacity is None else capacity
+        if capacity < n:
+            raise ValueError(f"{n} points exceed capacity {capacity}")
+        scene = cls(capacity, max_sh_degree, device)
+        dist2 = torch.clamp(mean_sq_dist_to_3nn(points), min=1e-7)
+        scene.xyz[:n] = points
+        scene.features_dc[:n] = rgb_to_sh(colors)[:, None, :]
+        scene.scaling[:n] = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
+        scene.opacity[:n] = inverse_sigmoid(torch.full((n, 1), 0.1, device=device))
+        scene.alive[:n] = True
+        return scene
+
+    def oneup_sh_degree(self) -> "GaussianScene":
+        if self.active_sh_degree < self.max_sh_degree:
+            self.active_sh_degree += 1
+        return self
+
+    @torch.no_grad()
+    def compact(self, capacity: Optional[int] = None) -> "GaussianScene":
+        """A new scene with the alive Gaussians packed to the front, at
+        ``capacity`` (default: the alive count). Dead slots get zeros, and
+        the identity rotation."""
+        idx = torch.nonzero(self.alive).flatten()
+        n = idx.numel()
+        capacity = max(1, n) if capacity is None else capacity
+        if capacity < n:
+            raise ValueError(f"{n} alive Gaussians exceed capacity {capacity}")
+        out = type(self)(capacity, self.max_sh_degree, self.xyz.device, self.xyz.dtype)
+        for name in FIELDS:
+            dst = getattr(out, name)
+            if name != "rotation":
+                dst.zero_()
+            dst[:n] = getattr(self, name)[idx]
+        out.alive[:n] = True
+        out.active_sh_degree = self.active_sh_degree
+        return out
+
     # ---- derived quantities (activation pairs) ----
 
     @property
@@ -60,7 +113,8 @@ class GaussianScene(nn.Module):
         return self.xyz.shape[0]
 
     @property
-    def num_alive(self):
+    def num_alive(self) -> int:
+        """The alive count (a host read)."""
         return int(self.alive.sum())
 
     @property

@@ -4,7 +4,8 @@ Conventions are the reference's: matrices handed to the renderer are stored
 TRANSPOSED (row-vector convention, ``p_cam = [p_world, 1] @ world_view``), the
 projection is the z in [0, zfar/(zfar-znear)] variant, and quaternions are
 (w, x, y, z). The host-side builders stay numpy so both packages produce
-bit-identical camera matrices.
+bit-identical camera matrices; ``build_rotation`` (densification's split
+sampling) works on tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import math
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class BasicPointCloud(NamedTuple):
@@ -68,3 +70,15 @@ def fov2focal(fov: float, pixels: float) -> float:
 
 def focal2fov(focal: float, pixels: float) -> float:
     return 2 * math.atan(pixels / (2 * focal))
+
+
+def build_rotation(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion(s) (w, x, y, z) -> rotation matrices [..., 3, 3]; normalizes
+    first (the reference's ``build_rotation``)."""
+    norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+    q = q / torch.clamp(norm, min=1e-12)
+    r, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    row0 = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - r * z), 2 * (x * z + r * y)], dim=-1)
+    row1 = torch.stack([2 * (x * y + r * z), 1 - 2 * (x * x + z * z), 2 * (y * z - r * x)], dim=-1)
+    row2 = torch.stack([2 * (x * z - r * y), 2 * (y * z + r * x), 1 - 2 * (x * x + y * y)], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)

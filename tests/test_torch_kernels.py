@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels against their plain PyTorch versions,
-on the card only (marker ``gpu``; each test skips without a CUDA device).
+"""The port's hand-written CUDA kernels (K1-K4) against their plain PyTorch
+versions, on the card only (marker ``gpu``; each test skips without a CUDA
+device).
 
 This file imports no JAX, so it also runs where only the port is installed:
 
@@ -106,15 +107,97 @@ def test_ssim_kernel_matches_plain(cuda, shape):
     assert abs(out - float(fused_ssim.ssim_plain(a, b))) < 1e-5
 
 
+def _check_k2(s, seed):
+    """K2 against its plain version on random cotangents: the same bounded
+    share of termination flips as K1 (relative to the largest gradient)."""
+    props, ct = s.props(), s.chunk_tile
+    color, t = stream.composite_stream_tiles(props, ct, s.grid_w, s.grid_h)
+    gen = torch.Generator(props.device).manual_seed(seed)
+    g_color = torch.randn(color.shape, generator=gen, device=props.device)
+    g_t = torch.randn(t.shape, generator=gen, device=props.device)
+    before = stream.STREAM_BWD.launches
+    got = stream._launch_stream_bwd(props, ct, s.grid_w, s.grid_h, color, t, g_color, g_t)
+    torch.cuda.synchronize()
+    assert stream.STREAM_BWD.launches == before + 1
+    ref = stream.composite_stream_tiles_bwd_plain(props, ct, s.grid_w, s.grid_h, color, t, g_color, g_t)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    err = (got - ref).abs()
+    assert float(err.max()) <= 1e-3 * scale
+    assert float((err > 2e-4 * scale).float().mean()) <= 1e-4
+    assert torch.all(got[:, stream.GRAD_F:] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,height,chunk", [(160, 112, 0), (1920, 1080, 64), (200, 90, 128)])
+def test_stream_backward_kernel_matches_plain(cuda, width, height, chunk):
+    from gaussian_transformer_tpu_torch.render import RenderConfig
+
+    with torch.no_grad():
+        s = prepare_stream(_camera(width, height, cuda), _scene(4000, 1, cuda), RenderConfig(chunk=chunk))
+        _check_k2(s, seed=width)
+
+
+@pytest.mark.gpu
+def test_stream_backward_kernel_saturated(cuda):
+    with torch.no_grad():
+        s = prepare_stream(_camera(96, 64, cuda), _scene(3000, 2, cuda, opacity=0.97, spread=0.3))
+        _check_k2(s, seed=5)
+
+
+@pytest.mark.gpu
+def test_render_gradients_on_card_match_cpu(cuda):
+    """The whole render backward (K2 and the gather pullback on the card)
+    against the CPU path (plain K2), at the reference's 2e-4 of the largest
+    gradient."""
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        scene = _scene(600, 6, dev)
+        offset = torch.zeros(scene.capacity, 2, device=dev, requires_grad=True)
+        out = render(_camera(96, 64, dev), scene, bg_color=torch.tensor([0.2, 0.1, 0.4], device=dev),
+                     screenspace_offset=offset)
+        loss = torch.sum(out["render"] ** 2) + 0.1 * torch.sum(out["final_T"])
+        leaves = [scene.xyz, scene.opacity, scene.scaling, scene.features_dc, offset]
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    for a, b in zip(*grads):
+        assert torch.all(torch.isfinite(a))
+        assert float((a - b).abs().max()) <= 2e-4 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 1080, 1920), (2, 3, 70, 129), (1, 5, 7)])
+def test_ssim_backward_kernel_matches_plain(cuda, shape):
+    """Through autograd, on cropped (non-contiguous) images as the renderer's
+    output is."""
+    rng = np.random.RandomState(5)
+    pad = shape[:-1] + (shape[-1] + 3,)
+    a, b = (torch.from_numpy(rng.rand(*pad).astype(np.float32)).to(cuda)[..., : shape[-1]].requires_grad_()
+            for _ in range(2))
+    assert not a.is_contiguous()
+    before = fused_ssim.SSIM_BWD.launches
+    d1, d2 = torch.autograd.grad(-3.0 * ssim(a, b), (a, b))
+    torch.cuda.synchronize()
+    assert fused_ssim.SSIM_BWD.launches == before + 1
+    flat = lambda x: x.detach().reshape(-1, *x.shape[-2:])
+    r1, r2 = fused_ssim.ssim_bwd_plain(flat(a), flat(b), torch.tensor(-3.0, device=cuda))
+    for got, ref in ((d1, r1), (d2, r2)):
+        assert got.shape == a.shape
+        assert float((got.reshape(ref.shape) - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    k1, k2 = fused_ssim._launch_ssim_bwd(flat(a), flat(b), torch.tensor(-3.0, device=cuda))
+    assert float((k1 - r1).abs().max()) <= 1e-4 * float(r1.abs().max())
+
+
 @pytest.mark.gpu
 def test_kernels_reject_bad_inputs_and_gradients(cuda):
     a = torch.rand(3, 16, 16, device=cuda)
     with pytest.raises(ValueError):
         fused_ssim.fused_ssim(a, a.double())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_ssim.fused_ssim(a.clone().requires_grad_(), a).backward()
+    # Gradients flow through both kernels' autograd nodes.
+    x = a.clone().requires_grad_()
+    fused_ssim.fused_ssim(x, torch.rand_like(a)).backward()
+    assert x.grad is not None and torch.all(torch.isfinite(x.grad))
     props = torch.zeros(64, 16, device=cuda, requires_grad=True)
     ct = torch.zeros(2, dtype=torch.int32, device=cuda)
     color, t = stream.composite_stream_tiles(props, ct, 1, 1)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        (color.sum() + t.sum()).backward()
+    (color.sum() + t.sum()).backward()
+    assert props.grad is not None and float(props.grad.abs().max()) == 0.0  # empty rows: no gradient

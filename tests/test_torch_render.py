@@ -176,7 +176,8 @@ def test_cli_render_and_metrics(tmp_path):
 
     scene = make_scene(150, seed=8, spread=1.0)
     model = _blender_model_dir(tmp_path, scene)
-    stats = cli_render.main(["-m", str(model), "--device", "cpu", "--skip_train", "--quiet"])
+    # --debug: the reference's pipeline flags are accepted (and change nothing).
+    stats = cli_render.main(["-m", str(model), "--device", "cpu", "--skip_train", "--quiet", "--debug"])
     assert [s["view"] for s in stats] == [0, 1] and all(s["overflow"] == 0 for s in stats)
     out_dir = model / "test" / "ours_7"
     assert sorted(os.listdir(out_dir)) == ["gt", "renders"]
@@ -223,7 +224,10 @@ def test_device_policy_and_unported_paths(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             GaussianScene(4, 1)
     assert resolve_device("cpu") == torch.device("cpu")
-    args = Namespace(model_path=str(tmp_path), source_path=str(tmp_path), images="images",
+    # A fresh scene (no load_iteration) now initializes from the dataset's
+    # point cloud, so it needs a dataset: an empty dir is refused.
+    args = Namespace(model_path=str(tmp_path / "model"), source_path=str(tmp_path), images="images",
                      eval=False, white_background=False, resolution=-1)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="unrecognized scene layout"):
         Scene(args, load_iteration=None, device="cpu")
+    assert not (tmp_path / "model").exists()

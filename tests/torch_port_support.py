@@ -2,7 +2,13 @@
 carry JAX scenes and cameras into the port."""
 
 import numpy as np
+import torch
 from gaussian_transformer_tpu_torch.convert import camera_from_numpy, scene_from_numpy
+
+# The suite runs in several worker processes on a few cores, and every
+# worker imports this module. One torch intra-op thread each keeps their
+# OpenMP pools from oversubscribing the cores (the test shapes are small).
+torch.set_num_threads(1)
 
 SCENE_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity", "alive")
 
