@@ -44,6 +44,26 @@ The training path:
    into forward, loss, backward and Adam; K2 and K4 and their plain versions
    with their bounds.
 
+The table path (``RenderConfig(use_stream=False)``: ``bin_gaussians`` and the
+[T, K] table compositor, kernels K5 and K6):
+
+10. Serving: the test views of the 1M scene rendered through ``render()``,
+    each with ``max_per_tile`` the smallest multiple of 32 at or above its
+    largest per-tile instance count (from a probe binning), counters zeroed
+    just before and read just after; checks K5 ran once per view and nothing
+    overflowed. Then K5 against its plain version on view 0, the table render
+    against the stream render of the same view (so K5 against K1), and the
+    times: the render by stage (project, bin, table build, K5), K5, plain K5,
+    bound.
+11. Training: a ``Scene`` of section 6's dataset trained by
+    ``train/splat.py training()`` for 60 steps with ``max_per_tile`` from
+    probe binnings of every train view (+25%); checks K6 ran once per step
+    and K5 once per step and probe render, the loss falls, and prints the
+    overflow of every step.
+12. K6 against its plain version on train view 0 from the first step's
+    state at the trainer's budgets, on the loss's true cotangents; times of
+    the median table train step by phase, K6, plain K6, bound.
+
 The last three lines of standard output are the kernels JSON line, the
 card's ``name, power.limit`` as nvidia-smi prints them, and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -69,13 +89,17 @@ ROOT = Path(__file__).resolve().parent
 # Published H100 SXM peaks (the card's data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-# Operation counts used for the bounds (fp32, outside the tensor cores).
-K1_OPS_PER_PAIR = 20  # power (10), exp, alpha cap/skip tests, T update, 3 FMAs
+# Operation counts used for the bounds (fp32, outside the tensor cores). The
+# compositors' walk costs every walked (row, pixel) pair WALK_OPS_PER_PAIR;
+# a pair that contributes (not skipped, not the terminating row) costs the
+# kernel's *_OPS_PER_LIVE more.
+WALK_OPS_PER_PAIR = 14  # power (10), exp, opacity product, alpha cap, skip test
+K1_OPS_PER_LIVE = 6  # T update (2), w, 3 FMAs
 K3_OPS_PER_PIXEL = 3 + 2 * (5 * 11 * 2) + 17  # products, two 11-tap passes x 5 fields, map
-# K1's walk (20), then per live pair: w, <rgb, gC> and the prefix (8), w gC
-# (3), g_alpha (7), g_power and its 5 weighted copies (8), and the 9 sums
-# over the tile's pixels (9 adds per pair).
-K2_OPS_PER_PAIR = 20 + 8 + 3 + 7 + 8 + 9
+# K1's (6), then w, <rgb, gC> and the prefix (8), w gC (3), g_alpha (7),
+# g_power and its 5 weighted copies (8), and the 9 sums over the tile's
+# pixels (9 adds per pair).
+K2_OPS_PER_LIVE = K1_OPS_PER_LIVE + 8 + 3 + 7 + 8 + 9
 # Products (3), fields by two 11-tap passes (220), partials (30), scale (4),
 # four maps filtered back (176), combine (8).
 K4_OPS_PER_PIXEL = 3 + 2 * (5 * 11 * 2) + 30 + 4 + 2 * (4 * 11 * 2) + 8
@@ -90,6 +114,12 @@ K2_MAX_ERR = 1e-3
 K2_ATOL = 2e-4
 K2_MAX_SHARE = 1e-4
 K4_MAX_ERR = 1e-4  # relative to the largest gradient
+# K6: K5's (6), then w, <rgb, gC> and the prefix (8), w gC (3), g_alpha (7),
+# g_power (1), dx and dy (2), the five geometric terms (16), and the 9 sums
+# over the tile's pixels (9 adds per pair).
+K6_OPS_PER_LIVE = K1_OPS_PER_LIVE + 8 + 3 + 7 + 1 + 2 + 16 + 9
+# The training table's max_per_tile: the largest probed count plus 25%.
+TABLE_TRAIN_HEADROOM = 1.25
 SH_C0 = 0.28209479177387814
 
 
@@ -402,13 +432,14 @@ def run(args, device) -> dict:
         props = s.props()
         ct = s.chunk_tile
         color, t_fin = stream.composite_stream_tiles(props, ct, s.grid_w, s.grid_h)
-        p_color, p_t, pairs = stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h, count_work=True)
+        p_color, p_t, (pairs, live) = stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h,
+                                                                          count_work=True)
         cov = s.binned.covered
         err = torch.cat([(color - p_color)[cov].flatten(), (t_fin - p_t)[cov].flatten()]).abs()
         k1_err = float(err.max()) if err.numel() else 0.0
         k1_share = float((err > K1_ATOL).float().mean()) if err.numel() else 0.0
         print(f"K1: {int(s.binned.n_instances)} instances, {int(s.binned.n_padded)} padded rows, "
-              f"chunk {props.shape[0] // ct.shape[0]}, {pairs} evaluated (row, pixel) pairs")
+              f"chunk {props.shape[0] // ct.shape[0]}, {pairs} walked (row, pixel) pairs, {live} contributing")
         print(f"K1 vs plain: max abs diff {k1_err:.3e} (tolerance {K1_MAX_ERR}), "
               f"share beyond {K1_ATOL}: {k1_share:.3e} (tolerance {K1_MAX_SHARE})")
         check(k1_err <= K1_MAX_ERR and k1_share <= K1_MAX_SHARE, "K1 agrees with its plain version")
@@ -475,7 +506,7 @@ def run(args, device) -> dict:
         T = s.grid_w * s.grid_h
         real_rows = int(s.binned.tile_counts.sum())
         k1_bytes = real_rows * 9 * 4 + T * 4 * 256 * 4 + 2 * T * 4
-        k1_ops = pairs * K1_OPS_PER_PAIR
+        k1_ops = pairs * WALK_OPS_PER_PAIR + live * K1_OPS_PER_LIVE
         n_px = img.numel()
         k3_bytes = 2 * n_px * 4 + 4 * math.ceil(args.height / 32) * math.ceil(args.width / 32) * img.shape[0]
         k3_ops = n_px * K3_OPS_PER_PIXEL
@@ -504,11 +535,12 @@ def run(args, device) -> dict:
              "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
              "tolerance": {"atol": K3_ATOL}},
         ]
-        summary.update(smi=smi, render_ms=render_ms, stage_ms=stages, evaluated_pairs=pairs,
+        summary.update(smi=smi, render_ms=render_ms, stage_ms=stages, walked_pairs=pairs, live_pairs=live,
                        real_rows=real_rows, render_profile=profile)
     del s, props, ct, color, t_fin, p_color, p_t, img, gt
 
     kernels_line["kernels"] += train_path(args, device, scene, summary)
+    kernels_line["kernels"] += table_path(args, device, scene, fovx, splits["test"], summary)
     summary.update(kernels_line)
     return summary
 
@@ -674,21 +706,22 @@ def train_path(args, device, scene, summary) -> list:
         k4_ms = cuda_ms(lambda: fused_ssim._launch_ssim_bwd(img, gt, g_one), reps=50)
         k4_cold_ms = cuda_ms_cold(lambda: fused_ssim._launch_ssim_bwd(img, gt, g_one), reps=20)
         k4_plain_ms = cuda_ms(lambda: fused_ssim.ssim_bwd_plain(img, gt, g_one), reps=5)
-        pairs = stream.composite_stream_tiles_plain(props, ct, gw, gh, count_work=True)[2]
+        pairs, live = stream.composite_stream_tiles_plain(props, ct, gw, gh, count_work=True)[2]
     T = gw * gh
     real_rows = int(s.binned.tile_counts.sum())
     k2_bytes = real_rows * 9 * 4 + T * 8 * 256 * 4 + props.shape[0] * 16 * 4
-    k2_ops = pairs * K2_OPS_PER_PAIR
+    k2_ops = pairs * WALK_OPS_PER_PAIR + live * K2_OPS_PER_LIVE
     n_px = img.numel()
     k4_bytes = 4 * n_px * 4
     k4_ops = n_px * K4_OPS_PER_PIXEL
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     k4_bound, k4_by = bound(k4_bytes, k4_ops)
     print(f"[{smi}] K2 (chunk {chunk}, {props.shape[0]} stream rows) {k2_ms:.4f} ms "
-          f"(L2 cold {k2_cold_ms:.4f}), plain {k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms ({k2_by}: {k2_bytes} B, {k2_ops} fp32 ops, {pairs} pairs)")
+          f"(L2 cold {k2_cold_ms:.4f}), plain {k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms ({k2_by}: {k2_bytes} B, "
+          f"{k2_ops} fp32 ops, {pairs} walked pairs, {live} contributing)")
     print(f"[{smi}] K4 {k4_ms:.4f} ms (L2 cold {k4_cold_ms:.4f}), plain {k4_plain_ms:.3f} ms, "
           f"bound {k4_bound:.4f} ms ({k4_by}: {k4_bytes} B, {k4_ops} fp32 ops)")
-    summary.update(train_step_ms=step_ms, train_phase_ms=med, train_pairs=pairs,
+    summary.update(train_step_ms=step_ms, train_phase_ms=med, train_pairs=pairs, train_live_pairs=live,
                    train_real_rows=real_rows, train_step_profile=step_profile)
     return [
         {"name": "stream_bwd", "route": "cuda",
@@ -706,6 +739,245 @@ def train_path(args, device, scene, summary) -> list:
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
          "tolerance": {"max_abs_of_max": K4_MAX_ERR}},
     ]
+
+
+def round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def max_tile_count(cam, gaussians, cfg) -> int:
+    """The largest per-tile instance count of a view as the table path bins
+    it with ``cfg``'s budgets (probe binnings at a cap that doubles until no
+    tile reaches it)."""
+    from gaussian_transformer_tpu_torch.render import prepare_table
+
+    k = 4096
+    while True:
+        peak = int(prepare_table(cam, gaussians, cfg.replace(use_stream=False, max_per_tile=k)).binned.tile_counts.max())
+        if peak < k:
+            return peak
+        k *= 2
+
+
+def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
+    """Sections 10-12: the table path's serving and training and the K5/K6
+    checks and times. Returns the K5 and K6 entries of the kernels line
+    (none off the card)."""
+    import random
+    import shutil
+
+    import torch
+
+    from gaussian_transformer_tpu_torch.config import OptConfig
+    from gaussian_transformer_tpu_torch.ops import fused_ssim
+    from gaussian_transformer_tpu_torch.ops.losses import l1_loss
+    from gaussian_transformer_tpu_torch.render import RenderConfig, prepare_table, project_view, render
+    from gaussian_transformer_tpu_torch.render import stream, table_composite
+    from gaussian_transformer_tpu_torch.scene import Scene
+    from gaussian_transformer_tpu_torch.scene.gaussians import GaussianScene
+    from gaussian_transformer_tpu_torch.scene.ply import fetch_point_cloud
+    from gaussian_transformer_tpu_torch.train.splat import PHASES, training
+    from gaussian_transformer_tpu_torch.utils.png import read_png
+
+    on_card = device.type == "cuda"
+    W, H = args.width, args.height
+    work = Path(args.work)
+    k5_fn, k6_fn = table_composite.TABLE_FWD, table_composite.TABLE_BWD
+
+    print("== 10. table path, serving: the test views through render(use_stream=False)")
+    cams = [camera_from_c2w(c2w, fovx, W, H, device) for c2w in test_c2ws]
+    with torch.no_grad():
+        peaks = [max_tile_count(cam, scene, RenderConfig()) for cam in cams]
+    k_views = [round_up(v, 32) for v in peaks]
+    k_serve = k_views[0]
+    cfg = RenderConfig(use_stream=False, max_per_tile=k_serve)
+    print(f"largest per-tile instance count by view: {peaks}; max_per_tile by view {k_views} "
+          f"(view 0: K_serve = {k_serve})")
+    k5_fn.launches = k6_fn.launches = 0
+    t0 = time.time()
+    with torch.no_grad():
+        outs = [render(cam, scene, cfg.replace(max_per_tile=k)) for cam, k in zip(cams, k_views)]
+        overflow = [int(o["overflow"]) for o in outs]
+    t_serve = time.time() - t0
+    k5_serve = k5_fn.launches
+    print(f"{len(cams)} table renders: {t_serve:.2f} s; K5 launches {k5_serve}; overflow by view {overflow}; "
+          f"instances by view {[int(o['n_instances']) for o in outs]}")
+    if on_card:
+        check(k5_serve == len(cams), f"K5 launched once per rendered view ({len(cams)})")
+    check(all(v == 0 for v in overflow), "overflow == 0 on every view")
+    with torch.no_grad():
+        s = prepare_table(cams[0], scene, cfg)
+        props, counts, gw = s.props(), s.binned.tile_counts, s.grid_w
+        color, final_t = table_composite.composite_table_tiles(props, counts, gw)
+        p_color, p_t, (pairs, live) = table_composite.composite_table_tiles_plain(props, counts, gw,
+                                                                                  count_work=True)
+        err = torch.cat([(color - p_color).flatten(), (final_t - p_t).flatten()]).abs()
+        k5_err, k5_share = float(err.max()), float((err > K1_ATOL).float().mean())
+        real_rows = int(counts.sum())
+        print(f"K5: table [{props.shape[0]}, {props.shape[1]}, 16], {real_rows} real rows "
+              f"({1 - real_rows / (props.shape[0] * props.shape[1]):.3f} of the rows are padding), "
+              f"{pairs} walked (row, pixel) pairs, {live} contributing")
+        print(f"K5 vs plain: max abs diff {k5_err:.3e} (tolerance {K1_MAX_ERR}), share beyond {K1_ATOL}: "
+              f"{k5_share:.3e} (tolerance {K1_MAX_SHARE})")
+        check(k5_err <= K1_MAX_ERR and k5_share <= K1_MAX_SHARE, "K5 agrees with its plain version")
+        ref = render(cams[0], scene)
+        err = torch.cat([(outs[0]["render"] - ref["render"]).flatten(),
+                         (outs[0]["final_T"] - ref["final_T"]).flatten()]).abs()
+        tvs_err, tvs_share = float(err.max()), float((err > K1_ATOL).float().mean())
+        print(f"table vs stream render of view 0: max abs diff {tvs_err:.3e} (tolerance {K1_MAX_ERR}), "
+              f"share beyond {K1_ATOL}: {tvs_share:.3e} (tolerance {K1_MAX_SHARE})")
+        check(tvs_err <= K1_MAX_ERR and tvs_share <= K1_MAX_SHARE, "the table render agrees with the stream render")
+    del outs, ref, p_color, p_t, err
+    summary.update(table_k_serve=k_serve, table_serve_peaks=peaks, table_serve_k=k_views, table_serve_overflow=overflow,
+                   table_serve_s=t_serve, table_k5_pairs=pairs, table_k5_live_pairs=live, table_real_rows=real_rows,
+                   table_vs_stream_err=tvs_err)
+    entries = []
+    if on_card:
+        smi = smi_line()
+        cam0 = cams[0]
+        with torch.no_grad():
+            render_ms = cuda_ms(lambda: render(cam0, scene, cfg), reps=5)
+            stages = {
+                "project": cuda_ms(lambda: project_view(cam0, scene, 1.0, None), reps=5),
+                "project+bin": cuda_ms(lambda: prepare_table(cam0, scene, cfg), reps=5),
+                "table build": cuda_ms(lambda: s.props(), reps=5),
+            }
+            k5_ms = cuda_ms(lambda: table_composite.composite_table_tiles(props, counts, gw), reps=20)
+            k5_cold_ms = cuda_ms_cold(lambda: table_composite.composite_table_tiles(props, counts, gw), reps=10)
+            k5_plain_ms = cuda_ms(lambda: table_composite.composite_table_tiles_plain(props, counts, gw), reps=2)
+            profile = render_profile(lambda: render(cam0, scene, cfg))
+        T = props.shape[0]
+        k5_bytes = real_rows * 9 * 4 + T * 4 + T * 4 * 256 * 4
+        k5_ops = pairs * WALK_OPS_PER_PAIR + live * K1_OPS_PER_LIVE
+        k5_bound, k5_by = bound(k5_bytes, k5_ops)
+        print(f"[{smi}] table render {render_ms:.3f} ms/view: project {stages['project']:.3f} ms, "
+              f"bin {stages['project+bin'] - stages['project']:.3f} ms, table build {stages['table build']:.3f} ms, "
+              f"K5 {k5_ms:.3f} ms (stages timed apart)")
+        print(f"top CUDA kernels of one table render (torch.profiler, device time):\n{profile}")
+        print(f"[{smi}] K5 {k5_ms:.4f} ms (L2 cold {k5_cold_ms:.4f}), plain {k5_plain_ms:.2f} ms, "
+              f"bound {k5_bound:.4f} ms ({k5_by}: {k5_bytes} B, {k5_ops} fp32 ops)")
+        summary.update(table_render_ms=render_ms, table_stage_ms=stages, table_render_profile=profile)
+        entries.append(
+            {"name": "table_fwd", "route": "cuda",
+             "source": "gaussian_transformer_tpu_torch/csrc/table_fwd.cu",
+             "replaces": "gaussian_transformer_tpu/render/pallas_composite.py:187",
+             "launches": k5_serve, "max_abs_err": k5_err, "ms": k5_ms, "ms_l2_cold": k5_cold_ms,
+             "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None,
+             "tolerance": {"atol": K1_ATOL, "max_share_beyond": K1_MAX_SHARE, "max_abs": K1_MAX_ERR},
+             "share_beyond_atol": k5_share, "max_per_tile": k_serve})
+    del s, props, counts, color, final_t
+
+    print("== 11. table path, training: train/splat.py training() on the section-6 dataset")
+    data, model = work / "train_data", work / "table_model"
+    shutil.rmtree(model, ignore_errors=True)
+    random.seed(args.seed)
+    scene_obj = Scene(Namespace(model_path=str(model), source_path=str(data), images="images", eval=True,
+                                white_background=False, resolution=1, data_device=str(device)),
+                      shuffle=False, sh_degree=3, device=device)
+    train_cams = scene_obj.get_train_cameras()
+    with torch.no_grad():
+        train_peaks = [max_tile_count(cam, scene_obj.gaussians, RenderConfig()) for cam in train_cams]
+    k_train = round_up(int(max(train_peaks) * TABLE_TRAIN_HEADROOM), 32)
+    print(f"largest per-tile instance count by train view: {train_peaks}; K_train = {k_train}")
+    n = args.iterations
+    third = n // 3
+    opt = OptConfig(iterations=n, densify_from_iter=third, densification_interval=third, densify_until_iter=n)
+    hist = []
+
+    def log_fn(iteration, loss, overflow, phase_ms, densify, render_cfg, **_):
+        hist.append({"iteration": iteration, "loss": loss, "overflow": overflow, "phase_ms": phase_ms,
+                     "densify": densify, "render_cfg": render_cfg})
+
+    cap0 = max(256, int(scene_obj.gaussians.num_alive * 4.0))  # training()'s default headroom
+    k5_fn.launches = k6_fn.launches = 0
+    t0 = time.time()
+    training(scene_obj, opt, RenderConfig(use_stream=False, max_per_tile=k_train), seed=args.seed, log_fn=log_fn)
+    t_train = time.time() - t0
+    launches = {"K5": k5_fn.launches, "K6": k6_fn.launches}
+    losses = [h["loss"] for h in hist]
+    # A probe render tunes the budgets at the start and after each compaction, at 50k slots and more.
+    caps = [cap0] + [h["densify"]["capacity"] for h in hist if h["densify"] and "capacity" in h["densify"]]
+    probes = sum(c >= 50_000 for c in caps)
+    print(f"training() {n} steps with the table path: {t_train:.1f} s; launches {launches}, probe renders {probes}")
+    print(f"loss by step: {[round(v, 5) for v in losses]}")
+    print(f"overflow by step: {[h['overflow'] for h in hist]}")
+    print("densify: " + str([(h["iteration"], h["densify"]) for h in hist if h["densify"]]))
+    if on_card:
+        check(launches["K6"] == n and launches["K5"] == n + probes,
+              f"K6 launched once per step ({n}), K5 once per step and probe render ({n} + {probes})")
+    check(len(losses) == n and all(math.isfinite(v) for v in losses), "every table-path loss is finite")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last < first, f"table path: mean loss of the last 10 steps {last:.5f} < first 10 {first:.5f}")
+    tcfg = hist[0]["render_cfg"]
+    print(f"trainer's table budgets: max_per_tile {tcfg.max_per_tile}, max_instances {tcfg.max_instances}")
+    summary.update(table_k_train=k_train, table_train_peaks=train_peaks, table_train_s=t_train,
+                   table_train_losses=losses, table_train_launches=launches,
+                   table_train_overflow=[h["overflow"] for h in hist])
+    del scene_obj
+
+    print("== 12. K6 on train view 0, first step's state, the trainer's budgets")
+    g0 = GaussianScene.from_pcd(fetch_point_cloud(str(data / "points3d.ply")), 1,
+                                capacity=4 * args.train_points, device=device)
+    cam = camera_from_c2w(orbit_c2w(0.0), fovx, W, H, device)
+    gt = torch.as_tensor(read_png(str(data / "train" / "r_0.png"))[..., :3].transpose(2, 0, 1) / 255.0,
+                         dtype=torch.float32, device=device)
+    bg = torch.zeros(3, device=device)
+    with torch.no_grad():
+        s = prepare_table(cam, g0, tcfg)
+        props, counts, gw, gh = s.props(), s.binned.tile_counts, s.grid_w, s.grid_h
+        color, final_t = table_composite.composite_table_tiles(props, counts, gw)
+    c, t = color.clone().requires_grad_(), final_t.clone().requires_grad_()
+    img = stream.tiles_to_image(c, t, None, bg, grid_w=gw, grid_h=gh)[0][:, :H, :W]
+    loss = 0.8 * l1_loss(img, gt) + 0.2 * (1.0 - fused_ssim.ssim_plain(img, gt))
+    g_color, g_t = torch.autograd.grad(loss, [c, t])
+    k6_in = (props, counts, gw, color, final_t, g_color, g_t)
+    with torch.no_grad():
+        d_plain = table_composite.composite_table_tiles_bwd_plain(*k6_in)
+        real_rows = int(counts.sum())
+        print(f"K6: table [{props.shape[0]}, {props.shape[1]}, 16], {real_rows} real rows, "
+              f"overflow {int(s.binned.overflow)}")
+        if not on_card:
+            return entries
+        d_k6 = table_composite._launch_table_bwd(*k6_in)
+        scale = float(d_plain.abs().max())
+        err = (d_k6 - d_plain)[..., :stream.GRAD_F].abs()
+        k6_err, k6_share = float(err.max()), float((err > K2_ATOL * scale).float().mean())
+        print(f"K6 vs plain: max abs diff {k6_err:.3e} = {k6_err / scale:.3e} of max |plain| {scale:.3e} "
+              f"(tolerance {K2_MAX_ERR}), share beyond {K2_ATOL} of max: {k6_share:.3e} (tolerance {K2_MAX_SHARE})")
+        check(k6_err <= K2_MAX_ERR * scale and k6_share <= K2_MAX_SHARE
+              and bool(torch.all(d_k6[..., stream.GRAD_F:] == 0)), "K6 agrees with its plain version")
+    del d_plain, d_k6, err, g0
+
+    print("== 12b. table train times (CUDA events)")
+    smi = smi_line()
+    steady = [h for h in hist if h["iteration"] > 10 and not h["densify"]]
+    med = {k: float(np.median([h["phase_ms"][k] for h in steady])) for k in PHASES}
+    step_ms = float(np.median([sum(h["phase_ms"].values()) for h in steady]))
+    print(f"[{smi}] median table train step {step_ms:.3f} ms over {len(steady)} steps "
+          f"(steps 11-{n} without the densify step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()))
+    with torch.no_grad():
+        k6_ms = cuda_ms(lambda: table_composite._launch_table_bwd(*k6_in), reps=20)
+        k6_cold_ms = cuda_ms_cold(lambda: table_composite._launch_table_bwd(*k6_in), reps=10)
+        k6_plain_ms = cuda_ms(lambda: table_composite.composite_table_tiles_bwd_plain(*k6_in), reps=2)
+        pairs, live = table_composite.composite_table_tiles_plain(props, counts, gw, count_work=True)[2]
+    T, Kp = props.shape[0], props.shape[1]
+    k6_bytes = real_rows * 9 * 4 + T * 4 + T * 8 * 256 * 4 + T * Kp * 16 * 4
+    k6_ops = pairs * WALK_OPS_PER_PAIR + live * K6_OPS_PER_LIVE
+    k6_bound, k6_by = bound(k6_bytes, k6_ops)
+    print(f"[{smi}] K6 (table [{T}, {Kp}, 16]) {k6_ms:.4f} ms (L2 cold {k6_cold_ms:.4f}), plain {k6_plain_ms:.2f} ms, "
+          f"bound {k6_bound:.4f} ms ({k6_by}: {k6_bytes} B, {k6_ops} fp32 ops, {pairs} walked pairs, "
+          f"{live} contributing)")
+    summary.update(table_train_step_ms=step_ms, table_train_phase_ms=med, table_k6_pairs=pairs,
+                   table_k6_live_pairs=live, table_k6_real_rows=real_rows)
+    entries.append(
+        {"name": "table_bwd", "route": "cuda",
+         "source": "gaussian_transformer_tpu_torch/csrc/table_bwd.cu",
+         "replaces": "gaussian_transformer_tpu/render/pallas_composite.py:237",
+         "launches": launches["K6"], "max_abs_err": k6_err, "ms": k6_ms, "ms_l2_cold": k6_cold_ms,
+         "plain_ms": k6_plain_ms, "bound_ms": k6_bound, "bound_by": k6_by, "library_ms": None,
+         "tolerance": {"max_abs_of_max": K2_MAX_ERR, "atol_of_max": K2_ATOL, "max_share_beyond": K2_MAX_SHARE},
+         "share_beyond_atol": k6_share, "max_per_tile": Kp})
+    return entries
 
 
 def main(argv=None) -> int:

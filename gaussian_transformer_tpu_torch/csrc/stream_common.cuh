@@ -1,12 +1,13 @@
-// Shared per-(row, pixel) arithmetic of the stream compositor kernels.
+// Shared per-(row, pixel) arithmetic of the compositor kernels.
 //
-// The forward (stream_fwd.cu) and the backward (stream_bwd.cu) must agree
-// bit for bit on every alpha and on the transmittance walk: the backward
-// recomputes T, and a pixel whose T crosses 1e-4 one contribution earlier in
-// one kernel than in the other would get a gradient for a contribution the
-// image never had. So both kernels evaluate these inline functions, written
-// with explicitly rounded operations (__fmul_rn and friends are never fused
-// into FMAs), in the reference's operation order.
+// A forward (stream_fwd.cu, table_fwd.cu) and its backward (stream_bwd.cu,
+// table_bwd.cu) must agree bit for bit on every alpha and on the
+// transmittance walk: the backward recomputes T, and a pixel whose T crosses
+// 1e-4 one contribution earlier in one kernel than in the other would get a
+// gradient for a contribution the image never had. So the kernels evaluate
+// these inline functions, written with explicitly rounded operations
+// (__fmul_rn and friends are never fused into FMAs), in the reference's
+// operation order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,8 +24,10 @@ constexpr float kAlphaCap = (float)0.99;
 constexpr float kMinAlpha = (float)(1.0 / 255.0);
 constexpr float kMinT = (float)1e-4;
 
-// -0.5 * (a dx^2 + c dy^2) - b dx dy with dx = x - px, dy = y - py; x, y are
-// tile-local means, px, py the pixel's tile-local integer coordinates.
+// -0.5 * (a dx^2 + c dy^2) - b dx dy with dx = x - px, dy = y - py, where
+// x, y is the splat's mean and px, py the pixel's integer center in the same
+// frame: tile-local in the stream kernels, absolute screen coordinates in
+// the table kernels (each as its reference evaluates them).
 __device__ __forceinline__ float splat_power(float x, float y, float a, float b, float c,
                                              float px, float py) {
   const float dx = __fsub_rn(x, px);
@@ -47,6 +50,13 @@ __device__ __forceinline__ bool splat_skipped(float power, float alpha) {
 // contribution that would take it below 1e-4.
 __device__ __forceinline__ float next_t(float T, float alpha) {
   return __fmul_rn(T, __fsub_rn(1.0f, alpha));
+}
+
+// Rows of a table tile the walk reads: its count rounded up to the
+// reference's 32-row chunk, at most K.
+constexpr int kChunk = 32;
+__device__ __forceinline__ int walked_rows(int count, int K) {
+  return min((max(count, 0) + kChunk - 1) / kChunk * kChunk, K);
 }
 
 }  // namespace stream_common

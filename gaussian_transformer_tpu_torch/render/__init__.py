@@ -1,17 +1,23 @@
 """Tile-based Gaussian-splat renderer (port of
-``gaussian_transformer_tpu/render/__init__.py``: the fp32 stream path).
+``gaussian_transformer_tpu/render/__init__.py``: the fp32 paths).
 
 ``render(camera, scene, ...)`` returns the reference's dict: ``render``
 [3, H, W], ``viewspace_points``, ``visibility_filter``, ``radii``, plus the
-``final_T``, ``overflow``, ``n_instances``, ``n_padded`` and ``n_tiles``
-diagnostics. Pipeline: project (project.py) -> padded-CSR binning
-(tiles.bin_stream) -> stream compositor (stream.py, kernels K1 and K2 on
-CUDA). ``render`` is differentiable in the scene's parameters and in
+``final_T``, ``overflow`` and ``n_instances`` diagnostics (and ``n_padded``,
+``n_tiles`` on the stream path). Pipeline: project (project.py), then
+
+- ``use_stream=True`` (default): padded-CSR binning (tiles.bin_stream), then
+  the stream compositor (stream.py, kernels K1 and K2 on CUDA);
+- ``use_stream=False``: depth sort and per-tile [T, max_per_tile] lists
+  (tiles.bin_gaussians), then the table compositor (table_composite.py,
+  kernels K5 and K6 on CUDA).
+
+``render`` is differentiable in the scene's parameters and in
 ``screenspace_offset`` (the screen-space gradient the densification reads).
 ``render_naive`` is the brute-force golden model the tests hold it against.
 
-Not yet ported: ``precision="bf16"``, ``use_pallas=False`` and
-``use_stream=False`` raise ``NotImplementedError``.
+Not yet ported: ``precision="bf16"`` and ``use_pallas=False`` (the
+reference's plain XLA compositor) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,19 +29,36 @@ from typing import NamedTuple, Optional
 import torch
 
 from gaussian_transformer_tpu_torch.render.project import Projected, project_gaussians
-from gaussian_transformer_tpu_torch.render.stream import pack_props, stream_gather, stream_image, used_stream
-from gaussian_transformer_tpu_torch.render.tiles import TILE, StreamBinned, bin_stream, compute_rects, num_tiles
+from gaussian_transformer_tpu_torch.render.stream import (
+    pack_props,
+    stream_gather,
+    stream_image,
+    tiles_to_image,
+    used_stream,
+)
+from gaussian_transformer_tpu_torch.render.table_composite import build_props_table, composite_table_tiles
+from gaussian_transformer_tpu_torch.render.tiles import (
+    TILE,
+    Binned,
+    StreamBinned,
+    bin_gaussians,
+    bin_stream,
+    compute_rects,
+    num_tiles,
+)
 
-__all__ = ["render", "render_naive", "RenderConfig", "TILE", "tune_config", "prepare_stream"]
+__all__ = ["render", "render_naive", "RenderConfig", "TILE", "tune_config", "prepare_stream", "prepare_table"]
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Rasterizer configuration: the reference's fields (and defaults) that
-    the ported stream path reads, plus the three it must reject. The
-    table-path (``max_per_tile``, ``tile_block``) and XLA-path
-    (``block_rows``) knobs come with the slices that port those paths."""
+    the ported paths read, plus ``use_pallas`` and ``precision``, whose
+    False and "bf16" are not ported yet and raise."""
 
+    # Static per-tile list capacity of the table path; overflow drops the
+    # farthest Gaussians of a tile.
+    max_per_tile: int = 256
     # Static cap on tiles covered per Gaussian.
     max_tiles_per_gaussian: int = 1024
     # Exact tile culling in the binning (changes no output bit).
@@ -46,9 +69,11 @@ class RenderConfig:
     max_stream: int = 0
     # Stream layout granularity (rows per chunk); 0 = the reference's policy.
     chunk: int = 0
-    # Not ported yet; anything but the defaults raises NotImplementedError.
-    use_pallas: bool = True
+    # Compositor kernels: the padded-CSR stream (True) or the [T, K] table.
     use_stream: bool = True
+    # Not ported yet; False (the plain XLA compositor) raises NotImplementedError.
+    use_pallas: bool = True
+    # Not ported yet; anything but "fp32" raises NotImplementedError.
     precision: str = "fp32"
 
     def replace(self, **kw) -> "RenderConfig":
@@ -117,11 +142,8 @@ def tune_config(cfg: RenderConfig, probe, headroom: float = 0.0, floor: int = 81
 
 
 def _check_supported(cfg: RenderConfig) -> None:
-    if not (cfg.use_pallas and cfg.use_stream):
-        raise NotImplementedError(
-            "only the stream compositor is ported (use_pallas=False and "
-            "use_stream=False are on the port's roadmap)"
-        )
+    if not cfg.use_pallas:
+        raise NotImplementedError("use_pallas=False (the plain XLA compositor) is on the port's roadmap")
     if cfg.precision != "fp32":
         raise NotImplementedError(f"precision={cfg.precision!r} is not ported yet (fp32 only)")
 
@@ -171,19 +193,26 @@ class StreamInputs(NamedTuple):
         return used_stream(self.binned)[1]
 
 
-def prepare_stream(viewpoint_camera, pc, cfg: RenderConfig = RenderConfig(),
-                   scaling_modifier: float = 1.0, override_color=None,
-                   screenspace_offset=None) -> StreamInputs:
-    """Projection + binning of one view: everything before the compositor."""
+def _project_for_binning(viewpoint_camera, pc, cfg, scaling_modifier, override_color,
+                         screenspace_offset):
+    """(proj, screen means with the offset, include mask, grid_w, grid_h)."""
     _check_supported(cfg)
     proj = project_view(viewpoint_camera, pc, scaling_modifier, override_color)
     means2d = proj.means2d
     if screenspace_offset is not None:
         means2d = means2d + screenspace_offset
-    W, H = viewpoint_camera.image_width, viewpoint_camera.image_height
-    grid_w, grid_h = num_tiles(W), num_tiles(H)
+    grid_w, grid_h = num_tiles(viewpoint_camera.image_width), num_tiles(viewpoint_camera.image_height)
     # Opacity below 1/255 can never pass the alpha skip: keep it out of the lists.
     include = (proj.radii > 0) & (proj.opacities >= 1.0 / 255.0)
+    return proj, means2d, include, grid_w, grid_h
+
+
+def prepare_stream(viewpoint_camera, pc, cfg: RenderConfig = RenderConfig(),
+                   scaling_modifier: float = 1.0, override_color=None,
+                   screenspace_offset=None) -> StreamInputs:
+    """Projection + stream binning of one view: everything before the compositor."""
+    proj, means2d, include, grid_w, grid_h = _project_for_binning(
+        viewpoint_camera, pc, cfg, scaling_modifier, override_color, screenspace_offset)
     binned = bin_stream(
         means2d.detach(),
         proj.depths.detach(),
@@ -201,6 +230,49 @@ def prepare_stream(viewpoint_camera, pc, cfg: RenderConfig = RenderConfig(),
     return StreamInputs(proj, means2d, binned, grid_w, grid_h)
 
 
+class TableInputs(NamedTuple):
+    """What the table compositor of one view consumes (also what K5 and K6
+    are checked on). The property arrays it hands on are depth-sorted."""
+
+    proj: Projected
+    means2d: torch.Tensor
+    binned: Binned
+    grid_w: int
+    grid_h: int
+
+    def sorted_props(self):
+        """(means2d, conics, rgbs, opacities) in depth order."""
+        o = self.binned.order.long()
+        p = self.proj
+        return self.means2d[o], p.conics[o], p.rgbs[o], p.opacities[o]
+
+    def props(self) -> torch.Tensor:
+        """The property table [T, K_pad, 16] (K5's input; ``binned.tile_counts``
+        is the other)."""
+        return build_props_table(pack_props(*self.sorted_props()), self.binned)
+
+
+def prepare_table(viewpoint_camera, pc, cfg: RenderConfig = RenderConfig(),
+                  scaling_modifier: float = 1.0, override_color=None,
+                  screenspace_offset=None) -> TableInputs:
+    """Projection + table binning of one view, as the reference bins for its
+    table path: circle rects from ``proj.radii``, no tile culling."""
+    proj, means2d, include, grid_w, grid_h = _project_for_binning(
+        viewpoint_camera, pc, cfg, scaling_modifier, override_color, screenspace_offset)
+    binned = bin_gaussians(
+        means2d.detach(),
+        proj.depths.detach(),
+        proj.radii,
+        include,
+        grid_w=grid_w,
+        grid_h=grid_h,
+        max_per_tile=cfg.max_per_tile,
+        max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+        max_instances=cfg.max_instances,
+    )
+    return TableInputs(proj, means2d, binned, grid_w, grid_h)
+
+
 def render(
     viewpoint_camera,
     pc,
@@ -213,22 +285,30 @@ def render(
     """Render a GaussianScene from a Camera/MiniCam on the scene's device."""
     dev = pc.get_xyz.device
     bg = torch.zeros(3, device=dev) if bg_color is None else torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
-    s = prepare_stream(viewpoint_camera, pc, cfg, scaling_modifier, override_color, screenspace_offset)
-    p = s.proj
-    img_pad, t_pad = stream_image(
-        s.binned, s.means2d, p.conics, p.rgbs, p.opacities, bg, grid_w=s.grid_w, grid_h=s.grid_h
-    )
+    args = (viewpoint_camera, pc, cfg, scaling_modifier, override_color, screenspace_offset)
+    if cfg.use_stream:
+        s = prepare_stream(*args)
+        p = s.proj
+        img_pad, t_pad = stream_image(
+            s.binned, s.means2d, p.conics, p.rgbs, p.opacities, bg, grid_w=s.grid_w, grid_h=s.grid_h
+        )
+        extra = {"n_padded": s.binned.n_padded, "n_tiles": s.grid_w * s.grid_h}
+    else:
+        # The reference's composite_image_pallas: build the table, K5, blend.
+        s = prepare_table(*args)
+        color, final_t = composite_table_tiles(s.props(), s.binned.tile_counts, s.grid_w)
+        img_pad, t_pad = tiles_to_image(color, final_t, None, bg, grid_w=s.grid_w, grid_h=s.grid_h)
+        extra = {}
     H, W = viewpoint_camera.image_height, viewpoint_camera.image_width
     return {
         "render": img_pad[:, :H, :W],
         "viewspace_points": screenspace_offset,
-        "visibility_filter": p.radii > 0,
-        "radii": p.radii,
+        "visibility_filter": s.proj.radii > 0,
+        "radii": s.proj.radii,
         "final_T": t_pad[:H, :W],
         "overflow": s.binned.overflow,
         "n_instances": s.binned.n_instances,
-        "n_padded": s.binned.n_padded,
-        "n_tiles": s.grid_w * s.grid_h,
+        **extra,
     }
 
 

@@ -2,19 +2,21 @@
 stream and its backward (port of ``gaussian_transformer_tpu/render/stream.py``).
 
 Kernel K1: ``csrc/stream_fwd.cu`` replaces the TPU kernel
-``render/stream.py:266 _fwd_kernel``. It is bound by operations (~20 fp32
-operations and one ``expf`` per evaluated (row, pixel) pair, the row's 36
-useful bytes shared by a tile's 256 pixels); its design answer is one CTA
-per tile with rows staged in shared memory and a block-wide early exit once
-every pixel has terminated (see the source's header).
+``render/stream.py:266 _fwd_kernel``. It is bound by operations (~14 fp32
+operations and one ``expf`` per walked (row, pixel) pair, ~6 more where the
+row contributes, the row's 36 useful bytes shared by a tile's 256 pixels);
+its design answer is one CTA per tile with rows staged in shared memory and
+a block-wide early exit once every pixel has terminated (see the source's
+header).
 
 Kernel K2: ``csrc/stream_bwd.cu`` replaces the TPU kernel
 ``render/stream.py:411 _bwd_kernel``: it replays each tile's run with K1's
 own alpha and transmittance code (``csrc/stream_common.cuh``) and writes one
-gradient row per stream row. It is bound by operations (~45 per pair plus
-the per-row block reductions of 9 sums); its design answer is K1's geometry,
-warp-shuffle reductions skipped for warps with no live pixel, and a fixed-
-order cross-warp sum per row (no atomics: a row belongs to one tile).
+gradient row per stream row. It is bound by operations (K1's walk, then ~41
+more per contributing pair with the per-row block reductions of 9 sums); its
+design answer is K1's geometry, warp-shuffle reductions skipped for warps
+with no live pixel, and a fixed-order cross-warp sum per row (no atomics: a
+row belongs to one tile).
 
 ``composite_stream_tiles`` launches K1 (and K2 in its backward) for CUDA
 tensors and uses the plain PyTorch versions, ``composite_stream_tiles_plain``
@@ -68,16 +70,38 @@ def pack_props(means2d, conics, rgbs, opac):
     return torch.cat([cols, cols.new_zeros(1, PROPS_F)], dim=0)
 
 
-class _StreamGather(torch.autograd.Function):
-    """props_full[stream_gauss] with the reference's pullback
-    (stream.py:670-689): each unsorted instance's cotangent row is read at
-    its stream row ``pos_unsorted`` (rows at or past the stream's length are
-    dropped instances), then summed over its Gaussian's contiguous instance
-    range [gauss_offsets, gauss_offsets + gauss_cov) as the difference of a
+def instance_pullback(g, pos, rows, gauss_offsets, gauss_cov):
+    """The reference's gradient pullback (stream.py:670-689) from gathered
+    rows g [rows, 16] to the Gaussians [C+1, 16]: each unsorted instance's
+    cotangent row is read at its row ``pos`` (at or past ``rows``: a dropped
+    instance), then summed over its Gaussian's contiguous instance range
+    [gauss_offsets, gauss_offsets + gauss_cov) as the difference of a
     float64 prefix sum at the range's ends. Deterministic (a scan, no
     atomics), and a Gaussian's small sum survives the subtraction where the
     reference's float32 cumsum loses it. (``torch.segment_reduce`` gives the
     same sums but took 70 ms at 1080p on the H100.)"""
+    I = pos.shape[0]
+    pos = pos.long()
+    in_rows = (pos < rows)[:, None]
+    d_unsorted = torch.where(in_rows, g[torch.clamp(pos, max=rows - 1), :GRAD_F], 0.0)
+    # One flat scan of the columns laid end to end, column j at [j I,
+    # (j + 1) I): a range's sum is still the difference at its ends. (A
+    # scan along dim 0 of [I, 9] runs one serial thread per column, and
+    # along dim 1 of [9, I] one block per row: 1.3 s and 6.5 ms at 1080p on
+    # an H100.)
+    flat = d_unsorted.to(torch.float64).t().reshape(-1)
+    csum = torch.cat([flat.new_zeros(1), torch.cumsum(flat, dim=0)])  # [k]: the first k values
+    col = (torch.arange(GRAD_F, device=g.device) * I)[:, None]
+    lo = col + torch.clamp(gauss_offsets.long(), 0, I)[None, :]
+    hi = col + torch.clamp(gauss_offsets.long() + gauss_cov.long(), 0, I)[None, :]
+    d_full = g.new_zeros(gauss_offsets.shape[0] + 1, PROPS_F)  # sentinel row C stays 0
+    d_full[:-1, :GRAD_F] = (csum[hi] - csum[lo]).t().to(g.dtype)
+    return d_full
+
+
+class _StreamGather(torch.autograd.Function):
+    """props_full[stream_gauss], pulled back by ``instance_pullback`` through
+    the stream row ``pos_unsorted`` of each unsorted instance."""
 
     @staticmethod
     def forward(ctx, props_full, stream_gauss, pos_unsorted, gauss_offsets, gauss_cov):
@@ -88,24 +112,7 @@ class _StreamGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         pos, offsets, cov = ctx.saved_tensors
-        rows = ctx.rows
-        I = pos.shape[0]
-        pos = pos.long()
-        in_stream = (pos < rows)[:, None]
-        d_unsorted = torch.where(in_stream, g[torch.clamp(pos, max=rows - 1), :GRAD_F], 0.0)
-        # One flat scan of the columns laid end to end, column j at [j I,
-        # (j + 1) I): a range's sum is still the difference at its ends. (A
-        # scan along dim 0 of [I, 9] runs one serial thread per column, and
-        # along dim 1 of [9, I] one block per row: 1.3 s and 6.5 ms at 1080p on
-        # an H100.)
-        flat = d_unsorted.to(torch.float64).t().reshape(-1)
-        csum = torch.cat([flat.new_zeros(1), torch.cumsum(flat, dim=0)])  # [k]: the first k values
-        col = (torch.arange(GRAD_F, device=g.device) * I)[:, None]
-        lo = col + torch.clamp(offsets.long(), 0, I)[None, :]
-        hi = col + torch.clamp(offsets.long() + cov.long(), 0, I)[None, :]
-        d_full = g.new_zeros(offsets.shape[0] + 1, PROPS_F)  # sentinel row C stays 0
-        d_full[:-1, :GRAD_F] = (csum[hi] - csum[lo]).t().to(g.dtype)
-        return d_full, None, None, None, None
+        return instance_pullback(g, pos, ctx.rows, offsets, cov), None, None, None, None
 
 
 def stream_gather(props_full, binned, stream_gauss):
@@ -218,26 +225,36 @@ def _plain_rounds(props, chunk_tile, grid_w, grid_h):
         r += 1
 
 
+def walked_pairs(rows, lv, trigger):
+    """The (row, pixel) pairs of a round that a sequential walk evaluates:
+    real rows (opacity > 0) of pixels live before the round, up to and
+    including each pixel's first trigger."""
+    trig = trigger.to(torch.int32)
+    before_stop = (torch.cumsum(trig, dim=1) - trig) == 0
+    return ((rows[..., 8:9] > 0.0) & (lv > 0.0) & before_stop).sum()
+
+
 def composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h, count_work=False):
     """Plain PyTorch version of K1: (color [T, 3, P], final_T [T, 1, P]).
 
-    ``count_work=True`` also returns the number of (row, pixel) pairs a
-    sequential walk evaluates (real rows up to and including each pixel's
-    terminating row), for roofline accounting."""
+    ``count_work=True`` also returns (walked, contributing) for roofline
+    accounting: the (row, pixel) pairs a sequential walk evaluates (real rows
+    up to and including each pixel's terminating row), and those of them
+    that contribute (not skipped, not the terminating row)."""
     T = grid_w * grid_h
     color = torch.zeros(T, 3, P, dtype=torch.float32, device=props.device)
     final_t = torch.ones(T, 1, P, dtype=torch.float32, device=props.device)
-    work = torch.zeros((), dtype=torch.int64, device=props.device)
+    walked = torch.zeros((), dtype=torch.int64, device=props.device)
+    contributing = torch.zeros((), dtype=torch.int64, device=props.device)
     for rd in _plain_rounds(props, chunk_tile, grid_w, grid_h):
         w = rd.alpha * rd.t_in * rd.live_k
         color[rd.tiles] += torch.einsum("tkc,tkp->tcp", rd.rows[..., 5:8], w)
         final_t[rd.tiles] = rd.t_after
         if count_work:
-            real = rd.rows[..., 8:9] > 0.0
-            work += ((rd.live_k > 0.0) & real).sum()
-            work += (rd.trigger & (rd.t_in == rd.tstar) & (rd.lv > 0.0)).sum()
+            contributing += ((rd.live_k > 0.0) & (rd.alpha > 0.0)).sum()
+            walked += walked_pairs(rd.rows, rd.lv, rd.trigger)
     if count_work:
-        return color, final_t, int(work)
+        return color, final_t, (int(walked), int(contributing))
     return color, final_t
 
 
@@ -395,11 +412,14 @@ def stream_image(binned, means2d, conics, rgbs, opac, bg, *, grid_w: int, grid_h
 
 def tiles_to_image(color, final_t, covered, bg, *, grid_w: int, grid_h: int):
     """The compositor's per-tile outputs -> (padded image [3, H_pad, W_pad],
-    transmittance map [H_pad, W_pad]) over the background."""
-    # Tiles no chunk reached (empty, or beyond the budget) are background.
-    covered = covered[:, None]
-    final_t = torch.where(covered, final_t[:, 0, :], torch.ones_like(final_t[:, 0, :]))
-    color = torch.where(covered[:, :, None], color, torch.zeros_like(color))
+    transmittance map [H_pad, W_pad]) over the background. ``covered=None``:
+    every tile's outputs are read (the table compositor writes them all)."""
+    final_t = final_t[:, 0, :]
+    if covered is not None:
+        # Tiles no chunk reached (empty, or beyond the budget) are background.
+        covered = covered[:, None]
+        final_t = torch.where(covered, final_t, torch.ones_like(final_t))
+        color = torch.where(covered[:, :, None], color, torch.zeros_like(color))
     color = color + final_t[:, None, :] * bg[None, :, None]
 
     img = color.reshape(grid_h, grid_w, 3, TILE, TILE)

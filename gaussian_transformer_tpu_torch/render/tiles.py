@@ -1,13 +1,16 @@
-"""Tile binning into the padded-CSR instance stream (port of
-``gaussian_transformer_tpu/render/tiles.py``: ``bin_stream`` and its helpers).
+"""Tile binning (port of ``gaussian_transformer_tpu/render/tiles.py``:
+``bin_stream``, ``bin_gaussians`` and their helpers).
 
-Every (Gaussian, covered 16x16 tile) pair is an instance; instances are
-sorted by (tile, depth) so each tile's run is front to back, and each run
-starts at a chunk-aligned row of one [I_pad] stream. The outputs are
-integer-exact against the reference. The reference's exact-f32 integer
-tricks and its TPU-friendly scatter-max/cummax owner search are replaced by
-plain integer arithmetic and ``searchsorted``; its ``mode="drop"`` scatters
-become masked index writes.
+Every (Gaussian, covered 16x16 tile) pair is an instance. ``bin_stream``
+sorts instances by (tile, depth) so each tile's run is front to back, and
+each run starts at a chunk-aligned row of one [I_pad] stream (the stream
+compositor's layout). ``bin_gaussians`` depth-sorts the Gaussians first,
+stable-sorts their instances by tile and cuts each run into a row of a
+[T, K] table (the table compositor's layout). The outputs are integer-exact
+against the reference. The reference's exact-f32 integer tricks and its
+TPU-friendly scatter-max/cummax owner search are replaced by plain integer
+arithmetic and ``searchsorted``; its ``mode="drop"`` scatters become masked
+index writes.
 """
 
 from __future__ import annotations
@@ -99,6 +102,86 @@ def _expand_orig(means2d, depths, radii, include, grid_w, grid_h, R, I,
     depth_i = torch.where(valid, depths[gi], torch.full_like(depths[gi], float("inf")))
     cap_overflow = (cov_raw - cov).sum() + torch.clamp(total - I, min=0)
     return tile_id, gauss_i, depth_i, cap_overflow, cov_raw.sum(), offsets, cov
+
+
+class Binned(NamedTuple):
+    """Per-tile [T, K] lists for the table compositor (the reference's
+    fields, plus the pullback layout the port's table gather reads)."""
+
+    order: torch.Tensor  # [C] int32 — Gaussian index by ascending depth
+    tile_lists: torch.Tensor  # [T, K] int32 — indices into the depth-sorted arrays, C = empty
+    tile_counts: torch.Tensor  # [T] int32 — valid entries per tile (capped at K)
+    overflow: torch.Tensor  # [] int32 — instances dropped by any static cap
+    inst_tile: torch.Tensor  # [I] int32 — tile of each tile-sorted instance, T = invalid
+    inst_rank: torch.Tensor  # [I] int32 — rank within its tile's depth-ordered run
+    inst_gauss: torch.Tensor  # [I] int32 — depth-sorted Gaussian index, C = invalid
+    n_instances: torch.Tensor  # [] int32 — true (uncapped) instance total
+    # Gradient-pullback layout: the tile-sorted position of each unsorted
+    # (Gaussian-major) instance, and each depth-sorted Gaussian's range
+    # [offset, offset + cov) in that unsorted domain.
+    inst_pos: torch.Tensor  # [I] int32
+    gauss_offsets: torch.Tensor  # [C] int32
+    gauss_cov: torch.Tensor  # [C] int32
+
+
+def bin_gaussians(
+    means2d: torch.Tensor,
+    depths: torch.Tensor,
+    radii: torch.Tensor,
+    include: torch.Tensor,
+    *,
+    grid_w: int,
+    grid_h: int,
+    max_per_tile: int,
+    max_tiles_per_gaussian: int = 128,
+    max_instances: int = 0,
+) -> Binned:
+    """Depth-ordered per-tile lists: a stable depth sort of the Gaussians
+    (excluded ones sort last, on a +inf key), their instances expanded
+    Gaussian-major over the depth-sorted arrays, and one stable sort by tile.
+    Tile t's list is its run, cut at ``max_per_tile`` = K and padded with
+    the sentinel C. ``overflow`` counts the instances lost to the
+    per-Gaussian cap, the ``max_instances`` budget (0 = 16*C) and K."""
+    C = means2d.shape[0]
+    T = grid_w * grid_h
+    K = max_per_tile
+    dev = means2d.device
+    i64 = torch.int64
+    I = max_instances if max_instances > 0 else max(8192, 16 * C)
+
+    order = torch.argsort(torch.where(include, depths, torch.full_like(depths, float("inf"))), stable=True)
+    tile_id, gauss_i, _, cap_overflow, total_raw, offsets, cov = _expand_orig(
+        means2d[order], depths[order], radii[order], include[order], grid_w, grid_h,
+        max_tiles_per_gaussian, I,
+    )
+    inst_tile, perm = torch.sort(tile_id, stable=True)
+    inst_gauss = gauss_i[perm]
+    # Run starts of tiles 0..T (entry T: the number of valid instances).
+    starts_ext = torch.searchsorted(inst_tile, torch.arange(T + 1, dtype=i64, device=dev))
+    counts = starts_ext[1:] - starts_ext[:-1]
+    inst_rank = torch.arange(I, dtype=i64, device=dev) - starts_ext[inst_tile]
+
+    counts_capped = torch.clamp(counts, max=K)
+    k = torch.arange(K, dtype=i64, device=dev)
+    idx = torch.clamp(starts_ext[:T, None] + k, max=I - 1)
+    tile_lists = torch.where(k < counts_capped[:, None], inst_gauss[idx], torch.full_like(idx, C))
+    inst_pos = torch.empty(I, dtype=i64, device=dev)
+    inst_pos[perm] = torch.arange(I, dtype=i64, device=dev)
+
+    i32 = lambda t: t.to(torch.int32)
+    return Binned(
+        order=i32(order),
+        tile_lists=i32(tile_lists),
+        tile_counts=i32(counts_capped),
+        overflow=i32(cap_overflow + torch.clamp(counts - K, min=0).sum()),
+        inst_tile=i32(inst_tile),
+        inst_rank=i32(inst_rank),
+        inst_gauss=i32(inst_gauss),
+        n_instances=i32(total_raw),
+        inst_pos=i32(inst_pos),
+        gauss_offsets=i32(offsets),
+        gauss_cov=i32(cov),
+    )
 
 
 class StreamBinned(NamedTuple):

@@ -1,6 +1,7 @@
 """3DGS per-scene optimization (port of ``gaussian_transformer_tpu/train/splat.py``).
 
-One train step renders a camera (kernels K1 and K2 on the card), takes the
+One train step renders a camera (kernels K1 and K2 on the card, or K5 and
+K6 with ``RenderConfig(use_stream=False)``), takes the
 reference loss (1 - lambda) L1 + lambda (1 - SSIM) (kernels K3 and K4),
 differentiates it w.r.t. the scene's leaves and an explicit zero screen-space
 offset (the densification's screen gradient), applies Adam and accumulates
@@ -116,7 +117,8 @@ def tuned_config(cfg: RenderConfig, gaussians, camera, bg: torch.Tensor) -> Rend
         return cfg
     with torch.no_grad():
         probe = render(camera, gaussians, cfg, bg_color=bg)
-    return tune_config(cfg, {k: int(probe[k]) for k in ("n_instances", "n_padded", "n_tiles")})
+    # The table path reports no stream length (``n_padded``, ``n_tiles``).
+    return tune_config(cfg, {k: int(probe[k]) for k in ("n_instances", "n_padded", "n_tiles") if k in probe})
 
 
 def capture(scene, adam: AdamState, stats: DensifyStats, iteration, spatial_lr_scale) -> dict:

@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (K1-K4) against their plain PyTorch
+"""The port's hand-written CUDA kernels (K1-K6) against their plain PyTorch
 versions, on the card only (marker ``gpu``; each test skips without a CUDA
 device).
 
@@ -16,8 +16,8 @@ import torch
 from gaussian_transformer_tpu_torch.convert import scene_from_numpy
 from gaussian_transformer_tpu_torch.ops import fused_ssim
 from gaussian_transformer_tpu_torch.ops.losses import ssim
-from gaussian_transformer_tpu_torch.render import prepare_stream, render
-from gaussian_transformer_tpu_torch.render import stream
+from gaussian_transformer_tpu_torch.render import RenderConfig, prepare_stream, prepare_table, render
+from gaussian_transformer_tpu_torch.render import stream, table_composite
 from gaussian_transformer_tpu_torch.scene.cameras import Camera
 
 K1_ATOL = 2e-5
@@ -73,8 +73,6 @@ def _check_k1(s):
 @pytest.mark.gpu
 @pytest.mark.parametrize("width,height,chunk", [(160, 112, 0), (1920, 1080, 64), (200, 90, 128)])
 def test_stream_kernel_matches_plain(cuda, width, height, chunk):
-    from gaussian_transformer_tpu_torch.render import RenderConfig
-
     with torch.no_grad():
         s = prepare_stream(_camera(width, height, cuda), _scene(4000, 1, cuda), RenderConfig(chunk=chunk))
         assert int(s.binned.n_instances) > 0
@@ -131,8 +129,6 @@ def _check_k2(s, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("width,height,chunk", [(160, 112, 0), (1920, 1080, 64), (200, 90, 128)])
 def test_stream_backward_kernel_matches_plain(cuda, width, height, chunk):
-    from gaussian_transformer_tpu_torch.render import RenderConfig
-
     with torch.no_grad():
         s = prepare_stream(_camera(width, height, cuda), _scene(4000, 1, cuda), RenderConfig(chunk=chunk))
         _check_k2(s, seed=width)
@@ -201,3 +197,96 @@ def test_kernels_reject_bad_inputs_and_gradients(cuda):
     color, t = stream.composite_stream_tiles(props, ct, 1, 1)
     (color.sum() + t.sum()).backward()
     assert props.grad is not None and float(props.grad.abs().max()) == 0.0  # empty rows: no gradient
+
+
+def _check_k5_k6(s, seed):
+    """K5 and K6 against their plain versions on one view's table, under
+    K1's and K2's rules; K6 leaves every row its walk does not reach zero."""
+    props, counts, gw = s.props(), s.binned.tile_counts, s.grid_w
+    before = (table_composite.TABLE_FWD.launches, table_composite.TABLE_BWD.launches)
+    color, t = table_composite.composite_table_tiles(props, counts, gw)
+    p_color, p_t = table_composite.composite_table_tiles_plain(props, counts, gw)
+    err = torch.cat([(color - p_color).flatten(), (t - p_t).flatten()]).abs()
+    assert float(err.max()) <= 1e-3
+    assert float((err > K1_ATOL).float().mean()) <= 1e-4
+    gen = torch.Generator(props.device).manual_seed(seed)
+    g_color = torch.randn(color.shape, generator=gen, device=props.device)
+    g_t = torch.randn(t.shape, generator=gen, device=props.device)
+    got = table_composite._launch_table_bwd(props, counts, gw, color, t, g_color, g_t)
+    torch.cuda.synchronize()
+    assert (table_composite.TABLE_FWD.launches, table_composite.TABLE_BWD.launches) == (before[0] + 1, before[1] + 1)
+    ref = table_composite.composite_table_tiles_bwd_plain(props, counts, gw, color, t, g_color, g_t)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    err = (got - ref).abs()
+    assert float(err.max()) <= 1e-3 * scale
+    assert float((err > 2e-4 * scale).float().mean()) <= 1e-4
+    assert torch.all(got[..., stream.GRAD_F:] == 0)
+    past = torch.arange(props.shape[1], device=props.device)[None, :] >= table_composite.walked_rows(counts, props.shape[1])[:, None]
+    assert torch.all(got[past] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,height,K", [(160, 112, 256), (1920, 1080, 512)])
+def test_table_kernels_match_plain(cuda, width, height, K):
+    with torch.no_grad():
+        s = prepare_table(_camera(width, height, cuda), _scene(4000, 1, cuda),
+                          RenderConfig(use_stream=False, max_per_tile=K))
+        counts = s.binned.tile_counts
+        assert int(counts.max()) > 0 and int((counts == 0).sum()) > 0  # busy and empty tiles
+        _check_k5_k6(s, seed=width)
+
+
+@pytest.mark.gpu
+def test_table_kernels_saturated_and_empty(cuda):
+    cfg = RenderConfig(use_stream=False, max_per_tile=800)
+    with torch.no_grad():
+        s = prepare_table(_camera(96, 64, cuda), _scene(3000, 2, cuda, opacity=0.97, spread=0.3), cfg)
+        _check_k5_k6(s, seed=5)
+        out = render(_camera(96, 64, cuda), _scene(3000, 2, cuda, opacity=0.97, spread=0.3), cfg)
+        assert float(out["final_T"].min()) < 1e-3
+        empty = _scene(8, 3, cuda)
+        empty.alive.zero_()
+        out = render(_camera(64, 48, cuda), empty, cfg, bg_color=torch.tensor([0.2, 0.4, 0.6]))
+        assert torch.allclose(out["render"][:, 0, 0].cpu(), torch.tensor([0.2, 0.4, 0.6]))
+        assert float(out["final_T"].min()) == 1.0
+
+
+@pytest.mark.gpu
+def test_table_render_gradients_on_card_match_cpu(cuda):
+    """The table path's render backward (K6 and the table pullback on the
+    card) against the CPU path (plain K6), at 2e-4 of the largest gradient."""
+    grads = []
+    cfg = RenderConfig(use_stream=False, max_per_tile=128)
+    for dev in (cuda, torch.device("cpu")):
+        scene = _scene(600, 6, dev)
+        offset = torch.zeros(scene.capacity, 2, device=dev, requires_grad=True)
+        out = render(_camera(96, 64, dev), scene, cfg, bg_color=torch.tensor([0.2, 0.1, 0.4], device=dev),
+                     screenspace_offset=offset)
+        loss = torch.sum(out["render"] ** 2) + 0.1 * torch.sum(out["final_T"])
+        leaves = [scene.xyz, scene.opacity, scene.scaling, scene.features_dc, offset]
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    for a, b in zip(*grads):
+        assert torch.all(torch.isfinite(a))
+        assert float((a - b).abs().max()) <= 2e-4 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+def test_table_kernels_reject_bad_inputs(cuda):
+    counts = torch.zeros(2, dtype=torch.int32, device=cuda)
+    for bad in (torch.zeros(2, 40, 16, device=cuda), torch.zeros(2, 32, 9, device=cuda),
+                torch.zeros(2, 32, 16, dtype=torch.float64, device=cuda)):
+        with pytest.raises(ValueError):
+            table_composite.composite_table_tiles(bad, counts, 2)
+    props = torch.zeros(2, 32, 16, device=cuda, requires_grad=True)
+    for bad_counts in (counts.float(), counts.cpu(), counts[:1]):
+        with pytest.raises(ValueError):
+            table_composite.composite_table_tiles(props, bad_counts, 2)
+    with pytest.raises(ValueError):
+        table_composite._launch_table_bwd(props.detach(), counts, 2, *(torch.zeros(2, c, 256, device=cuda)
+                                                                        for c in (3, 1, 3, 3)))
+    # Empty tiles: background, no gradient.
+    color, t = table_composite.composite_table_tiles(props, counts, 2)
+    (color.sum() + t.sum()).backward()
+    assert float(color.detach().abs().max()) == 0.0 and float(t.detach().min()) == 1.0
+    assert props.grad is not None and float(props.grad.abs().max()) == 0.0

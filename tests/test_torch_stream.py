@@ -16,12 +16,12 @@ from gaussian_transformer_tpu.render import render_naive as jax_render_naive
 from gaussian_transformer_tpu.render.stream import stream_image as jax_stream_image
 from gaussian_transformer_tpu.render.tiles import bin_stream as jax_bin_stream, num_tiles
 from gaussian_transformer_tpu.utils.general import inverse_sigmoid
-from gaussian_transformer_tpu_torch.render import RenderConfig, render, render_naive
+from gaussian_transformer_tpu_torch.render import RenderConfig, prepare_stream, render, render_naive
 from gaussian_transformer_tpu_torch.render import stream
 from gaussian_transformer_tpu_torch.render.tiles import StreamBinned
 
 from tests.test_render import make_camera, make_scene
-from tests.torch_port_support import torch_camera, torch_scene
+from tests.torch_port_support import sequential_work, torch_camera, torch_scene
 
 ATOL = 2e-5
 
@@ -108,8 +108,33 @@ def test_empty_scene_is_background():
 def test_unported_options_raise():
     cam = torch_camera(make_camera(width=32, height=32))
     scene = torch_scene(make_scene(16, seed=0))
-    for cfg in (RenderConfig(precision="bf16"), RenderConfig(use_stream=False),
+    for cfg in (RenderConfig(precision="bf16"), RenderConfig(precision="bf16", use_stream=False),
                 RenderConfig(use_pallas=False)):
         with pytest.raises(NotImplementedError):
             render(cam, scene, cfg)
+
+
+@pytest.mark.parametrize("seed,n,opacity", [(1, 256, None), (3, 96, 0.97)], ids=["dense", "saturated"])
+def test_plain_work_counts_match_a_sequential_walk(seed, n, opacity):
+    """The pairs the kernels' bounds are computed from: walked and
+    contributing (row, pixel) pairs, against a row-by-row walk of each
+    tile's run."""
+    scene = make_scene(n, seed=seed, spread=0.2 if opacity else 1.5)
+    if opacity:
+        scene = scene.replace(opacity=jnp.full_like(scene.opacity, inverse_sigmoid(jnp.asarray(opacity))))
+    cam = torch_camera(make_camera(width=64, height=48))
+    with torch.no_grad():
+        s = prepare_stream(cam, torch_scene(scene), RenderConfig(chunk=32))
+        props, ct = s.props(), s.chunk_tile
+        work = stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h, count_work=True)[2]
+    chunks = props.numpy().reshape(ct.shape[0], -1, 16)
+    p = np.arange(256)
+    want = np.zeros(2, np.int64)
+    for t in range(s.grid_w * s.grid_h):
+        rows = chunks[ct.numpy() == t].reshape(-1, 16).copy()
+        rows[:, 0] -= (t % s.grid_w) * 16  # tile-local means, as the stream kernels read them
+        rows[:, 1] -= (t // s.grid_w) * 16
+        want += sequential_work(rows, (p % 16).astype(np.float32), (p // 16).astype(np.float32))
+    assert work == tuple(int(v) for v in want)
+    assert 0 < work[1] < work[0]
 

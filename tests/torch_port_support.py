@@ -25,3 +25,29 @@ def torch_camera(cam, device="cpu"):
         cam.image_height, device,
     )
 
+
+def sequential_work(rows, px, py):
+    """(walked, contributing) (row, pixel) pairs of one tile walked row by
+    row as the compositor kernels walk it: rows [n, 16] front to back (means
+    in the frame of the pixel centers px, py [256]). A real row (opacity > 0)
+    counts as walked for every pixel still live; a pixel stops at the row
+    that would take T below 1e-4, which it walks but does not contribute."""
+    f32 = np.float32
+    T = np.ones(px.shape, f32)
+    live = np.ones(px.shape, bool)
+    walked = contributing = 0
+    for r in rows.astype(f32):
+        if r[8] > 0:
+            walked += int(live.sum())
+        dx, dy = r[0] - px, r[1] - py
+        power = f32(-0.5) * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy
+        alpha = np.minimum(f32(0.99), r[8] * np.exp(np.minimum(power, f32(0))))
+        hit = live & ~((power > 0) | (alpha < f32(1.0 / 255.0)))
+        next_t = T * (f32(1) - alpha)
+        stop = hit & (next_t < f32(1e-4))
+        go = hit & ~stop
+        contributing += int(go.sum())
+        T = np.where(go, next_t, T)
+        live &= ~stop
+    return walked, contributing
+
