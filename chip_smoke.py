@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--gaussians 1000000] [--views 4]
                           [--train_points 300000] [--iterations 60]
+                          [--probe_rows 3232768]
 
 The serving path:
 
@@ -64,6 +65,30 @@ The table path (``RenderConfig(use_stream=False)``: ``bin_gaussians`` and the
     state at the trainer's budgets, on the loss's true cotangents; times of
     the median table train step by phase, K6, plain K6, bound.
 
+The transposed-layout stream path (``attic.stream_t.stream_image_t``: the
+stream as planes [16, I_pad], kernels K7 and K8) and the layout probe (K9):
+
+13. Serving: the test views of the 1M scene through ``prepare_stream`` +
+    ``stream_image_t``, counters zeroed just before and read just after;
+    checks K7 ran once per view, K7 against its plain version and the view-0
+    image against the stream ``render()`` (K1's rule). Times K1 and K7 in
+    turns on the same stream (and the row and transposed paths from the
+    gather to the image), the transposed copy, plain K7, the bound.
+14. Gradients: train view 0 at the first step's state and the trainer's
+    budgets (section 8's inputs); one backward of the trainer's loss
+    through ``stream_image_t`` (K8 once), the Gaussians' screen-space
+    gradients against those through ``stream_image`` (K2), K8 against its
+    plain version on the loss's true cotangents (K2's rule); K2 and K8 timed
+    in turns, plain K8, the bound.
+15. The layout probe through ``tools.layout_probe.main`` at N = 3,232,768
+    rows (the four layouts of the reference's probe), counter zeroed just
+    before and read just after; K9 against its plain version on each layout
+    (1e-6 relative); times, GB/s, ``torch.sum``'s time, the bound (bytes /
+    3.35 TB/s) and the extra bytes allocated.
+
+Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
+before and after its window.
+
 The last three lines of standard output are the kernels JSON line, the
 card's ``name, power.limit`` as nvidia-smi prints them, and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -114,6 +139,7 @@ K2_MAX_ERR = 1e-3
 K2_ATOL = 2e-4
 K2_MAX_SHARE = 1e-4
 K4_MAX_ERR = 1e-4  # relative to the largest gradient
+K9_RTOL = 1e-6  # f32 block sums of positive data against the float64 plain version
 # K6: K5's (6), then w, <rgb, gC> and the prefix (8), w gC (3), g_alpha (7),
 # g_power (1), dx and dy (2), the five geometric terms (16), and the 9 sums
 # over the tile's pixels (9 adds per pair).
@@ -139,6 +165,20 @@ def smi_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock() -> str:
+    """The card's SM clock now, as nvidia-smi prints it (each timed section
+    prints it before and after its window)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def print_clocks(before: str, section: str) -> None:
+    print(f"clocks.sm around section {section}: before {before}, after {sm_clock()}")
 
 
 # ---------------------------------------------------------------- scene ----
@@ -330,6 +370,28 @@ def cuda_ms_cold(fn, reps: int) -> float:
     return total / reps
 
 
+def interleaved_ms(fns, rounds: int, reps: int) -> list:
+    """Mean CUDA-event ms of each of ``fns``, timed in turns: ``rounds``
+    rounds, each timing ``reps`` launches of every function in order, so a
+    drift of the card's clock over the window hits all of them alike."""
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    totals = [0.0] * len(fns)
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            totals[i] += start.elapsed_time(end)
+    return [t / (rounds * reps) for t in totals]
+
+
 def render_profile(fn, top: int = 12) -> str:
     """Device time by CUDA kernel over one warm call of ``fn`` (torch.profiler)."""
     import torch
@@ -489,6 +551,7 @@ def run(args, device) -> dict:
     if on_card:
         print("== 5. times (CUDA events)")
         smi = smi_line()
+        clk = sm_clock()
         with torch.no_grad():
             render_ms = cuda_ms(lambda: render(cam0, scene), reps=5)
             stages = {
@@ -520,6 +583,7 @@ def run(args, device) -> dict:
               f"bound {k1_bound:.4f} ms ({k1_by}: {k1_bytes} B, {k1_ops} fp32 ops)")
         print(f"[{smi}] K3 {k3_ms:.4f} ms (L2 cold {k3_cold_ms:.4f}), plain {k3_plain_ms:.3f} ms, "
               f"bound {k3_bound:.4f} ms ({k3_by}: {k3_bytes} B, {k3_ops} fp32 ops)")
+        print_clocks(clk, "5")
         kernels_line["kernels"] += [
             {"name": "stream_fwd", "route": "cuda",
              "source": "gaussian_transformer_tpu_torch/csrc/stream_fwd.cu",
@@ -539,8 +603,11 @@ def run(args, device) -> dict:
                        real_rows=real_rows, render_profile=profile)
     del s, props, ct, color, t_fin, p_color, p_t, img, gt
 
-    kernels_line["kernels"] += train_path(args, device, scene, summary)
+    train_entries, train_cfg = train_path(args, device, scene, summary)
+    kernels_line["kernels"] += train_entries
     kernels_line["kernels"] += table_path(args, device, scene, fovx, splits["test"], summary)
+    kernels_line["kernels"] += transposed_path(args, device, scene, fovx, splits["test"], train_cfg, summary)
+    kernels_line["kernels"] += probe_path(args, device, summary)
     summary.update(kernels_line)
     return summary
 
@@ -551,10 +618,11 @@ def bound(nbytes, ops):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def train_path(args, device, scene, summary) -> list:
+def train_path(args, device, scene, summary):
     """Sections 6-9: the training dataset, ``cli.train``, the K2/K4 checks
     at the trainer's budgets, and the times. Returns the K2 and K4 entries of
-    the kernels line (none off the card)."""
+    the kernels line (none off the card) and the render budgets the trainer
+    tuned for its first step."""
     import shutil
 
     import torch
@@ -687,10 +755,11 @@ def train_path(args, device, scene, summary) -> list:
     summary.update(train_k2_chunk=chunk, train_k2_rows=props.shape[0])
 
     if not on_card:
-        return entries
+        return entries, cfg
 
     print("== 9. train times (CUDA events)")
     smi = smi_line()
+    clk = sm_clock()
     steady = [h for h in hist if h["iteration"] > 10 and "densify" not in h]
     med = {k: float(np.median([h["phase_ms"][k] for h in steady])) for k in PHASES}
     step_ms = float(np.median([sum(h["phase_ms"].values()) for h in steady]))
@@ -721,6 +790,7 @@ def train_path(args, device, scene, summary) -> list:
           f"{k2_ops} fp32 ops, {pairs} walked pairs, {live} contributing)")
     print(f"[{smi}] K4 {k4_ms:.4f} ms (L2 cold {k4_cold_ms:.4f}), plain {k4_plain_ms:.3f} ms, "
           f"bound {k4_bound:.4f} ms ({k4_by}: {k4_bytes} B, {k4_ops} fp32 ops)")
+    print_clocks(clk, "9")
     summary.update(train_step_ms=step_ms, train_phase_ms=med, train_pairs=pairs, train_live_pairs=live,
                    train_real_rows=real_rows, train_step_profile=step_profile)
     return [
@@ -738,7 +808,7 @@ def train_path(args, device, scene, summary) -> list:
          "launches": launches["K4"], "max_abs_err": k4_err, "ms": k4_ms, "ms_l2_cold": k4_cold_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
          "tolerance": {"max_abs_of_max": K4_MAX_ERR}},
-    ]
+    ], cfg
 
 
 def round_up(n: int, m: int) -> int:
@@ -834,6 +904,7 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
     entries = []
     if on_card:
         smi = smi_line()
+        clk = sm_clock()
         cam0 = cams[0]
         with torch.no_grad():
             render_ms = cuda_ms(lambda: render(cam0, scene, cfg), reps=5)
@@ -856,6 +927,7 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
         print(f"top CUDA kernels of one table render (torch.profiler, device time):\n{profile}")
         print(f"[{smi}] K5 {k5_ms:.4f} ms (L2 cold {k5_cold_ms:.4f}), plain {k5_plain_ms:.2f} ms, "
               f"bound {k5_bound:.4f} ms ({k5_by}: {k5_bytes} B, {k5_ops} fp32 ops)")
+        print_clocks(clk, "10")
         summary.update(table_render_ms=render_ms, table_stage_ms=stages, table_render_profile=profile)
         entries.append(
             {"name": "table_fwd", "route": "cuda",
@@ -950,6 +1022,7 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
 
     print("== 12b. table train times (CUDA events)")
     smi = smi_line()
+    clk = sm_clock()
     steady = [h for h in hist if h["iteration"] > 10 and not h["densify"]]
     med = {k: float(np.median([h["phase_ms"][k] for h in steady])) for k in PHASES}
     step_ms = float(np.median([sum(h["phase_ms"].values()) for h in steady]))
@@ -967,6 +1040,7 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
     print(f"[{smi}] K6 (table [{T}, {Kp}, 16]) {k6_ms:.4f} ms (L2 cold {k6_cold_ms:.4f}), plain {k6_plain_ms:.2f} ms, "
           f"bound {k6_bound:.4f} ms ({k6_by}: {k6_bytes} B, {k6_ops} fp32 ops, {pairs} walked pairs, "
           f"{live} contributing)")
+    print_clocks(clk, "12b")
     summary.update(table_train_step_ms=step_ms, table_train_phase_ms=med, table_k6_pairs=pairs,
                    table_k6_live_pairs=live, table_k6_real_rows=real_rows)
     entries.append(
@@ -980,6 +1054,261 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
     return entries
 
 
+def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
+    """Sections 13-14: the transposed-layout stream path
+    (``attic.stream_t.stream_image_t``, kernels K7 and K8) serving the test
+    views and taking one backward at the trainer's first step, checked
+    against the plain versions and the row-layout path (K1, K2), and timed
+    in turns with K1 and K2. Returns the K7 and K8 entries of the kernels
+    line (none off the card)."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.attic import stream_t
+    from gaussian_transformer_tpu_torch.config import OptConfig
+    from gaussian_transformer_tpu_torch.ops.losses import l1_loss, ssim
+    from gaussian_transformer_tpu_torch.render import prepare_stream, render, stream
+    from gaussian_transformer_tpu_torch.scene.gaussians import GaussianScene
+    from gaussian_transformer_tpu_torch.scene.ply import fetch_point_cloud
+    from gaussian_transformer_tpu_torch.utils.png import read_png
+
+    on_card = device.type == "cuda"
+    W, H = args.width, args.height
+    k7_fn, k8_fn = stream_t.STREAM_T_FWD, stream_t.STREAM_T_BWD
+    bg = torch.zeros(3, device=device)
+
+    print("== 13. transposed path, serving: the test views through prepare_stream + attic.stream_t.stream_image_t")
+    cams = [camera_from_c2w(c2w, fovx, W, H, device) for c2w in test_c2ws]
+    k7_fn.launches = 0
+    t0 = time.time()
+    with torch.no_grad():
+        outs = []
+        for cam in cams:
+            s = prepare_stream(cam, scene)
+            p = s.proj
+            img, t_map = stream_t.stream_image_t(s.binned, s.means2d, p.conics, p.rgbs, p.opacities, bg,
+                                                 grid_w=s.grid_w, grid_h=s.grid_h)
+            outs.append((img[:, :H, :W], t_map[:H, :W]))
+    t_serve = time.time() - t0
+    k7_serve = k7_fn.launches
+    print(f"{len(cams)} transposed-path renders: {t_serve:.2f} s; K7 launches {k7_serve}")
+    if on_card:
+        check(k7_serve == len(cams), f"K7 launched once per rendered view ({len(cams)})")
+    check(all(o[0].shape == (3, H, W) and bool(torch.isfinite(o[0]).all()) for o in outs),
+          f"every transposed-path image is finite, 3x{H}x{W}")
+    with torch.no_grad():
+        s = prepare_stream(cams[0], scene)
+        props, ct, gw, gh = s.props(), s.chunk_tile, s.grid_w, s.grid_h
+        props_t = props.t().contiguous()
+        color, t_fin = stream_t.composite_stream_tiles_t(props_t, ct, gw, gh)
+        p_color, p_t, (pairs, live) = stream_t.composite_stream_tiles_t_plain(props_t, ct, gw, gh, count_work=True)
+        cov = s.binned.covered
+        err = torch.cat([(color - p_color)[cov].flatten(), (t_fin - p_t)[cov].flatten()]).abs()
+        k7_err, k7_share = float(err.max()), float((err > K1_ATOL).float().mean())
+        print(f"K7: planes [16, {props_t.shape[1]}], chunk {props_t.shape[1] // ct.shape[0]}, {pairs} walked "
+              f"(row, pixel) pairs, {live} contributing")
+        print(f"K7 vs plain: max abs diff {k7_err:.3e} (tolerance {K1_MAX_ERR}), share beyond {K1_ATOL}: "
+              f"{k7_share:.3e} (tolerance {K1_MAX_SHARE})")
+        check(k7_err <= K1_MAX_ERR and k7_share <= K1_MAX_SHARE, "K7 agrees with its plain version")
+        ref = render(cams[0], scene)
+        err = torch.cat([(outs[0][0] - ref["render"]).flatten(), (outs[0][1] - ref["final_T"]).flatten()]).abs()
+        tvr_err, tvr_share = float(err.max()), float((err > K1_ATOL).float().mean())
+        print(f"transposed vs stream render of view 0: max abs diff {tvr_err:.3e} (tolerance {K1_MAX_ERR}), "
+              f"share beyond {K1_ATOL}: {tvr_share:.3e} (tolerance {K1_MAX_SHARE})")
+        check(tvr_err <= K1_MAX_ERR and tvr_share <= K1_MAX_SHARE,
+              "the transposed-path render agrees with the stream render (K7 with K1)")
+    del outs, ref, p_color, p_t, err
+    summary.update(transposed_serve_s=t_serve, transposed_k7_pairs=pairs, transposed_k7_live_pairs=live,
+                   transposed_vs_stream_err=tvr_err)
+    entries = []
+    T = gw * gh
+    real_rows = int(s.binned.tile_counts.sum())
+    if on_card:
+        smi = smi_line()
+        clk = sm_clock()
+        p = s.proj
+        with torch.no_grad():
+            k1_ms, k7_ms = interleaved_ms([lambda: stream.composite_stream_tiles(props, ct, gw, gh),
+                                           lambda: stream_t.composite_stream_tiles_t(props_t, ct, gw, gh)],
+                                          rounds=10, reps=5)
+            img_ms, img_t_ms = interleaved_ms([
+                lambda: stream.stream_image(s.binned, s.means2d, p.conics, p.rgbs, p.opacities, bg, grid_w=gw, grid_h=gh),
+                lambda: stream_t.stream_image_t(s.binned, s.means2d, p.conics, p.rgbs, p.opacities, bg,
+                                                grid_w=gw, grid_h=gh)], rounds=5, reps=3)
+            k7_cold_ms = cuda_ms_cold(lambda: stream_t.composite_stream_tiles_t(props_t, ct, gw, gh), reps=10)
+            transpose_ms = cuda_ms(lambda: props.t().contiguous(), reps=20)
+            k7_plain_ms = cuda_ms(lambda: stream_t.composite_stream_tiles_t_plain(props_t, ct, gw, gh), reps=2)
+        k7_bytes = real_rows * 9 * 4 + T * 4 * 256 * 4 + 2 * T * 4
+        k7_ops = pairs * WALK_OPS_PER_PAIR + live * K1_OPS_PER_LIVE
+        k7_bound, k7_by = bound(k7_bytes, k7_ops)
+        print(f"[{smi}] in turns on view 0's stream: K1 {k1_ms:.4f} ms, K7 {k7_ms:.4f} ms (K7/K1 {k7_ms / k1_ms:.3f}); "
+              f"gather to image: rows {img_ms:.3f} ms, transposed {img_t_ms:.3f} ms")
+        print(f"[{smi}] K7 {k7_ms:.4f} ms (L2 cold {k7_cold_ms:.4f}), transposed copy {transpose_ms:.4f} ms, "
+              f"plain {k7_plain_ms:.2f} ms, bound {k7_bound:.4f} ms ({k7_by}: {k7_bytes} B, {k7_ops} fp32 ops)")
+        print_clocks(clk, "13")
+        summary.update(transposed_k1_ms=k1_ms, transposed_k7_ms=k7_ms, transposed_copy_ms=transpose_ms,
+                       transposed_image_ms={"rows": img_ms, "transposed": img_t_ms})
+        entries.append(
+            {"name": "stream_t_fwd", "route": "cuda",
+             "source": "gaussian_transformer_tpu_torch/csrc/stream_t_fwd.cu",
+             "replaces": "attic/stream_t.py:134",
+             "launches": k7_serve, "max_abs_err": k7_err, "ms": k7_ms, "ms_l2_cold": k7_cold_ms,
+             "plain_ms": k7_plain_ms, "bound_ms": k7_bound, "bound_by": k7_by, "library_ms": None,
+             "tolerance": {"atol": K1_ATOL, "max_share_beyond": K1_MAX_SHARE, "max_abs": K1_MAX_ERR},
+             "share_beyond_atol": k7_share, "k1_ms_in_turns": k1_ms, "transpose_ms": transpose_ms})
+    del s, props, props_t, ct, color, t_fin
+
+    print("== 14. transposed path, gradients: train view 0, first step's state, the trainer's budgets")
+    data = Path(args.work) / "train_data"
+    g0 = GaussianScene.from_pcd(fetch_point_cloud(str(data / "points3d.ply")), 1,
+                                capacity=4 * args.train_points, device=device)
+    cam = camera_from_c2w(orbit_c2w(0.0), fovx, W, H, device)
+    gt = torch.as_tensor(read_png(str(data / "train" / "r_0.png"))[..., :3].transpose(2, 0, 1) / 255.0,
+                         dtype=torch.float32, device=device)
+    lam = OptConfig().lambda_dssim
+
+    def train_loss(img):
+        img = img[:, :H, :W]
+        return (1.0 - lam) * l1_loss(img, gt) + lam * (1.0 - ssim(img, gt))
+
+    with torch.no_grad():
+        s = prepare_stream(cam, g0, cfg)
+    p, gw, gh = s.proj, s.grid_w, s.grid_h
+
+    def screen_grads(image_fn):
+        leaves = [v.detach().clone().requires_grad_() for v in (s.means2d, p.conics, p.rgbs, p.opacities)]
+        img = image_fn(s.binned, *leaves, bg, grid_w=gw, grid_h=gh)[0]
+        return torch.autograd.grad(train_loss(img), leaves)
+
+    k8_fn.launches = 0
+    g_t_path = screen_grads(stream_t.stream_image_t)
+    k8_step = k8_fn.launches
+    g_row_path = screen_grads(stream.stream_image)
+    print(f"one backward through stream_image_t: K8 launches {k8_step}")
+    if on_card:
+        check(k8_step == 1, "K8 launched once per backward")
+    grad_err = {}
+    for name, a, b in zip(("means2d", "conics", "rgbs", "opacities"), g_t_path, g_row_path):
+        scale = float(b.abs().max())
+        e = (a - b).abs()
+        grad_err[name] = (float(e.max()) / scale, float((e > K2_ATOL * scale).float().mean()))
+        print(f"d loss / d {name}: transposed vs row path max abs diff {grad_err[name][0]:.3e} of max |row| {scale:.3e} "
+              f"(tolerance {K2_MAX_ERR}), share beyond {K2_ATOL} of max: {grad_err[name][1]:.3e} (tolerance {K2_MAX_SHARE})")
+    check(all(torch.isfinite(g).all() for g in g_t_path)
+          and all(m <= K2_MAX_ERR and sh <= K2_MAX_SHARE for m, sh in grad_err.values()),
+          "the Gaussians' screen-space gradients through K8 agree with those through K2")
+    del g_t_path, g_row_path
+    with torch.no_grad():
+        props = s.props()
+        props_t, ct = props.t().contiguous(), s.chunk_tile
+        color, final_t = stream_t.composite_stream_tiles_t(props_t, ct, gw, gh)
+    # The loss's true cotangents of the compositor's outputs.
+    c, t = color.clone().requires_grad_(), final_t.clone().requires_grad_()
+    img = stream.tiles_to_image(c, t, s.binned.covered, bg, grid_w=gw, grid_h=gh)[0]
+    g_color, g_t = torch.autograd.grad(train_loss(img), [c, t])
+    k8_in = (props_t, ct, gw, gh, color, final_t, g_color, g_t)
+    with torch.no_grad():
+        d_plain = stream_t.composite_stream_tiles_t_bwd_plain(*k8_in)
+        if not on_card:
+            return entries
+        d_k8 = stream_t._launch_stream_t_bwd(*k8_in)
+        scale = float(d_plain.abs().max())
+        err = (d_k8 - d_plain)[:stream.GRAD_F].abs()
+        k8_err, k8_share = float(err.max()), float((err > K2_ATOL * scale).float().mean())
+        print(f"K8: chunk {props_t.shape[1] // ct.shape[0]}, planes [16, {props_t.shape[1]}]; K8 vs plain: max abs diff "
+              f"{k8_err:.3e} = {k8_err / scale:.3e} of max |plain| {scale:.3e} (tolerance {K2_MAX_ERR}), share beyond "
+              f"{K2_ATOL} of max: {k8_share:.3e} (tolerance {K2_MAX_SHARE})")
+        check(k8_err <= K2_MAX_ERR * scale and k8_share <= K2_MAX_SHARE
+              and bool(torch.all(d_k8[stream.GRAD_F:] == 0)), "K8 agrees with its plain version")
+    del d_plain, d_k8, err, g0
+    smi = smi_line()
+    clk = sm_clock()
+    k2_in = (props, ct, gw, gh, color, final_t, g_color, g_t)
+    with torch.no_grad():
+        k2_ms, k8_ms = interleaved_ms([lambda: stream._launch_stream_bwd(*k2_in),
+                                       lambda: stream_t._launch_stream_t_bwd(*k8_in)], rounds=10, reps=3)
+        k8_cold_ms = cuda_ms_cold(lambda: stream_t._launch_stream_t_bwd(*k8_in), reps=10)
+        k8_plain_ms = cuda_ms(lambda: stream_t.composite_stream_tiles_t_bwd_plain(*k8_in), reps=2)
+        pairs, live = stream_t.composite_stream_tiles_t_plain(props_t, ct, gw, gh, count_work=True)[2]
+    T = gw * gh
+    real_rows = int(s.binned.tile_counts.sum())
+    k8_bytes = real_rows * 9 * 4 + T * 8 * 256 * 4 + props_t.shape[1] * 16 * 4
+    k8_ops = pairs * WALK_OPS_PER_PAIR + live * K6_OPS_PER_LIVE
+    k8_bound, k8_by = bound(k8_bytes, k8_ops)
+    print(f"[{smi}] in turns on the same inputs: K2 {k2_ms:.4f} ms, K8 {k8_ms:.4f} ms (K8/K2 {k8_ms / k2_ms:.3f})")
+    print(f"[{smi}] K8 {k8_ms:.4f} ms (L2 cold {k8_cold_ms:.4f}), plain {k8_plain_ms:.2f} ms, bound {k8_bound:.4f} ms "
+          f"({k8_by}: {k8_bytes} B, {k8_ops} fp32 ops, {pairs} walked pairs, {live} contributing)")
+    print_clocks(clk, "14")
+    summary.update(transposed_k2_ms=k2_ms, transposed_k8_ms=k8_ms, transposed_k8_pairs=pairs,
+                   transposed_k8_live_pairs=live, transposed_grad_err=grad_err)
+    entries.append(
+        {"name": "stream_t_bwd", "route": "cuda",
+         "source": "gaussian_transformer_tpu_torch/csrc/stream_t_bwd.cu",
+         "replaces": "attic/stream_t.py:222",
+         "launches": k8_step, "max_abs_err": k8_err, "ms": k8_ms, "ms_l2_cold": k8_cold_ms,
+         "plain_ms": k8_plain_ms, "bound_ms": k8_bound, "bound_by": k8_by, "library_ms": None,
+         "tolerance": {"max_abs_of_max": K2_MAX_ERR, "atol_of_max": K2_ATOL, "max_share_beyond": K2_MAX_SHARE},
+         "share_beyond_atol": k8_share, "k2_ms_in_turns": k2_ms, "chunk": props_t.shape[1] // ct.shape[0],
+         "stream_rows": props_t.shape[1]})
+    return entries
+
+
+def probe_path(args, device, summary) -> list:
+    """Section 15: the layout probe through its entry point
+    (``tools.layout_probe.main``) at ``--probe_rows`` rows, then K9 against
+    its plain version on each layout. Returns K9's entry of the kernels line
+    (none off the card): its times and bounds summed over the four layouts,
+    each layout's record beside them."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.tools import layout_probe
+
+    on_card = device.type == "cuda"
+    k9_fn = layout_probe.LAYOUT_PROBE
+    print(f"== 15. layout probe: K9 on the four layouts at N = {args.probe_rows}")
+    clk = sm_clock() if on_card else None
+    k9_fn.launches = 0
+    records = layout_probe.main(["--rows", str(args.probe_rows)]
+                                + ([] if on_card else ["--device", str(device)]))
+    k9_launches = k9_fn.launches
+    if on_card:
+        print_clocks(clk, "15")
+        check(k9_launches >= len(layout_probe.LAYOUTS), f"K9 launched on every layout ({k9_launches} launches)")
+    errs = []
+    for rec, (name, _, _, block) in zip(records, layout_probe.LAYOUTS):
+        x = layout_probe.make_layout(name, args.probe_rows, device)
+        with torch.no_grad():
+            got = layout_probe.block_sums(x, block)
+            ref = layout_probe.block_sums_plain(x, block)
+            rel = float(((got - ref).abs() / ref.abs()).max())
+            errs.append(float((got - ref).abs().max()))
+            if on_card:
+                rec["plain_ms"] = cuda_ms(lambda: layout_probe.block_sums_plain(x, block), reps=3)
+        rec["max_rel_err"] = rel
+        print(f"K9 {name}: {rec['blocks']} blocks, max rel diff vs plain {rel:.3e} (tolerance {K9_RTOL})"
+              + (f"; {rec['ms']:.4f} ms (L2 cold {rec['ms_l2_cold']:.4f}), {rec['gb_per_s']:.1f} GB/s = "
+                 f"{rec['share_of_peak']:.3f} of 3.35 TB/s, torch.sum {rec['library_ms']:.4f} ms, plain "
+                 f"{rec['plain_ms']:.3f} ms, extra bytes kernel {rec['extra_bytes']} / torch.sum "
+                 f"{rec['library_extra_bytes']}" if on_card else ""))
+        check(rel <= K9_RTOL, f"K9 agrees with its plain version on {name}")
+        del x
+    summary.update(layout_probe=records)
+    if not on_card:
+        return []
+    smi = smi_line()
+    total = {k: sum(r[k] for r in records) for k in ("ms", "ms_l2_cold", "plain_ms", "bound_ms", "library_ms")}
+    print(f"[{smi}] K9 over the four layouts: {total['ms']:.4f} ms against a bound of {total['bound_ms']:.4f} ms "
+          f"(bytes); torch.sum {total['library_ms']:.4f} ms")
+    return [
+        {"name": "layout_probe", "route": "cuda",
+         "source": "gaussian_transformer_tpu_torch/csrc/layout_probe.cu",
+         "replaces": "tools/layout_probe.py:47",
+         "launches": k9_launches, "max_abs_err": max(errs), "ms": total["ms"], "ms_l2_cold": total["ms_l2_cold"],
+         "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"], "bound_by": "bytes",
+         "library_ms": total["library_ms"], "tolerance": {"rtol": K9_RTOL},
+         "summed_over": [r["layout"] for r in records], "layouts": records},
+    ]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -990,6 +1319,7 @@ def main(argv=None) -> int:
     parser.add_argument("--train_points", type=int, default=300_000)
     parser.add_argument("--train_views", type=int, default=8)
     parser.add_argument("--iterations", type=int, default=60)
+    parser.add_argument("--probe_rows", type=int, default=3_232_768, help="stream rows N of the layout probe")
     parser.add_argument("--work", default=str(ROOT / "build" / "chip_smoke"),
                         help="scratch dir for the model dir (default build/chip_smoke)")
     args = parser.parse_args(argv)

@@ -1,0 +1,220 @@
+"""Transposed-layout stream compositor (port of ``attic/stream_t.py``).
+
+The same function as ``render/stream.py`` (K1 forward, K2 backward) on the
+stream stored as planes, ``props_t [16, I_pad]`` (struct of arrays), where
+the row layout is ``[I_pad, 16]``. Means and pixel centers are ABSOLUTE
+screen coordinates, as the reference's ``_pixel_coords_cols`` and
+``_alpha_math_t`` evaluate them (K1 and K2 use tile-local ones).
+
+Kernel K7: ``csrc/stream_t_fwd.cu`` replaces the TPU kernel
+``attic/stream_t.py:134 _fwd_kernel_t``. Like K1 it is bound by operations
+(~14 fp32 operations and one ``expf`` per walked (row, pixel) pair, ~6 more
+where the row contributes); its design is K1's (one CTA per tile over its
+own row range, a block-wide exit), and its answer to the layout is to stage
+only the 9 planes the walk reads, each read coalesced: 36 bytes a row where
+K1 reads all 64.
+
+Kernel K8: ``csrc/stream_t_bwd.cu`` replaces the TPU kernel
+``attic/stream_t.py:222 _bwd_kernel_t``: K7's walk replayed with K6's
+per-pixel gradient terms (``csrc/table_bwd.cu``), each row's 9 sums reduced
+by warp shuffles and a fixed-order cross-warp sum (no atomics), written as
+planes of ``dprops_t [16, I_pad]`` with planes 9-15 and the rows past a
+tile's exit zero. Bound by operations (K7's walk, then ~52 more per
+contributing pair).
+
+``composite_stream_tiles_t`` launches K7 (and K8 in its backward) for CUDA
+tensors and uses the plain versions, ``composite_stream_tiles_t_plain`` and
+``composite_stream_tiles_t_bwd_plain``, only for CPU tensors.
+``stream_image_t`` is the drop-in for ``stream.stream_image``: the gather,
+one transposed copy (whose transpose back is part of autograd), the
+compositor, and ``stream.tiles_to_image``; the gradient reaches the
+Gaussians through ``stream.instance_pullback``.
+
+The reference ran its grid over ``block_rows`` rows at a time and carried T
+between grid steps; here, as for K1, each tile is one block over its own
+``[chunk_start, chunk_end)`` range, so no ``block_rows`` knob is needed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from gaussian_transformer_tpu_torch.kernels import CudaKernel
+from gaussian_transformer_tpu_torch.render.stream import (
+    GRAD_F,
+    P,
+    PROPS_F,
+    _plain_rounds,
+    composite_stream_tiles_plain,
+    pack_props,
+    stream_gather,
+    tile_chunk_ranges,
+    tiles_to_image,
+    used_stream,
+)
+
+STREAM_T_FWD = CudaKernel(
+    "stream_t_fwd.cu",
+    "stream_t_fwd",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+)
+STREAM_T_BWD = CudaKernel(
+    "stream_t_bwd.cu",
+    "stream_t_bwd",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+)
+
+
+def composite_stream_tiles_t_plain(props_t, chunk_tile, grid_w, grid_h, count_work=False):
+    """Plain PyTorch version of K7: (color [T, 3, P], final_T [T, 1, P]) from
+    ``props_t [16, I_pad]``; K1's plain walk in absolute coordinates.
+    ``count_work`` as ``stream.composite_stream_tiles_plain``."""
+    return composite_stream_tiles_plain(props_t.t(), chunk_tile, grid_w, grid_h, count_work, absolute=True)
+
+
+def composite_stream_tiles_t_bwd_plain(props_t, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t):
+    """Plain PyTorch version of K8: dprops_t [16, I_pad] (planes 0-8) from the
+    forward's outputs (color = C_total [T, 3, P], final_T [T, 1, P]) and their
+    cotangents, with the reference kernel's per-pixel terms
+    (attic/stream_t.py:280-337) summed over each tile's pixels; rows no
+    pixel reaches stay zero."""
+    props = props_t.t()
+    dprops = torch.zeros(props.shape, dtype=props.dtype, device=props.device)
+    color_pref = torch.zeros_like(color)
+    rs = lambda v: v.sum(dim=2, keepdim=True)  # [Ta, B, P] -> [Ta, B, 1]
+    for rd in _plain_rounds(props, chunk_tile, grid_w, grid_h, absolute=True):
+        alpha, t_in, dx, dy = rd.alpha, rd.t_in, rd.dx, rd.dy
+        a, b, c = rd.rows[..., 2:3], rd.rows[..., 3:4], rd.rows[..., 4:5]
+        rgb, opac = rd.rows[..., 5:8], rd.rows[..., 8:9]
+        gc, c_total, pref = g_color[rd.tiles], color[rd.tiles], color_pref[rd.tiles]
+        w = alpha * t_in * rd.live_k
+        d_rgb = torch.einsum("tkp,tcp->tkc", w, gc)
+        one_minus = torch.clamp(1.0 - alpha, min=1e-6)
+        g_alpha = -g_t[rd.tiles] * final_t[rd.tiles] / one_minus
+        totals = []
+        for ch in range(3):
+            prefix = torch.cumsum(w * rgb[..., ch:ch + 1], dim=1)
+            suffix = (c_total[:, ch:ch + 1] - pref[:, ch:ch + 1]) - prefix
+            g_alpha = g_alpha + gc[:, ch:ch + 1] * (rgb[..., ch:ch + 1] * t_in - suffix / one_minus)
+            totals.append(prefix[:, -1:])
+        g_alpha = g_alpha * rd.live_k * (alpha > 0.0).to(torch.float32)
+        g_alpha = torch.where(rd.alpha_raw > 0.99, torch.zeros_like(g_alpha), g_alpha)
+        g_power = g_alpha * alpha
+        grads = torch.cat([
+            rs(g_power * (-(a * dx) - b * dy)),
+            rs(g_power * (-(c * dy) - b * dx)),
+            rs(g_power * (-0.5 * dx * dx)),
+            rs(g_power * (-(dx * dy))),
+            rs(g_power * (-0.5 * dy * dy)),
+            d_rgb,
+            rs(g_alpha * alpha / torch.clamp(opac, min=1e-12)),
+        ], dim=2)  # [Ta, B, 9]
+        dprops[rd.idx.flatten(), :GRAD_F] = grads.reshape(-1, GRAD_F)
+        color_pref[rd.tiles] = pref + torch.cat(totals, dim=1)
+    return dprops.t()
+
+
+class _StreamCompositeT(torch.autograd.Function):
+    """K7 forward and K8 backward on CUDA tensors; the plain versions on CPU
+    tensors. Saves the planes and the forward's outputs (the backward's
+    C_total and T_final)."""
+
+    @staticmethod
+    def forward(ctx, props_t, chunk_tile, grid_w, grid_h):
+        if props_t.is_cuda:
+            color, final_t = _launch_stream_t_fwd(props_t, chunk_tile, grid_w, grid_h)
+        else:
+            color, final_t = composite_stream_tiles_t_plain(props_t, chunk_tile, grid_w, grid_h)
+        ctx.save_for_backward(props_t, chunk_tile, color, final_t)
+        ctx.grid = (grid_w, grid_h)
+        return color, final_t
+
+    @staticmethod
+    def backward(ctx, g_color, g_t):
+        props_t, chunk_tile, color, final_t = ctx.saved_tensors
+        grid_w, grid_h = ctx.grid
+        g_color = torch.zeros_like(color) if g_color is None else g_color
+        g_t = torch.zeros_like(final_t) if g_t is None else g_t
+        if props_t.is_cuda:
+            dprops_t = _launch_stream_t_bwd(props_t, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t)
+        else:
+            dprops_t = composite_stream_tiles_t_bwd_plain(
+                props_t, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t
+            )
+        return dprops_t, None, None, None
+
+
+def _checked_planes(props_t, chunk_tile):
+    """The planes as the kernels read them: contiguous float32 [16, I_pad],
+    a whole number of chunks, on chunk_tile's device."""
+    G = chunk_tile.shape[0]
+    if props_t.dtype != torch.float32 or props_t.ndim != 2 or props_t.shape[0] != PROPS_F:
+        raise ValueError(f"props_t must be float32 [{PROPS_F}, I_pad], got {props_t.dtype} {tuple(props_t.shape)}")
+    if G == 0 or props_t.shape[1] % G:
+        raise ValueError(f"{props_t.shape[1]} stream rows do not split into {G} chunks")
+    if chunk_tile.device != props_t.device:
+        raise ValueError("props_t and chunk_tile must be on the same device")
+    return props_t.contiguous()
+
+
+def _launch_stream_t_fwd(props_t, chunk_tile, grid_w, grid_h):
+    """K7: (color [T, 3, P], final_T [T, 1, P])."""
+    T = grid_w * grid_h
+    G = chunk_tile.shape[0]
+    props_t = _checked_planes(props_t, chunk_tile)
+    start, end = tile_chunk_ranges(chunk_tile.to(torch.int32).contiguous(), T)
+    color = torch.empty(T, 3, P, dtype=torch.float32, device=props_t.device)
+    final_t = torch.empty(T, 1, P, dtype=torch.float32, device=props_t.device)
+    STREAM_T_FWD.launch(
+        props_t.data_ptr(), start.data_ptr(), end.data_ptr(), props_t.shape[1], props_t.shape[1] // G,
+        grid_w, T, color.data_ptr(), final_t.data_ptr(),
+        torch.cuda.current_stream(props_t.device).cuda_stream,
+    )
+    return color, final_t
+
+
+def _launch_stream_t_bwd(props_t, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t):
+    """K8: dprops_t [16, I_pad] from K7's outputs and their cotangents."""
+    T = grid_w * grid_h
+    G = chunk_tile.shape[0]
+    props_t = _checked_planes(props_t, chunk_tile)
+    for name, v, rows in (("color", color, 3), ("final_t", final_t, 1), ("g_color", g_color, 3),
+                          ("g_t", g_t, 1)):
+        if tuple(v.shape) != (T, rows, P) or v.device != props_t.device:
+            raise ValueError(f"{name} must be [{T}, {rows}, {P}] on {props_t.device}, got {tuple(v.shape)}")
+    # Per-tile residual/cotangent table [T+1, 8, P] (zero trash row T), as
+    # K2's: C_total 0:3, T_final 3:4, g_color 4:7, g_t 7:8.
+    pad1 = lambda v: torch.cat([v.float(), v.new_zeros(1, *v.shape[1:])], dim=0)
+    tiledata = torch.cat([pad1(color), pad1(final_t), pad1(g_color), pad1(g_t)], dim=1).contiguous()
+    start, end = tile_chunk_ranges(chunk_tile.to(torch.int32).contiguous(), T + 1)
+    dprops_t = torch.empty_like(props_t)
+    STREAM_T_BWD.launch(
+        props_t.data_ptr(), tiledata.data_ptr(), start.data_ptr(), end.data_ptr(), props_t.shape[1],
+        props_t.shape[1] // G, grid_w, T, dprops_t.data_ptr(),
+        torch.cuda.current_stream(props_t.device).cuda_stream,
+    )
+    return dprops_t
+
+
+def composite_stream_tiles_t(props_t, chunk_tile, grid_w, grid_h) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(color [T, 3, P], final_T [T, 1, P]) pre-background from the planes
+    ``props_t [16, I_pad]``, differentiable in ``props_t``. CUDA tensors go
+    through kernels K7 and K8; CPU tensors through the plain versions."""
+    if not (props_t.is_cuda or props_t.device.type == "cpu"):
+        raise ValueError(f"no stream compositor for device {props_t.device}")
+    return _StreamCompositeT.apply(props_t, chunk_tile, grid_w, grid_h)
+
+
+def stream_image_t(binned, means2d, conics, rgbs, opac, bg, *, grid_w: int, grid_h: int):
+    """Drop-in for ``stream.stream_image`` through the transposed kernels:
+    padded image [3, H_pad, W_pad] + transmittance map [H_pad, W_pad]."""
+    stream_gauss, chunk_tile = used_stream(binned)
+    props = stream_gather(pack_props(means2d, conics, rgbs, opac), binned, stream_gauss)
+    props_t = props.t().contiguous()  # the one transposed copy
+    color, final_t = composite_stream_tiles_t(props_t, chunk_tile, grid_w, grid_h)
+    return tiles_to_image(color, final_t, binned.covered, bg, grid_w=grid_w, grid_h=grid_h)

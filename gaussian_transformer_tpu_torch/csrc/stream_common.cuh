@@ -59,4 +59,21 @@ __device__ __forceinline__ int walked_rows(int count, int K) {
   return min((max(count, 0) + kChunk - 1) / kChunk * kChunk, K);
 }
 
+// The transposed stream layout (stream_t_fwd.cu, stream_t_bwd.cu): plane j
+// of row r at props_t[j * ld + r]. The walk reads planes 0-8 (x, y, conic
+// a, b, c, r, g, b, opacity); a staged row keeps them 12 floats apart in
+// shared memory (three float4, the last holding opacity), so the walk reads
+// it as the row-layout kernels read theirs.
+constexpr int kUsedPlanes = 9;
+constexpr int kPlaneRowF = 12;
+constexpr int kPlaneRowV = kPlaneRowF / 4;
+
+// Row r's 9 used planes into dst[0..8]; a warp's threads on consecutive rows
+// read each plane coalesced.
+__device__ __forceinline__ void stage_planes(const float* __restrict__ props_t, long long ld,
+                                             long long r, float* dst) {
+#pragma unroll
+  for (int j = 0; j < kUsedPlanes; ++j) dst[j] = __ldg(props_t + j * ld + r);
+}
+
 }  // namespace stream_common

@@ -75,6 +75,10 @@ class RenderConfig:
     use_pallas: bool = True
     # Not ported yet; anything but "fp32" raises NotImplementedError.
     precision: str = "fp32"
+    # Stream layout: "rows" ([I_pad, 16]). The stream path raises for
+    # "transposed" as the reference does; that layout ([16, I_pad], kernels
+    # K7 and K8) is reached through attic/stream_t.py stream_image_t.
+    layout: str = "rows"
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
@@ -211,6 +215,10 @@ def prepare_stream(viewpoint_camera, pc, cfg: RenderConfig = RenderConfig(),
                    scaling_modifier: float = 1.0, override_color=None,
                    screenspace_offset=None) -> StreamInputs:
     """Projection + stream binning of one view: everything before the compositor."""
+    if cfg.layout == "transposed":
+        raise NotImplementedError(
+            "render() runs the row layout; the transposed stream compositor (K7, K8) is "
+            "gaussian_transformer_tpu_torch.attic.stream_t.stream_image_t")
     proj, means2d, include, grid_w, grid_h = _project_for_binning(
         viewpoint_camera, pc, cfg, scaling_modifier, override_color, screenspace_offset)
     binned = bin_stream(

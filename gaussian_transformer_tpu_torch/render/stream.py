@@ -158,8 +158,10 @@ class _Round(NamedTuple):
     tiles: torch.Tensor  # [Ta] tile ids
     idx: torch.Tensor  # [Ta, B] stream rows
     rows: torch.Tensor  # [Ta, B, 16]
-    x: torch.Tensor  # [Ta, B, 1] tile-local means
+    x: torch.Tensor  # [Ta, B, 1] means in the walk's frame (tile-local, or absolute)
     y: torch.Tensor
+    dx: torch.Tensor  # [Ta, B, P] x - px in that frame
+    dy: torch.Tensor
     alpha_raw: torch.Tensor  # [Ta, B, P] before the cap
     alpha: torch.Tensor  # [Ta, B, P] capped, 0 where skipped
     t_in: torch.Tensor  # [Ta, B, P] transmittance before each row
@@ -170,10 +172,12 @@ class _Round(NamedTuple):
     t_after: torch.Tensor  # [Ta, 1, P] the carried T after the round
 
 
-def _plain_rounds(props, chunk_tile, grid_w, grid_h):
+def _plain_rounds(props, chunk_tile, grid_w, grid_h, absolute=False):
     """The plain versions' walk: rounds of ``PLAIN_ROWS`` rows over every
     tile's run at once, with the reference's scan-free termination, carrying
-    T and a live flag per tile-pixel between rounds. Yields a ``_Round``."""
+    T and a live flag per tile-pixel between rounds. Yields a ``_Round``.
+    Means and pixel centers are tile-local (K1, K2), or with ``absolute``
+    the screen's (the transposed kernels K7, K8)."""
     I_pad = props.shape[0]
     chunk = I_pad // chunk_tile.shape[0]
     T = grid_w * grid_h
@@ -200,11 +204,16 @@ def _plain_rounds(props, chunk_tile, grid_w, grid_h):
             return
         idx = row0[tiles, None] + r * B + k_iota
         rows = props[idx]
-        x = rows[..., 0:1] - ox[tiles, None, None]
-        y = rows[..., 1:2] - oy[tiles, None, None]
         a, b, c = rows[..., 2:3], rows[..., 3:4], rows[..., 4:5]
-        dx = x - px
-        dy = y - py
+        if absolute:
+            x, y = rows[..., 0:1], rows[..., 1:2]
+            dx = x - (ox[tiles, None, None] + px)
+            dy = y - (oy[tiles, None, None] + py)
+        else:
+            x = rows[..., 0:1] - ox[tiles, None, None]
+            y = rows[..., 1:2] - oy[tiles, None, None]
+            dx = x - px
+            dy = y - py
         power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
         alpha_raw = rows[..., 8:9] * torch.exp(torch.clamp(power, max=0.0))
         alpha = torch.clamp(alpha_raw, max=0.99)
@@ -219,7 +228,7 @@ def _plain_rounds(props, chunk_tile, grid_w, grid_h):
         # row, or the product over the whole round.
         t_full = t_in[:, -1:] * (1.0 - alpha[:, -1:])
         t_after = torch.where(lv > 0.0, torch.where(tstar > 0.0, tstar, t_full), t0)
-        yield _Round(tiles, idx, rows, x, y, alpha_raw, alpha, t_in, live_k, lv, tstar, trigger, t_after)
+        yield _Round(tiles, idx, rows, x, y, dx, dy, alpha_raw, alpha, t_in, live_k, lv, tstar, trigger, t_after)
         t_run[tiles] = t_after
         live[tiles] = lv * (tstar <= 0.0).to(torch.float32)
         r += 1
@@ -234,19 +243,20 @@ def walked_pairs(rows, lv, trigger):
     return ((rows[..., 8:9] > 0.0) & (lv > 0.0) & before_stop).sum()
 
 
-def composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h, count_work=False):
+def composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h, count_work=False, absolute=False):
     """Plain PyTorch version of K1: (color [T, 3, P], final_T [T, 1, P]).
 
     ``count_work=True`` also returns (walked, contributing) for roofline
     accounting: the (row, pixel) pairs a sequential walk evaluates (real rows
     up to and including each pixel's terminating row), and those of them
-    that contribute (not skipped, not the terminating row)."""
+    that contribute (not skipped, not the terminating row). ``absolute``
+    walks in screen coordinates, as K7 does (``_plain_rounds``)."""
     T = grid_w * grid_h
     color = torch.zeros(T, 3, P, dtype=torch.float32, device=props.device)
     final_t = torch.ones(T, 1, P, dtype=torch.float32, device=props.device)
     walked = torch.zeros((), dtype=torch.int64, device=props.device)
     contributing = torch.zeros((), dtype=torch.int64, device=props.device)
-    for rd in _plain_rounds(props, chunk_tile, grid_w, grid_h):
+    for rd in _plain_rounds(props, chunk_tile, grid_w, grid_h, absolute):
         w = rd.alpha * rd.t_in * rd.live_k
         color[rd.tiles] += torch.einsum("tkc,tkp->tcp", rd.rows[..., 5:8], w)
         final_t[rd.tiles] = rd.t_after

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``gaussian_transformer_tpu_torch``
 (nor ``chip_smoke.py``) imports JAX, Flax, Pillow or anything of the JAX
-package, and importing the whole port loads no JAX."""
+package (its ``attic/`` and ``tools/`` included), and importing the whole port
+loads none of them."""
 
 import ast
 import subprocess
@@ -12,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "gaussian_transformer_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "gaussian_transformer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "gaussian_transformer_tpu", "attic", "tools")
 
 
 def _imported_modules(path: Path):
@@ -34,6 +35,8 @@ def test_forbidden_matches_whole_module_names():
     assert _forbidden("jax.numpy") and _forbidden("gaussian_transformer_tpu.render")
     assert _forbidden("gaussian_transformer_tpu") and _forbidden("PIL")
     assert not _forbidden("gaussian_transformer_tpu_torch.render") and not _forbidden("jaxtyping")
+    assert _forbidden("attic.stream_t") and _forbidden("tools.layout_probe")
+    assert not _forbidden("gaussian_transformer_tpu_torch.attic.stream_t") and not _forbidden("toolsmith")
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -50,8 +53,7 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'PIL', 'gaussian_transformer_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )

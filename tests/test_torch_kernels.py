@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (K1-K6) against their plain PyTorch
+"""The port's hand-written CUDA kernels (K1-K9) against their plain PyTorch
 versions, on the card only (marker ``gpu``; each test skips without a CUDA
 device).
 
@@ -13,12 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from gaussian_transformer_tpu_torch.attic import stream_t
 from gaussian_transformer_tpu_torch.convert import scene_from_numpy
 from gaussian_transformer_tpu_torch.ops import fused_ssim
 from gaussian_transformer_tpu_torch.ops.losses import ssim
 from gaussian_transformer_tpu_torch.render import RenderConfig, prepare_stream, prepare_table, render
 from gaussian_transformer_tpu_torch.render import stream, table_composite
 from gaussian_transformer_tpu_torch.scene.cameras import Camera
+from gaussian_transformer_tpu_torch.tools import layout_probe
 
 K1_ATOL = 2e-5
 
@@ -290,3 +292,92 @@ def test_table_kernels_reject_bad_inputs(cuda):
     (color.sum() + t.sum()).backward()
     assert float(color.detach().abs().max()) == 0.0 and float(t.detach().min()) == 1.0
     assert props.grad is not None and float(props.grad.abs().max()) == 0.0
+
+
+def _check_k7_k8(s, seed):
+    """K7 and K8 against their plain versions (and K7 against K1) on one
+    view's stream as planes, under K1's and K2's rules; K8 writes zero
+    planes 9-15."""
+    props = s.props()
+    props_t, ct, gw, gh = props.t().contiguous(), s.chunk_tile, s.grid_w, s.grid_h
+    before = (stream_t.STREAM_T_FWD.launches, stream_t.STREAM_T_BWD.launches)
+    color, t = stream_t.composite_stream_tiles_t(props_t, ct, gw, gh)
+    cov = s.binned.covered
+    for ref_color, ref_t in (stream_t.composite_stream_tiles_t_plain(props_t, ct, gw, gh),
+                             stream.composite_stream_tiles(props, ct, gw, gh)):
+        err = torch.cat([(color - ref_color)[cov].flatten(), (t - ref_t)[cov].flatten()]).abs()
+        assert float(err.max()) <= 1e-3
+        assert float((err > K1_ATOL).float().mean()) <= 1e-4
+    gen = torch.Generator(props.device).manual_seed(seed)
+    g_color = torch.randn(color.shape, generator=gen, device=props.device)
+    g_t = torch.randn(t.shape, generator=gen, device=props.device)
+    got = stream_t._launch_stream_t_bwd(props_t, ct, gw, gh, color, t, g_color, g_t)
+    torch.cuda.synchronize()
+    assert (stream_t.STREAM_T_FWD.launches, stream_t.STREAM_T_BWD.launches) == (before[0] + 1, before[1] + 1)
+    ref = stream_t.composite_stream_tiles_t_bwd_plain(props_t, ct, gw, gh, color, t, g_color, g_t)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    err = (got - ref).abs()
+    assert float(err.max()) <= 1e-3 * scale
+    assert float((err > 2e-4 * scale).float().mean()) <= 1e-4
+    assert torch.all(got[stream.GRAD_F:] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,height,chunk", [(160, 112, 0), (1920, 1080, 64), (200, 90, 128)])
+def test_transposed_stream_kernels_match_plain(cuda, width, height, chunk):
+    with torch.no_grad():
+        s = prepare_stream(_camera(width, height, cuda), _scene(4000, 1, cuda), RenderConfig(chunk=chunk))
+        assert int(s.binned.n_instances) > 0
+        _check_k7_k8(s, seed=width)
+
+
+@pytest.mark.gpu
+def test_transposed_stream_kernels_saturated(cuda):
+    with torch.no_grad():
+        s = prepare_stream(_camera(96, 64, cuda), _scene(3000, 2, cuda, opacity=0.97, spread=0.3))
+        _check_k7_k8(s, seed=5)
+
+
+@pytest.mark.gpu
+def test_transposed_render_gradients_on_card_match_cpu(cuda):
+    """stream_image_t's backward (K8 and the gather pullback on the card)
+    against the CPU path (plain K8), at 2e-4 of the largest gradient."""
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        with torch.no_grad():
+            s = prepare_stream(_camera(96, 64, dev), _scene(600, 6, dev))
+        p = s.proj
+        leaves = [v.detach().clone().requires_grad_() for v in (s.means2d, p.conics, p.rgbs, p.opacities)]
+        img, t_map = stream_t.stream_image_t(s.binned, *leaves, torch.tensor([0.2, 0.1, 0.4], device=dev),
+                                             grid_w=s.grid_w, grid_h=s.grid_h)
+        loss = torch.sum(img ** 2) + 0.1 * torch.sum(t_map)
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    for a, b in zip(*grads):
+        assert torch.all(torch.isfinite(a))
+        assert float((a - b).abs().max()) <= 2e-4 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [name for name, *_ in layout_probe.LAYOUTS])
+def test_layout_probe_kernel_matches_plain(cuda, layout):
+    """K9 at the probe's size (N = 3,232,768, a partial last block) against
+    its plain version: f32 sums of positive data to 1e-6 relative."""
+    block = next(b for name, _, _, b in layout_probe.LAYOUTS if name == layout)
+    x = layout_probe.make_layout(layout, layout_probe.ROWS, cuda, seed=3)
+    before = layout_probe.LAYOUT_PROBE.launches
+    got = layout_probe.block_sums(x, block)
+    torch.cuda.synchronize()
+    assert layout_probe.LAYOUT_PROBE.launches == before + 1
+    ref = layout_probe.block_sums_plain(x, block)
+    assert got.shape == ref.shape == (layout_probe.ROWS // 2048,)
+    assert float(((got - ref).abs() / ref).max()) <= 1e-6
+    assert torch.equal(got, layout_probe.block_sums(x, block))  # deterministic
+
+
+@pytest.mark.gpu
+def test_layout_probe_kernel_rejects_unaligned(cuda):
+    with pytest.raises(ValueError):
+        layout_probe.block_sums(torch.zeros(16, 2050, device=cuda), (16, 2048))
+    with pytest.raises(ValueError):
+        layout_probe.block_sums(torch.zeros(4096, 16, dtype=torch.float64, device=cuda), (2048, 16))
