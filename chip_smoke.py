@@ -43,7 +43,7 @@ The training path:
    (fused SSIM backward on the render/GT pair) against their plain versions.
 9. Times: the median train step (steps 11-60 without the densify step) split
    into forward, loss, backward and Adam; K2 and K4 and their plain versions
-   with their bounds.
+   with their bounds; the rows per tile K2 walks (max, median, p99).
 
 The table path (``RenderConfig(use_stream=False)``: ``bin_gaussians`` and the
 [T, K] table compositor, kernels K5 and K6):
@@ -63,7 +63,8 @@ The table path (``RenderConfig(use_stream=False)``: ``bin_gaussians`` and the
     overflow of every step.
 12. K6 against its plain version on train view 0 from the first step's
     state at the trainer's budgets, on the loss's true cotangents; times of
-    the median table train step by phase, K6, plain K6, bound.
+    the median table train step by phase, K6, plain K6, bound; the rows per
+    tile K6 walks.
 
 The transposed-layout stream path (``attic.stream_t.stream_image_t``: the
 stream as planes [16, I_pad], kernels K7 and K8) and the layout probe (K9):
@@ -618,6 +619,13 @@ def bound(nbytes, ops):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
+def rows_per_tile(rows) -> dict:
+    """max, median, p99 and mean of the rows each tile's block walks at most."""
+    r = rows.double().cpu().numpy()
+    return {"tiles": int(r.size), "max": float(r.max()), "median": float(np.median(r)),
+            "p99": float(np.percentile(r, 99)), "mean": float(r.mean())}
+
+
 def train_path(args, device, scene, summary):
     """Sections 6-9: the training dataset, ``cli.train``, the K2/K4 checks
     at the trainer's budgets, and the times. Returns the K2 and K4 entries of
@@ -776,6 +784,8 @@ def train_path(args, device, scene, summary):
         k4_cold_ms = cuda_ms_cold(lambda: fused_ssim._launch_ssim_bwd(img, gt, g_one), reps=20)
         k4_plain_ms = cuda_ms(lambda: fused_ssim.ssim_bwd_plain(img, gt, g_one), reps=5)
         pairs, live = stream.composite_stream_tiles_plain(props, ct, gw, gh, count_work=True)[2]
+        start, end = stream.tile_chunk_ranges(ct.to(torch.int32).contiguous(), gw * gh)
+        k2_rows = rows_per_tile((end - start).long() * chunk)
     T = gw * gh
     real_rows = int(s.binned.tile_counts.sum())
     k2_bytes = real_rows * 9 * 4 + T * 8 * 256 * 4 + props.shape[0] * 16 * 4
@@ -790,9 +800,10 @@ def train_path(args, device, scene, summary):
           f"{k2_ops} fp32 ops, {pairs} walked pairs, {live} contributing)")
     print(f"[{smi}] K4 {k4_ms:.4f} ms (L2 cold {k4_cold_ms:.4f}), plain {k4_plain_ms:.3f} ms, "
           f"bound {k4_bound:.4f} ms ({k4_by}: {k4_bytes} B, {k4_ops} fp32 ops)")
+    print(f"[{smi}] K2 rows per tile (chunk_end - chunk_start): {k2_rows}")
     print_clocks(clk, "9")
     summary.update(train_step_ms=step_ms, train_phase_ms=med, train_pairs=pairs, train_live_pairs=live,
-                   train_real_rows=real_rows, train_step_profile=step_profile)
+                   train_real_rows=real_rows, train_step_profile=step_profile, k2_rows_per_tile=k2_rows)
     return [
         {"name": "stream_bwd", "route": "cuda",
          "source": "gaussian_transformer_tpu_torch/csrc/stream_bwd.cu",
@@ -801,7 +812,8 @@ def train_path(args, device, scene, summary):
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
          "tolerance": {"max_abs_of_max": K2_MAX_ERR, "atol_of_max": K2_ATOL,
                        "max_share_beyond": K2_MAX_SHARE},
-         "share_beyond_atol": k2_share, "chunk": chunk, "stream_rows": props.shape[0]},
+         "share_beyond_atol": k2_share, "chunk": chunk, "stream_rows": props.shape[0],
+         "rows_per_tile": k2_rows},
         {"name": "ssim_bwd", "route": "cuda",
          "source": "gaussian_transformer_tpu_torch/csrc/ssim_bwd.cu",
          "replaces": "gaussian_transformer_tpu/ops/fused_ssim.py:132",
@@ -1033,6 +1045,7 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
         k6_cold_ms = cuda_ms_cold(lambda: table_composite._launch_table_bwd(*k6_in), reps=10)
         k6_plain_ms = cuda_ms(lambda: table_composite.composite_table_tiles_bwd_plain(*k6_in), reps=2)
         pairs, live = table_composite.composite_table_tiles_plain(props, counts, gw, count_work=True)[2]
+        k6_rows = rows_per_tile(table_composite.walked_rows(counts, props.shape[1]))
     T, Kp = props.shape[0], props.shape[1]
     k6_bytes = real_rows * 9 * 4 + T * 4 + T * 8 * 256 * 4 + T * Kp * 16 * 4
     k6_ops = pairs * WALK_OPS_PER_PAIR + live * K6_OPS_PER_LIVE
@@ -1040,9 +1053,10 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
     print(f"[{smi}] K6 (table [{T}, {Kp}, 16]) {k6_ms:.4f} ms (L2 cold {k6_cold_ms:.4f}), plain {k6_plain_ms:.2f} ms, "
           f"bound {k6_bound:.4f} ms ({k6_by}: {k6_bytes} B, {k6_ops} fp32 ops, {pairs} walked pairs, "
           f"{live} contributing)")
+    print(f"[{smi}] K6 rows per tile (walked_rows): {k6_rows}")
     print_clocks(clk, "12b")
     summary.update(table_train_step_ms=step_ms, table_train_phase_ms=med, table_k6_pairs=pairs,
-                   table_k6_live_pairs=live, table_k6_real_rows=real_rows)
+                   table_k6_live_pairs=live, table_k6_real_rows=real_rows, k6_rows_per_tile=k6_rows)
     entries.append(
         {"name": "table_bwd", "route": "cuda",
          "source": "gaussian_transformer_tpu_torch/csrc/table_bwd.cu",
@@ -1050,7 +1064,7 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
          "launches": launches["K6"], "max_abs_err": k6_err, "ms": k6_ms, "ms_l2_cold": k6_cold_ms,
          "plain_ms": k6_plain_ms, "bound_ms": k6_bound, "bound_by": k6_by, "library_ms": None,
          "tolerance": {"max_abs_of_max": K2_MAX_ERR, "atol_of_max": K2_ATOL, "max_share_beyond": K2_MAX_SHARE},
-         "share_beyond_atol": k6_share, "max_per_tile": Kp})
+         "share_beyond_atol": k6_share, "max_per_tile": Kp, "rows_per_tile": k6_rows})
     return entries
 
 
@@ -1234,7 +1248,8 @@ def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
     k8_bytes = real_rows * 9 * 4 + T * 8 * 256 * 4 + props_t.shape[1] * 16 * 4
     k8_ops = pairs * WALK_OPS_PER_PAIR + live * K6_OPS_PER_LIVE
     k8_bound, k8_by = bound(k8_bytes, k8_ops)
-    print(f"[{smi}] in turns on the same inputs: K2 {k2_ms:.4f} ms, K8 {k8_ms:.4f} ms (K8/K2 {k8_ms / k2_ms:.3f})")
+    print(f"[{smi}] in turns on the same inputs: K2 {k2_ms:.4f} ms, K8 {k8_ms:.4f} ms (K2/K8 {k2_ms / k8_ms:.3f}, "
+          f"K8/K2 {k8_ms / k2_ms:.3f})")
     print(f"[{smi}] K8 {k8_ms:.4f} ms (L2 cold {k8_cold_ms:.4f}), plain {k8_plain_ms:.2f} ms, bound {k8_bound:.4f} ms "
           f"({k8_by}: {k8_bytes} B, {k8_ops} fp32 ops, {pairs} walked pairs, {live} contributing)")
     print_clocks(clk, "14")

@@ -16,8 +16,9 @@ K1 reads all 64.
 
 Kernel K8: ``csrc/stream_t_bwd.cu`` replaces the TPU kernel
 ``attic/stream_t.py:222 _bwd_kernel_t``: K7's walk replayed with K6's
-per-pixel gradient terms (``csrc/table_bwd.cu``), each row's 9 sums reduced
-by warp shuffles and a fixed-order cross-warp sum (no atomics), written as
+per-pixel gradient terms (``csrc/stream_common.cuh pixel_grad_terms``),
+each row's 9 sums reduced by per-row warp shuffles and a fixed-order
+cross-warp sum (no atomics), written as
 planes of ``dprops_t [16, I_pad]`` with planes 9-15 and the rows past a
 tile's exit zero. Bound by operations (K7's walk, then ~52 more per
 contributing pair).
@@ -55,6 +56,7 @@ from gaussian_transformer_tpu_torch.render.stream import (
     tiles_to_image,
     used_stream,
 )
+from gaussian_transformer_tpu_torch.render.table_composite import _round_grads
 
 STREAM_T_FWD = CudaKernel(
     "stream_t_fwd.cu",
@@ -81,41 +83,15 @@ def composite_stream_tiles_t_bwd_plain(props_t, chunk_tile, grid_w, grid_h, colo
     """Plain PyTorch version of K8: dprops_t [16, I_pad] (planes 0-8) from the
     forward's outputs (color = C_total [T, 3, P], final_T [T, 1, P]) and their
     cotangents, with the reference kernel's per-pixel terms
-    (attic/stream_t.py:280-337) summed over each tile's pixels; rows no
-    pixel reaches stay zero."""
+    (attic/stream_t.py:280-337, ``table_composite._round_grads``) summed over
+    each tile's pixels; rows no pixel reaches stay zero."""
     props = props_t.t()
     dprops = torch.zeros(props.shape, dtype=props.dtype, device=props.device)
     color_pref = torch.zeros_like(color)
-    rs = lambda v: v.sum(dim=2, keepdim=True)  # [Ta, B, P] -> [Ta, B, 1]
     for rd in _plain_rounds(props, chunk_tile, grid_w, grid_h, absolute=True):
-        alpha, t_in, dx, dy = rd.alpha, rd.t_in, rd.dx, rd.dy
-        a, b, c = rd.rows[..., 2:3], rd.rows[..., 3:4], rd.rows[..., 4:5]
-        rgb, opac = rd.rows[..., 5:8], rd.rows[..., 8:9]
-        gc, c_total, pref = g_color[rd.tiles], color[rd.tiles], color_pref[rd.tiles]
-        w = alpha * t_in * rd.live_k
-        d_rgb = torch.einsum("tkp,tcp->tkc", w, gc)
-        one_minus = torch.clamp(1.0 - alpha, min=1e-6)
-        g_alpha = -g_t[rd.tiles] * final_t[rd.tiles] / one_minus
-        totals = []
-        for ch in range(3):
-            prefix = torch.cumsum(w * rgb[..., ch:ch + 1], dim=1)
-            suffix = (c_total[:, ch:ch + 1] - pref[:, ch:ch + 1]) - prefix
-            g_alpha = g_alpha + gc[:, ch:ch + 1] * (rgb[..., ch:ch + 1] * t_in - suffix / one_minus)
-            totals.append(prefix[:, -1:])
-        g_alpha = g_alpha * rd.live_k * (alpha > 0.0).to(torch.float32)
-        g_alpha = torch.where(rd.alpha_raw > 0.99, torch.zeros_like(g_alpha), g_alpha)
-        g_power = g_alpha * alpha
-        grads = torch.cat([
-            rs(g_power * (-(a * dx) - b * dy)),
-            rs(g_power * (-(c * dy) - b * dx)),
-            rs(g_power * (-0.5 * dx * dx)),
-            rs(g_power * (-(dx * dy))),
-            rs(g_power * (-0.5 * dy * dy)),
-            d_rgb,
-            rs(g_alpha * alpha / torch.clamp(opac, min=1e-12)),
-        ], dim=2)  # [Ta, B, 9]
+        grads, totals = _round_grads(rd, color, color_pref, g_color, g_t, final_t)
         dprops[rd.idx.flatten(), :GRAD_F] = grads.reshape(-1, GRAD_F)
-        color_pref[rd.tiles] = pref + torch.cat(totals, dim=1)
+        color_pref[rd.tiles] = color_pref[rd.tiles] + totals
     return dprops.t()
 
 

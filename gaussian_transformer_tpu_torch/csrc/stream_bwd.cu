@@ -17,22 +17,35 @@
 // Design. The launch geometry is K1's (stream_fwd.cu): one CTA of 256
 // threads per tile, one thread per pixel, the tile's row range from the same
 // searchsorted chunk ranges, rows staged in shared memory. The walk uses the
-// alpha and transmittance functions of stream_common.cuh, so every pixel
-// stops at exactly the row where K1 stopped it. The TPU kernel carried its
-// state across sequential grid steps; here a tile is one block, so nothing
-// is carried between blocks and no atomics are needed (a row belongs to one
-// tile). Each row needs 9 sums over the tile's 256 pixels: a warp reduces its
-// 32 lanes with shuffles (skipped when no lane of the warp contributes, the
-// common case at a splat's edge) and writes 9 partials to shared memory; at
-// the end of each 64-row batch one thread per row adds the 8 warps' partials
-// in a fixed order (deterministic) and writes the row. Rows after the block
-// has terminated, padding rows and the trash chunks (block n_tiles) get zeros.
+// alpha and transmittance functions of stream_common.cuh (replay_step), so
+// every pixel stops at exactly the row where K1 stopped it. The TPU kernel
+// carried its state across sequential grid steps; here a tile is one block,
+// so nothing is carried between blocks and no atomics are needed (a row
+// belongs to one tile). The rows go in batches of B = 32 in two phases:
+//   walk: each pixel steps through the batch's rows and stores its
+//     (g_power, w) per row in shared memory (0 where it does not contribute;
+//     w is nonzero and g_power 0 at the cap), each warp its ballot of
+//     contributing lanes;
+//   reduce: the 256 threads take (row, 32-pixel segment) jobs, 8 per row on
+//     adjacent lanes; a job adds its segment's 9 terms in pixel order (the
+//     six moments with the tile-local px, py of the pixel index, each
+//     16-pixel row's sums of g_power, g_power px and g_power px^2 taken
+//     before its py is folded in; and w gC with gC staged once per block),
+//     skipping a segment no pixel of which contributes; three xor-shuffle
+//     levels add the 8 partials and 4 lanes write the row's 4 float4.
+// So a row costs 27/4 warp shuffles. The segments are padded
+// (stream_common.cuh), so neither phase has bank conflicts. 73 KB of dynamic
+// shared memory a block (opted in once by the entry point), three blocks an
+// SM; the reduce loop is unrolled 4 times (a full unroll hoists its loads
+// past the register budget and spills). Rows after the block has
+// terminated, padding rows and the trash chunks (block n_tiles) get zeros.
 //
-// Bound. Per (row, pixel) pair ~45 fp32 operations (K1's alpha and T walk,
-// the g_alpha division, 9 products) plus one expf and, where a warp is live,
-// 9 x 5 shuffle-adds; the row's 36 useful bytes are shared by 256 pixels. So
-// it is bound by operations, and the warp reductions are the largest share of
-// them. A faster version would reduce several rows per shuffle round.
+// Bound. Per walked (row, pixel) pair K1's ~14 fp32 operations and one expf
+// plus one shared store; per contributing pair ~27 more (the T update, the
+// g_alpha division); the reduce phase ~15 per (row, pixel) of a live
+// segment. The row's 36 useful bytes are shared by 256 pixels, so it is
+// bound by operations, and the walk, which K1 also pays, is the largest
+// share of them.
 
 #include <cuda_runtime.h>
 
@@ -42,20 +55,16 @@ namespace {
 
 using namespace stream_common;
 
-constexpr int kBatch = 64;  // rows staged per pass
-constexpr int kWarps = kPixels / 32;
-constexpr int kSums = 9;  // m0..m5, then sum w gC per channel
-
-__global__ void __launch_bounds__(kPixels) stream_bwd_kernel(
+__global__ void __launch_bounds__(kPixels, 3) stream_bwd_kernel(
     const float4* __restrict__ props, const float* __restrict__ tiledata,
     const int* __restrict__ chunk_start, const int* __restrict__ chunk_end, int chunk,
     int grid_w, int n_tiles, float4* __restrict__ dprops) {
-  __shared__ float4 rows[kBatch * kRowV];
-  __shared__ float red[kBatch][kWarps][kSums];
+  extern __shared__ float4 smem[];
+  const ReplaySmem sm = replay_smem(smem);
   const int t = blockIdx.x;
   const int p = threadIdx.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
+  const int job_row = p / kSegments;  // the reduce phase's job: row of the batch,
+  const int seg = p % kSegments;      // and pixel segment
   const long long r0 = (long long)chunk_start[t] * chunk;
   const long long r1 = (long long)chunk_end[t] * chunk;
   const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -71,96 +80,83 @@ __global__ void __launch_bounds__(kPixels) stream_bwd_kernel(
     const float gc0 = td[4 * kPixels], gc1 = td[5 * kPixels], gc2 = td[6 * kPixels];
     const float gdot_total = gc0 * td[0] + gc1 * td[kPixels] + gc2 * td[2 * kPixels];
     const float gt_final = td[7 * kPixels] * td[3 * kPixels];
+    sm.gc[pad_pixel(p)] = make_float4(gc0, gc1, gc2, 0.0f);
 
     float T = 1.0f, S = 0.0f;
     int done = 0;
-    for (; base < r1; base += kBatch) {
-      const int n = (int)min((long long)kBatch, r1 - base);
-      __syncthreads();  // the previous batch is fully consumed
+    for (; base < r1; base += kReplayRows) {
+      const int n = (int)min((long long)kReplayRows, r1 - base);
       const float4* src = props + base * kRowV;
-      for (int i = p; i < n * kRowV; i += kPixels) rows[i] = src[i];
-      __syncthreads();
+      for (int i = p; i < n * kRowV; i += kPixels) sm.rows[i] = src[i];
+      __syncthreads();  // the batch's rows (and gC) are staged
       for (int k = 0; k < n; ++k) {
-        float s[kSums];
-#pragma unroll
-        for (int j = 0; j < kSums; ++j) s[j] = 0.0f;
+        float gp = 0.0f, w = 0.0f;
         bool live = false;
         if (!done) {
-          const float4 v0 = rows[k * kRowV];      // x, y, a, b
-          const float4 v1 = rows[k * kRowV + 1];  // c, r, g, b
-          const float opac = rows[k * kRowV + 2].x;
+          const float4 v0 = sm.rows[k * kRowV];      // x, y, a, b
+          const float4 v1 = sm.rows[k * kRowV + 1];  // c, r, g, b
+          const float opac = sm.rows[k * kRowV + 2].x;
           const float power =
               splat_power(__fsub_rn(v0.x, ox), __fsub_rn(v0.y, oy), v0.z, v0.w, v1.x, px, py);
-          const float alpha_raw = splat_alpha_raw(opac, power);
-          const float alpha = fminf(kAlphaCap, alpha_raw);
-          if (!splat_skipped(power, alpha)) {
-            const float test_t = next_t(T, alpha);
-            if (test_t < kMinT) {
-              done = 1;
-            } else {
-              live = true;
-              const float w = alpha * T;
-              const float rdg = v1.y * gc0 + v1.z * gc1 + v1.w * gc2;
-              S += w * rdg;
-              s[6] = w * gc0;
-              s[7] = w * gc1;
-              s[8] = w * gc2;
-              if (!(alpha_raw > kAlphaCap)) {
-                const float g_alpha =
-                    rdg * T + ((S - gdot_total) - gt_final) / fmaxf(1.0f - alpha, 1e-6f);
-                const float gp = g_alpha * alpha;
-                s[0] = gp;
-                s[1] = gp * px;
-                s[2] = gp * py;
-                s[3] = gp * (px * px);
-                s[4] = gp * (py * py);
-                s[5] = gp * (px * py);
-              }
-              T = test_t;
-            }
-          }
+          live = replay_step(power, opac, v1, gc0, gc1, gc2, gdot_total, gt_final, T, S, done, gp, w);
         }
-        if (__any_sync(0xffffffffu, live)) {
+        replay_store(sm, k, p, live, gp, w);
+      }
+      __syncthreads();  // the batch's (g_power, w) are stored
+      float m[9];
 #pragma unroll
-          for (int j = 0; j < kSums; ++j) {
-            float v = s[j];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-            s[j] = v;
+      for (int j = 0; j < 9; ++j) m[j] = 0.0f;
+      if (job_row < n && segment_bits(sm, job_row, seg) != 0u) {
+        const float2* gw = sm.gw + job_row * kPadRow + seg * kSegStride;
+        const float4* gc = sm.gc + seg * kSegStride;
+        // The segment's pixel rows in order; each row's sums of g_power,
+        // g_power px and g_power px^2 first, then its py folded in.
+        for (int r = 0; r < kSegPixels / kTile; ++r) {
+          float a0 = 0.0f, ax = 0.0f, axx = 0.0f;
+#pragma unroll 4
+          for (int x = 0; x < kTile; ++x) {
+            const float2 v = gw[r * kTile + x];
+            const float4 c = gc[r * kTile + x];
+            const float fx = (float)x;
+            a0 += v.x;
+            ax += v.x * fx;
+            axx += v.x * (fx * fx);
+            m[6] += v.y * c.x;
+            m[7] += v.y * c.y;
+            m[8] += v.y * c.z;
           }
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < kSums; ++j) red[k][warp][j] = s[j];
+          const float fy = (float)(seg * (kSegPixels / kTile) + r);
+          m[0] += a0;
+          m[1] += ax;
+          m[2] += fy * a0;
+          m[3] += axx;
+          m[4] += (fy * fy) * a0;
+          m[5] += fy * ax;
         }
       }
-      __syncthreads();
-      if (p < n) {
-        float m[kSums];
-#pragma unroll
-        for (int j = 0; j < kSums; ++j) {
-          float v = 0.0f;
-#pragma unroll
-          for (int wi = 0; wi < kWarps; ++wi) v += red[p][wi][j];
-          m[j] = v;
-        }
-        const float4 v0 = rows[p * kRowV];
-        const float4 v1 = rows[p * kRowV + 1];
-        const float opac = rows[p * kRowV + 2].x;
+      sum_segments(m);
+      if (job_row < n && seg < kRowV) {
+        const float4 v0 = sm.rows[job_row * kRowV];
+        const float4 v1 = sm.rows[job_row * kRowV + 1];
+        const float opac = sm.rows[job_row * kRowV + 2].x;
         const float x = v0.x - ox, y = v0.y - oy;
         const float a = v0.z, b = v0.w, c = v1.x;
         const float s_dx = x * m[0] - m[1];  // sum_p g_power dx
         const float s_dy = y * m[0] - m[2];
-        float4* out = dprops + (base + p) * kRowV;
-        out[0] = make_float4(-(a * s_dx + b * s_dy), -(c * s_dy + b * s_dx),
-                             -0.5f * (x * x * m[0] - 2.0f * x * m[1] + m[3]),
-                             -(x * y * m[0] - x * m[2] - y * m[1] + m[5]));
-        out[1] = make_float4(-0.5f * (y * y * m[0] - 2.0f * y * m[2] + m[4]), m[6], m[7], m[8]);
-        out[2] = make_float4(m[0] / fmaxf(opac, 1e-12f), 0.0f, 0.0f, 0.0f);
-        out[3] = zero4;
+        float4 o = zero4;
+        if (seg == 0) {
+          o = make_float4(-(a * s_dx + b * s_dy), -(c * s_dy + b * s_dx),
+                          -0.5f * (x * x * m[0] - 2.0f * x * m[1] + m[3]),
+                          -(x * y * m[0] - x * m[2] - y * m[1] + m[5]));
+        } else if (seg == 1) {
+          o = make_float4(-0.5f * (y * y * m[0] - 2.0f * y * m[2] + m[4]), m[6], m[7], m[8]);
+        } else if (seg == 2) {
+          o.x = m[0] / fmaxf(opac, 1e-12f);
+        }
+        dprops[(base + job_row) * kRowV + seg] = o;
       }
-      if (__syncthreads_count(done) == kPixels) {
-        base += kBatch;
+      if (__syncthreads_count(done) == kPixels) {  // also: the batch is consumed
+        base += kReplayRows;
         break;
       }
     }
@@ -169,13 +165,17 @@ __global__ void __launch_bounds__(kPixels) stream_bwd_kernel(
   for (long long i = base * kRowV + p; i < r1 * kRowV; i += kPixels) dprops[i] = zero4;
 }
 
+bool smem_opted_in = false;
+
 }  // namespace
 
 extern "C" int stream_bwd(const void* props, const void* tiledata, const void* chunk_start,
                           const void* chunk_end, int chunk, int grid_w, int n_tiles,
                           void* dprops, void* stream) {
+  const cudaError_t err = replay_smem_opt_in(stream_bwd_kernel, smem_opted_in);
+  if (err != cudaSuccess) return (int)err;
   // n_tiles + 1 blocks: block n_tiles zeroes the trash chunks.
-  stream_bwd_kernel<<<n_tiles + 1, kPixels, 0, (cudaStream_t)stream>>>(
+  stream_bwd_kernel<<<n_tiles + 1, kPixels, kReplaySmemBytes, (cudaStream_t)stream>>>(
       (const float4*)props, (const float*)tiledata, (const int*)chunk_start,
       (const int*)chunk_end, chunk, grid_w, n_tiles, (float4*)dprops);
   return (int)cudaGetLastError();

@@ -76,4 +76,137 @@ __device__ __forceinline__ void stage_planes(const float* __restrict__ props_t, 
   for (int j = 0; j < kUsedPlanes; ++j) dst[j] = __ldg(props_t + j * ld + r);
 }
 
+// ---- The backward replay (stream_bwd.cu, table_bwd.cu; K8 shares only
+// ---- pixel_grad_terms) ----
+
+// One (row, pixel) step of a backward's replay, given the row's power in the
+// forward's frame: the forward's alpha and T walk, then, with w = alpha T and
+// S the running (inclusive) sum of w <rgb, gC>, the suffix identity
+//   g_alpha = <rgb, gC> T + (S - <gC, C_total> - gT T_final) / max(1 - alpha, 1e-6)
+// and gp = g_alpha alpha, which stays as the caller set it (0) at the 0.99
+// cap. Returns whether the row contributes to the pixel (then w is set and T
+// updated); sets done where the pixel stops at this row. v1 is the row's
+// (c, r, g, b).
+__device__ __forceinline__ bool replay_step(float power, float opac, float4 v1, float gc0, float gc1,
+                                            float gc2, float gdot_total, float gt_final, float& T,
+                                            float& S, int& done, float& gp, float& w) {
+  const float alpha_raw = splat_alpha_raw(opac, power);
+  const float alpha = fminf(kAlphaCap, alpha_raw);
+  if (splat_skipped(power, alpha)) return false;
+  const float test_t = next_t(T, alpha);
+  if (test_t < kMinT) {
+    done = 1;
+    return false;
+  }
+  w = alpha * T;
+  const float rdg = v1.y * gc0 + v1.z * gc1 + v1.w * gc2;
+  S += w * rdg;
+  if (!(alpha_raw > kAlphaCap)) {
+    const float g_alpha = rdg * T + ((S - gdot_total) - gt_final) / fmaxf(1.0f - alpha, 1e-6f);
+    gp = g_alpha * alpha;
+  }
+  T = test_t;
+  return true;
+}
+
+// The reference's 9 per-pixel gradient terms of a (row, pixel) pair in the
+// table and transposed backwards (pallas_composite.py:319-351,
+// attic/stream_t.py:317-337), with dx = x - px and dy = y - py in absolute
+// screen coordinates: x, y, conic a, b, c, rgb, then g_power (the opacity's,
+// before the division by the opacity). Absolute coordinates lose digits in
+// K2's moment form, so these are summed per pixel.
+__device__ __forceinline__ void pixel_grad_terms(float gp, float w, float gc0, float gc1, float gc2,
+                                                 float dx, float dy, float a, float b, float c,
+                                                 float t[9]) {
+  t[0] = gp * (-(a * dx) - b * dy);
+  t[1] = gp * (-(c * dy) - b * dx);
+  t[2] = gp * (-0.5f * dx * dx);
+  t[3] = gp * (-(dx * dy));
+  t[4] = gp * (-0.5f * dy * dy);
+  t[5] = w * gc0;
+  t[6] = w * gc1;
+  t[7] = w * gc2;
+  t[8] = gp;
+}
+
+// The per-batch reduction of K2 and K6. The walk phase takes B = 32 rows;
+// each thread (pixel) stores its (g_power, w) for every row of the batch,
+// and lane 0 of each warp the warp's ballot of "contributes". Then the
+// block's 256 threads take (row, segment) jobs: 32 rows x 8 segments of 32
+// pixels (one warp's), the 8 jobs of a row on adjacent lanes. A job sums its
+// segment's pixel terms in a fixed order (none if the segment's ballot is 0),
+// and 8-wide xor shuffles add the row's partials (a + b == b + a, so every
+// lane gets the same bits). Each segment is padded by one slot, so the 32
+// lanes of a reduce warp read 32 banks (float2: 16 lanes per half-warp,
+// float4: 8 per quarter) and the walk's consecutive pixels stay consecutive.
+constexpr int kReplayRows = 32;                         // B, rows per batch
+constexpr int kWarps = kPixels / 32;
+constexpr int kSegments = kPixels / kReplayRows;        // reduce jobs per row
+constexpr int kSegPixels = kPixels / kSegments;         // pixels per job (= B)
+constexpr int kSegStride = kSegPixels + 1;              // padded
+constexpr int kPadRow = kSegments * kSegStride;         // padded pixels per row
+static_assert(kSegPixels == 32, "a segment is one warp's pixels, its ballot one word");
+
+__device__ __forceinline__ int pad_pixel(int q) { return q + q / kSegPixels; }
+
+struct ReplaySmem {
+  float4* rows;   // [B * kRowV] the batch's property rows
+  float4* gc;     // [kPadRow] gC per pixel (w unused)
+  float2* gw;     // [B * kPadRow] (g_power, w) per (row, pixel)
+  unsigned* bal;  // [B * kWarps] ballot of contributing pixels per (row, warp)
+};
+
+constexpr int kReplaySmemBytes =
+    (int)(sizeof(float4) * (kReplayRows * kRowV + kPadRow) + sizeof(float2) * kReplayRows * kPadRow +
+          sizeof(unsigned) * kReplayRows * kWarps);
+
+__device__ __forceinline__ ReplaySmem replay_smem(float4* base) {
+  ReplaySmem s;
+  s.rows = base;
+  s.gc = s.rows + kReplayRows * kRowV;
+  s.gw = reinterpret_cast<float2*>(s.gc + kPadRow);
+  s.bal = reinterpret_cast<unsigned*>(s.gw + kReplayRows * kPadRow);
+  return s;
+}
+
+// The walk-phase store of pixel p's (g_power, w) at row k of the batch, and
+// its warp's ballot. Every lane of every warp calls it for every row.
+__device__ __forceinline__ void replay_store(const ReplaySmem& s, int k, int p, bool live, float gp,
+                                             float w) {
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if ((p & 31) == 0) s.bal[k * kWarps + (p >> 5)] = ballot;
+  s.gw[k * kPadRow + pad_pixel(p)] = make_float2(gp, w);
+}
+
+// The contributing pixels of segment seg of row k, as bits.
+__device__ __forceinline__ unsigned segment_bits(const ReplaySmem& s, int k, int seg) {
+  return s.bal[k * kWarps + seg];
+}
+
+// Adds the partials of a row's kSegments adjacent lanes; every lane ends
+// with the row's sums.
+template <int N>
+__device__ __forceinline__ void sum_segments(float (&m)[N]) {
+#pragma unroll
+  for (int off = 1; off < kSegments; off <<= 1) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) m[j] += __shfl_xor_sync(0xffffffffu, m[j], off);
+  }
+}
+
+// Lets the kernel take kReplaySmemBytes of dynamic shared memory (above the
+// 48 KB static limit) with the largest shared-memory carveout, so that three
+// blocks fit on an SM. Once per process.
+template <typename Kernel>
+inline cudaError_t replay_smem_opt_in(Kernel kernel, bool& done) {
+  if (done) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kReplaySmemBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  done = err == cudaSuccess;
+  return err;
+}
+
 }  // namespace stream_common

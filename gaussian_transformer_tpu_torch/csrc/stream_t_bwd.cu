@@ -22,12 +22,13 @@
 // Design. K7's walk (stream_t_fwd.cu: one CTA of 256 threads per tile over
 // its own row range, the 9 used planes staged coalesced, the alpha and
 // transmittance functions of stream_common.cuh, so every pixel stops at
-// exactly the row where K7 stopped it) with K6's per-pixel terms and
-// reduction (table_bwd.cu): a warp reduces its 32 lanes with shuffles
-// (skipped when no lane of the warp contributes) and writes 9 partials to
-// shared memory; at the end of each 64-row batch thread p adds the 8 warps'
-// partials of row base + p in a fixed order (deterministic, no atomics: a
-// row belongs to one tile) and writes its 16 planes, so each plane's store
+// exactly the row where K7 stopped it) with K6's per-pixel terms
+// (stream_common.cuh pixel_grad_terms), reduced per row: a warp reduces its
+// 32 lanes with shuffles (skipped when no lane of the warp contributes) and
+// writes 9 partials to shared memory; at the end of each 64-row batch
+// thread p adds the 8 warps' partials of row base + p in a fixed order
+// (deterministic, no atomics: a row belongs to one tile) and writes its 16
+// planes, so each plane's store
 // is coalesced across the batch. The block then zeroes its rows past the
 // exit; block n_tiles zeroes the trash chunks. Every element of dprops_t is
 // written exactly once.
@@ -46,7 +47,6 @@ namespace {
 using namespace stream_common;
 
 constexpr int kBatch = 64;  // rows staged per pass
-constexpr int kWarps = kPixels / 32;
 constexpr int kSums = 9;  // the 9 gradient planes (opacity as sum g_power)
 
 __global__ void __launch_bounds__(kPixels) stream_t_bwd_kernel(
@@ -100,22 +100,13 @@ __global__ void __launch_bounds__(kPixels) stream_t_bwd_kernel(
               const float w = alpha * T;
               const float rdg = v1.y * gc0 + v1.z * gc1 + v1.w * gc2;
               S += w * rdg;
-              s[5] = w * gc0;
-              s[6] = w * gc1;
-              s[7] = w * gc2;
+              float gp = 0.0f;
               if (!(alpha_raw > kAlphaCap)) {
                 const float g_alpha =
                     rdg * T + ((S - gdot_total) - gt_final) / fmaxf(1.0f - alpha, 1e-6f);
-                const float gp = g_alpha * alpha;
-                const float dx = v0.x - px, dy = v0.y - py;
-                const float a = v0.z, b = v0.w, c = v1.x;
-                s[0] = gp * (-(a * dx) - b * dy);
-                s[1] = gp * (-(c * dy) - b * dx);
-                s[2] = gp * (-0.5f * dx * dx);
-                s[3] = gp * (-(dx * dy));
-                s[4] = gp * (-0.5f * dy * dy);
-                s[8] = gp;
+                gp = g_alpha * alpha;
               }
+              pixel_grad_terms(gp, w, gc0, gc1, gc2, v0.x - px, v0.y - py, v0.z, v0.w, v1.x, s);
               T = test_t;
             }
           }

@@ -12,11 +12,13 @@ header).
 Kernel K2: ``csrc/stream_bwd.cu`` replaces the TPU kernel
 ``render/stream.py:411 _bwd_kernel``: it replays each tile's run with K1's
 own alpha and transmittance code (``csrc/stream_common.cuh``) and writes one
-gradient row per stream row. It is bound by operations (K1's walk, then ~41
-more per contributing pair with the per-row block reductions of 9 sums); its
-design answer is K1's geometry, warp-shuffle reductions skipped for warps
-with no live pixel, and a fixed-order cross-warp sum per row (no atomics: a
-row belongs to one tile).
+gradient row per stream row. It is bound by operations: K1's walk, ~27 more
+per contributing pair, and each row's 9 sums over the tile's 256 pixels.
+Its design is K1's geometry with those sums taken once per batch of 32 rows
+in shared memory: the walk stores each pixel's (g_power, w) per row, then
+(row, 32-pixel segment) jobs add their segment in pixel order, skip
+segments without a contributing pixel, and join a row's 8 partials with
+three shuffle levels (fixed order, no atomics: a row belongs to one tile).
 
 ``composite_stream_tiles`` launches K1 (and K2 in its backward) for CUDA
 tensors and uses the plain PyTorch versions, ``composite_stream_tiles_plain``

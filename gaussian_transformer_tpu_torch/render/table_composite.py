@@ -18,15 +18,21 @@ Kernel K6: ``csrc/table_bwd.cu`` replaces the TPU kernel
 the same explicitly rounded alpha and transmittance code
 (``csrc/stream_common.cuh``), takes the color suffix sums from the forward's
 color (C_total), and writes one gradient row per table row, zero past the
-rows it walked. It is bound by operations (K5's walk, then ~52 more per
-contributing pair with the 9 per-row sums over the tile's pixels), which it
-reduces by warp shuffles and a fixed-order cross-warp sum (no atomics: a row
-belongs to one tile).
+rows it walked. It is bound by operations (K5's walk, ~27 more per
+contributing pair, and the 9 per-row sums of the reference's per-pixel
+terms over the tile's pixels), and at the training table's size nearly by
+the bytes of the [T, K, 16] output it writes whole. Its design is K2's
+per-batch shared-memory reduction (``csrc/stream_bwd.cu``), with the
+per-pixel terms (``csrc/stream_common.cuh pixel_grad_terms``, which K8
+shares) in place of K2's moments: absolute coordinates lose digits in the
+moment form. No atomics: a row belongs to one tile.
 
 ``composite_table_tiles`` launches K5 (and K6 in its backward) for CUDA
 tensors and uses the plain PyTorch versions, ``composite_table_tiles_plain``
 and ``composite_table_tiles_bwd_plain``, only for CPU tensors; they walk
-rounds of 32 rows with the reference's chunk recurrences. ``build_props_table``
+rounds of 32 rows with the reference's chunk recurrences, and
+``_round_grads`` is the per-round gradient both plain K6 and plain K8
+(``attic/stream_t.py``) sum. ``build_props_table``
 is the reference's ``_build_props_table``: ``props_full[tile_lists]``,
 pulled back deterministically through the binning's instance map
 (``stream.instance_pullback``). Unlike the stream layout the table pads
@@ -192,6 +198,45 @@ def composite_table_tiles_plain(props, counts, grid_w, count_work=False):
     return color, final_t
 
 
+def _round_grads(rd, color, color_pref, g_color, g_t, final_t):
+    """The reference kernels' per-pixel gradient terms of one plain round
+    (pallas_composite.py:284-357, attic/stream_t.py:280-337), summed over
+    each tile's pixels: (grads [Ta, B, 9], totals [Ta, 3, 1]) from the
+    round's ``rd`` (a ``_Round`` of this module or of ``stream``, absolute
+    coordinates), the forward's outputs (color = C_total [T, 3, P], final_T
+    [T, 1, P]), their cotangents and ``color_pref`` [T, 3, P], the color
+    composited before the round; ``totals`` is the round's own color, which
+    the caller adds to ``color_pref``."""
+    alpha, t_in, dx, dy = rd.alpha, rd.t_in, rd.dx, rd.dy
+    a, b, c = rd.rows[..., 2:3], rd.rows[..., 3:4], rd.rows[..., 4:5]
+    rgb, opac = rd.rows[..., 5:8], rd.rows[..., 8:9]
+    gc, c_total, pref = g_color[rd.tiles], color[rd.tiles], color_pref[rd.tiles]
+    rs = lambda v: v.sum(dim=2, keepdim=True)  # [Ta, B, P] -> [Ta, B, 1]
+    w = alpha * t_in * rd.live_k
+    d_rgb = torch.einsum("tkp,tcp->tkc", w, gc)
+    one_minus = torch.clamp(1.0 - alpha, min=1e-6)
+    g_alpha = -g_t[rd.tiles] * final_t[rd.tiles] / one_minus
+    totals = []
+    for ch in range(3):
+        prefix = torch.cumsum(w * rgb[..., ch:ch + 1], dim=1)
+        suffix = (c_total[:, ch:ch + 1] - pref[:, ch:ch + 1]) - prefix
+        g_alpha = g_alpha + gc[:, ch:ch + 1] * (rgb[..., ch:ch + 1] * t_in - suffix / one_minus)
+        totals.append(prefix[:, -1:])
+    g_alpha = g_alpha * rd.live_k * (alpha > 0.0).to(torch.float32)
+    g_alpha = torch.where(rd.alpha_raw > 0.99, torch.zeros_like(g_alpha), g_alpha)
+    g_power = g_alpha * alpha
+    grads = torch.cat([
+        rs(g_power * (-(a * dx) - b * dy)),
+        rs(g_power * (-(c * dy) - b * dx)),
+        rs(g_power * (-0.5 * dx * dx)),
+        rs(g_power * (-(dx * dy))),
+        rs(g_power * (-0.5 * dy * dy)),
+        d_rgb,
+        rs(g_alpha * alpha / torch.clamp(opac, min=1e-12)),
+    ], dim=2)
+    return grads, torch.cat(totals, dim=1)
+
+
 def composite_table_tiles_bwd_plain(props, counts, grid_w, color, final_t, g_color, g_t):
     """Plain PyTorch version of K6: dprops [T, K, 16] (columns 0-8) from the
     forward's outputs (color = C_total [T, 3, P], final_T [T, 1, P]) and their
@@ -199,36 +244,10 @@ def composite_table_tiles_bwd_plain(props, counts, grid_w, color, final_t, g_col
     (pallas_composite.py:284-357); rows not walked stay zero."""
     dprops = torch.zeros_like(props)
     color_pref = torch.zeros_like(color)
-    rs = lambda v: v.sum(dim=2, keepdim=True)  # [Ta, CH, P] -> [Ta, CH, 1]
     for rd in _plain_rounds(props, counts, grid_w):
-        alpha, t_in, dx, dy = rd.alpha, rd.t_in, rd.dx, rd.dy
-        a, b, c = rd.rows[..., 2:3], rd.rows[..., 3:4], rd.rows[..., 4:5]
-        rgb, opac = rd.rows[..., 5:8], rd.rows[..., 8:9]
-        gc, c_total, pref = g_color[rd.tiles], color[rd.tiles], color_pref[rd.tiles]
-        w = alpha * t_in * rd.live_k
-        d_rgb = torch.einsum("tkp,tcp->tkc", w, gc)
-        one_minus = torch.clamp(1.0 - alpha, min=1e-6)
-        g_alpha = -g_t[rd.tiles] * final_t[rd.tiles] / one_minus
-        totals = []
-        for ch in range(3):
-            prefix = torch.cumsum(w * rgb[..., ch:ch + 1], dim=1)
-            suffix = (c_total[:, ch:ch + 1] - pref[:, ch:ch + 1]) - prefix
-            g_alpha = g_alpha + gc[:, ch:ch + 1] * (rgb[..., ch:ch + 1] * t_in - suffix / one_minus)
-            totals.append(prefix[:, -1:])
-        g_alpha = g_alpha * rd.live_k * (alpha > 0.0).to(torch.float32)
-        g_alpha = torch.where(rd.alpha_raw > 0.99, torch.zeros_like(g_alpha), g_alpha)
-        g_power = g_alpha * alpha
-        grads = torch.cat([
-            rs(g_power * (-(a * dx) - b * dy)),
-            rs(g_power * (-(c * dy) - b * dx)),
-            rs(g_power * (-0.5 * dx * dx)),
-            rs(g_power * (-(dx * dy))),
-            rs(g_power * (-0.5 * dy * dy)),
-            d_rgb,
-            rs(g_alpha * alpha / torch.clamp(opac, min=1e-12)),
-        ], dim=2)  # [Ta, CH, 9]
+        grads, totals = _round_grads(rd, color, color_pref, g_color, g_t, final_t)
         dprops[rd.tiles, rd.start:rd.start + CH, :GRAD_F] = grads
-        color_pref[rd.tiles] = pref + torch.cat(totals, dim=1)
+        color_pref[rd.tiles] = color_pref[rd.tiles] + totals
     return dprops
 
 

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels (K1-K9) against their plain PyTorch
 versions, on the card only (marker ``gpu``; each test skips without a CUDA
-device).
+device), and the plain replay backwards on the kernels' edge cases on the CPU.
 
 This file imports no JAX, so it also runs where only the port is installed:
 
@@ -292,6 +292,185 @@ def test_table_kernels_reject_bad_inputs(cuda):
     (color.sum() + t.sum()).backward()
     assert float(color.detach().abs().max()) == 0.0 and float(t.detach().min()) == 1.0
     assert props.grad is not None and float(props.grad.abs().max()) == 0.0
+
+
+def _row(x, y, a, b, c, opac, rgb=(0.6, 0.3, 0.2)):
+    return [x, y, a, b, c, *rgb, opac] + [0.0] * 7
+
+
+def _replay_case(case):
+    """Per-tile rows (absolute means) of a 2x1 tile grid for the replay
+    backwards' edge cases, and the stream's chunk:
+    one_lane: a row that only pixel (5, 9) of tile 0 (warp 4, lane 21) sees;
+    capped: broad rows of opacity 0.995 at two pixels apart, so alpha_raw >
+      0.99 near their centres (w nonzero, g_power zero) and below it further
+      out;
+    partial_batch_exit: tile 0's 48 rows at chunk 16 (not a multiple of
+      32), and two rows that cap every pixel of tile 1 at rows 40-41, so the
+      whole tile stops at row 41 of 96, mid-batch;
+    flat_exit, flatter_exit: as partial_batch_exit with three near-flat
+      rows (conic 1e-4, 1e-5) of opacity 0.98, below the cap at every pixel
+      (so g_power is nonzero across the tile, amplified by 1 / (1 - alpha)),
+      at rows 40-42; the tile stops at row 42. Their conic gradients are
+      sums of 256 large per-pixel terms of both signs, where float32
+      summation orders part most.
+    Each case keeps every pixel's T away from the 1e-4 stop, where the
+    kernels' sequential product and the plain cumprod may part."""
+    rng = np.random.RandomState(11)
+
+    def soft(n, ox, opac=(0.05, 0.3)):
+        return [_row(ox + rng.uniform(0, 16), rng.uniform(0, 16), *rng.uniform(0.02, 0.2, 1), 0.0,
+                     *rng.uniform(0.02, 0.2, 1), rng.uniform(*opac)) for _ in range(n)]
+
+    if case == "one_lane":
+        return [soft(10, 0) + [_row(5.0, 9.0, 50.0, 0.0, 50.0, 0.8)] + soft(30, 0), soft(20, 16)], 32
+    if case == "capped":
+        capped = lambda ox: [_row(ox + 4.0, 4.0, 0.01, 0.0, 0.01, 0.995), _row(ox + 11.0, 11.0, 0.01, 0.0, 0.01, 0.995)]
+        return [soft(6, 0) + capped(0) + soft(20, 0), capped(16) + soft(25, 16)], 32
+    opac, conic, n = {"flat_exit": (0.98, 1e-4, 3), "flatter_exit": (0.98, 1e-5, 3)}.get(case, (0.9999, 1e-4, 2))
+    opaque = [_row(24.0, 8.0, conic, 0.0, conic, opac) for _ in range(n)]
+    return [soft(48, 0), soft(40, 16, (0.02, 0.08)) + opaque + soft(56 - n, 16)], 16
+
+
+def _replay_layouts(tiles, chunk, device):
+    """The same per-tile rows as a stream (props [I_pad, 16], chunk_tile
+    with one trash chunk) and as a table (props [T, K, 16], counts)."""
+    stream_rows, chunk_tile = [], []
+    for t, rows in enumerate(tiles):
+        n = -(-len(rows) // chunk) * chunk
+        stream_rows += rows + [[0.0] * 16] * (n - len(rows))
+        chunk_tile += [t] * (n // chunk)
+    stream_rows += [[0.0] * 16] * chunk
+    chunk_tile.append(len(tiles))
+    K = -(-max(len(r) for r in tiles) // 32) * 32 + 32
+    table = np.zeros((len(tiles), K, 16), np.float32)
+    for t, rows in enumerate(tiles):
+        table[t, :len(rows)] = rows
+    as_t = lambda v, dt=torch.float32: torch.tensor(np.asarray(v), dtype=dt, device=device)
+    return ((as_t(stream_rows), as_t(chunk_tile, torch.int32)),
+            (as_t(table), as_t([len(r) for r in tiles], torch.int32)))
+
+
+def _cotangents(color, t, seed):
+    gen = torch.Generator(color.device).manual_seed(seed)
+    return torch.randn(color.shape, generator=gen, device=color.device), torch.randn(t.shape, generator=gen, device=color.device)
+
+
+def _k2_rule(got, ref):
+    """(max abs error, share beyond atol), both against K2's rule: 1e-3 and
+    2e-4 of the largest reference gradient, at most 1e-4 of values beyond."""
+    scale = float(ref.abs().max())
+    assert scale > 0
+    err = (got.double() - ref.double()).abs()
+    return float(err.max()) / scale, float((err > 2e-4 * scale).double().mean())
+
+
+def _table_bwd_f64(table, counts, grid_w, color, t, g_color, g_t):
+    """K6's function with every per-pixel term and sum in float64, on the
+    float32 walk's alpha, T and stop flags (so the same pixels contribute):
+    the reference that the float32 summation orders of the plain version
+    and the kernels are each an approximation of."""
+    d = lambda v: v.double()
+    out = torch.zeros(table.shape, dtype=torch.float64, device=table.device)
+    pref = torch.zeros(color.shape, dtype=torch.float64, device=table.device)
+    for rd in table_composite._plain_rounds(table, counts, grid_w):
+        rd = rd._replace(rows=d(rd.rows), dx=d(rd.dx), dy=d(rd.dy), alpha=d(rd.alpha), t_in=d(rd.t_in),
+                         live_k=d(rd.live_k))
+        grads, totals = table_composite._round_grads(rd, d(color), pref, d(g_color), d(g_t), d(t))
+        out[rd.tiles, rd.start:rd.start + table_composite.CH, :stream.GRAD_F] = grads
+        pref[rd.tiles] = pref[rd.tiles] + totals
+    return out
+
+
+def _table_to_stream(table_rows, tiles, chunk):
+    """Rows [T, K, 16] of a table as the stream of ``_replay_layouts``."""
+    parts = [table_rows[t, :-(-len(rows) // chunk) * chunk] for t, rows in enumerate(tiles)]
+    return torch.cat(parts + [table_rows.new_zeros(chunk, table_rows.shape[2])])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one_lane", "capped", "partial_batch_exit", "flat_exit", "flatter_exit"])
+def test_replay_backwards_edge_cases(cuda, case):
+    """K2 and K6 on hand-made rows: a row one lane of one warp sees, rows at
+    the 0.99 cap, row counts off the batch size and a block that exits
+    mid-batch (every later row zero), held under K2's rule to their plain
+    versions and to the float64 evaluation of their function (the plain
+    versions are held to it too). Prints each reading (``-s``).
+
+    In the flat cases the kernels and the plain versions are two float32
+    evaluations of rows whose per-pixel g_alpha divides a cancelling suffix
+    sum by 1 - alpha = 0.02; they part by slightly more than K2's atol (one
+    value of K6's 4,096 in flat_exit), while each stays within K2's rule of
+    the float64 evaluation. There the kernels are held to that only."""
+    tiles, chunk = _replay_case(case)
+    (props, ct), (table, counts) = _replay_layouts(tiles, chunk, cuda)
+    fwd2 = stream.composite_stream_tiles(props, ct, 2, 1)
+    g_color, g_t = _cotangents(*fwd2, seed=3)
+    got2 = stream._launch_stream_bwd(props, ct, 2, 1, *fwd2, g_color, g_t)
+    ref2 = stream.composite_stream_tiles_bwd_plain(props, ct, 2, 1, *fwd2, g_color, g_t)
+    exact2 = _table_to_stream(_table_bwd_f64(table, counts, 2, *fwd2, g_color, g_t), tiles, chunk)
+    fwd6 = table_composite.composite_table_tiles(table, counts, 2)
+    got6 = table_composite._launch_table_bwd(table, counts, 2, *fwd6, g_color, g_t)
+    ref6 = table_composite.composite_table_tiles_bwd_plain(table, counts, 2, *fwd6, g_color, g_t)
+    exact6 = _table_bwd_f64(table, counts, 2, *fwd6, g_color, g_t)
+    torch.cuda.synchronize()
+    readings = {
+        "K2 vs plain": _k2_rule(got2, ref2), "K6 vs plain": _k2_rule(got6, ref6),
+        "K2 vs float64": _k2_rule(got2, exact2), "K6 vs float64": _k2_rule(got6, exact6),
+        "plain K2 vs float64": _k2_rule(ref2, exact2), "plain K6 vs float64": _k2_rule(ref6, exact6),
+    }
+    for name, (max_err, share) in readings.items():
+        print(f"{case}: {name}: max abs error {max_err:.3e} of the largest gradient, share beyond 2e-4 {share:.3e}")
+    for name, (max_err, share) in readings.items():
+        if case.startswith("flat") and name.endswith("vs plain"):
+            continue
+        assert max_err <= 1e-3 and share <= 1e-4, (name, max_err, share)
+    assert torch.all(got2[:, stream.GRAD_F:] == 0) and torch.all(got6[..., stream.GRAD_F:] == 0)
+    if case == "one_lane":  # the row at 10: only w gC of one pixel, and its g_power terms
+        assert float(got6[0, 10, 5:8].abs().min()) > 0 and float(got2[10, 5:8].abs().min()) > 0
+    if case.endswith("_exit"):  # tile 1's run starts at stream row 48
+        last = 40 if case == "partial_batch_exit" else 41
+        assert float(got6[1, last, 5:8].abs().min()) > 0 and float(got2[48 + last, 5:8].abs().min()) > 0
+        assert torch.all(got6[1, last + 1:] == 0) and torch.all(got2[48 + last + 1:] == 0)
+
+
+@pytest.mark.parametrize("case", ["one_lane", "capped", "partial_batch_exit", "flat_exit", "flatter_exit"])
+def test_plain_replay_backwards_edge_cases(case):
+    """The references of the card test above, on the CPU: plain K2 and plain
+    K6 on the same hand-made rows each within K2's rule of the float64
+    evaluation of their function, so a kernel held to either is held to the
+    function."""
+    cpu = torch.device("cpu")
+    tiles, chunk = _replay_case(case)
+    (props, ct), (table, counts) = _replay_layouts(tiles, chunk, cpu)
+    fwd2 = stream.composite_stream_tiles(props, ct, 2, 1)
+    g_color, g_t = _cotangents(*fwd2, seed=3)
+    ref2 = stream.composite_stream_tiles_bwd_plain(props, ct, 2, 1, *fwd2, g_color, g_t)
+    exact2 = _table_to_stream(_table_bwd_f64(table, counts, 2, *fwd2, g_color, g_t), tiles, chunk)
+    fwd6 = table_composite.composite_table_tiles(table, counts, 2)
+    ref6 = table_composite.composite_table_tiles_bwd_plain(table, counts, 2, *fwd6, g_color, g_t)
+    exact6 = _table_bwd_f64(table, counts, 2, *fwd6, g_color, g_t)
+    for got, exact in ((ref2, exact2), (ref6, exact6)):
+        max_err, share = _k2_rule(got, exact)
+        assert max_err <= 1e-3 and share <= 1e-4, (max_err, share)
+
+
+@pytest.mark.gpu
+def test_replay_backwards_deterministic(cuda):
+    """Two launches of K2 and of K6 give the same bits."""
+    with torch.no_grad():
+        s = prepare_stream(_camera(160, 112, cuda), _scene(4000, 1, cuda))
+        props, ct, gw, gh = s.props(), s.chunk_tile, s.grid_w, s.grid_h
+        color, t = stream.composite_stream_tiles(props, ct, gw, gh)
+        k2_in = (props, ct, gw, gh, color, t, *_cotangents(color, t, seed=4))
+        first = stream._launch_stream_bwd(*k2_in)
+        assert torch.equal(first, stream._launch_stream_bwd(*k2_in))
+        s = prepare_table(_camera(160, 112, cuda), _scene(4000, 1, cuda), RenderConfig(use_stream=False, max_per_tile=256))
+        props, counts = s.props(), s.binned.tile_counts
+        color, t = table_composite.composite_table_tiles(props, counts, s.grid_w)
+        k6_in = (props, counts, s.grid_w, color, t, *_cotangents(color, t, seed=5))
+        first = table_composite._launch_table_bwd(*k6_in)
+        assert torch.equal(first, table_composite._launch_table_bwd(*k6_in))
 
 
 def _check_k7_k8(s, seed):
