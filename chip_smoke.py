@@ -15,14 +15,17 @@ The serving path:
    Blender-layout dataset of 1920x1080 test views; the ground truth is the
    port's own render plus N(0, 0.05) noise.
 3. Kernel checks on one main-path view: K1 (stream compositor forward) and
-   K3 (fused SSIM forward) against their plain PyTorch versions.
+   K3 (fused SSIM forward) against their plain PyTorch versions; an exact
+   checksum of K1's outputs (equal checksums: equal bits), and K1's warp
+   steps and uniform-skip steps counted by the plain walk with K1's 8x4
+   warp map to the runs' real ends.
 4. The main path: ``cli.render`` then ``cli.metrics`` through their
    ``main(argv)``, with the kernel launch counters zeroed just before and
    read just after; checks overflow, SSIM, and the PSNR against a numpy
    recomputation from the written PNGs.
 5. Times (CUDA events) of K1 and K3 (over repeated launches, and with the
    L2 cache flushed before each launch) and their plain versions, the
-   per-view render time, and each kernel's bound.
+   per-view render time, each kernel's bound, and K1's time per warp step.
 
 The training path:
 
@@ -40,7 +43,8 @@ The training path:
    cloud's Gaussians at 4x capacity) at the render budgets the trainer tuned
    (so the chunk size and stream length of the main path's K2 launches):
    K2 (stream compositor backward, fed the loss's true cotangents) and K4
-   (fused SSIM backward on the render/GT pair) against their plain versions.
+   (fused SSIM backward on the render/GT pair) against their plain versions;
+   K1's checksum on that view.
 9. Times: the median train step (steps 11-60 without the densify step) split
    into forward, loss, backward and Adam; K2 and K4 and their plain versions
    with their bounds; the rows per tile K2 walks (max, median, p99).
@@ -52,17 +56,19 @@ The table path (``RenderConfig(use_stream=False)``: ``bin_gaussians`` and the
     each with ``max_per_tile`` the smallest multiple of 32 at or above its
     largest per-tile instance count (from a probe binning), counters zeroed
     just before and read just after; checks K5 ran once per view and nothing
-    overflowed. Then K5 against its plain version on view 0, the table render
-    against the stream render of the same view (so K5 against K1), and the
-    times: the render by stage (project, bin, table build, K5), K5, plain K5,
-    bound.
+    overflowed. Then K5 against its plain version on view 0, its checksum
+    and its warp steps (as K1's in section 3), the table render against the
+    stream render of the same view (so K5 against K1), and the times: the
+    render by stage (project, bin, table build, K5), K5, plain K5, bound,
+    time per warp step.
 11. Training: a ``Scene`` of section 6's dataset trained by
     ``train/splat.py training()`` for 60 steps with ``max_per_tile`` from
     probe binnings of every train view (+25%); checks K6 ran once per step
     and K5 once per step and probe render, the loss falls, and prints the
     overflow of every step.
 12. K6 against its plain version on train view 0 from the first step's
-    state at the trainer's budgets, on the loss's true cotangents; times of
+    state at the trainer's budgets, on the loss's true cotangents (K5's
+    checksum on that view); times of
     the median table train step by phase, K6, plain K6, bound; the rows per
     tile K6 walks.
 
@@ -100,6 +106,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -180,6 +187,32 @@ def sm_clock() -> str:
 
 def print_clocks(before: str, section: str) -> None:
     print(f"clocks.sm around section {section}: before {before}, after {sm_clock()}")
+
+
+def sm_cycles(ms: float, clock: str, steps: int) -> float:
+    """SM cycles a warp step takes: ms on all SMs at ``clock`` (nvidia-smi's
+    "1980 MHz", read before the window) over the kernel's warp steps."""
+    import torch
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return ms * 1e-3 * float(clock.split()[0]) * 1e6 * n_sm / max(steps, 1)
+
+
+def checksum(*tensors) -> str:
+    """sha256 (first 16 hex digits) of the tensors' bytes: two runs whose
+    outputs agree bit for bit print the same sum."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def warp_steps(name, steps) -> dict:
+    """Prints and returns a forward kernel's (steps, uniform-skip steps), as
+    the plain walk counts them with the kernel's 8x4 warps and row range."""
+    n, u = steps
+    print(f"{name} warp steps (8x4 warps): {n} ({32 * n} lane slots), uniform skips {u} ({u / max(n, 1):.3f})")
+    return {"steps": n, "uniform_skips": u}
 
 
 # ---------------------------------------------------------------- scene ----
@@ -493,8 +526,8 @@ def run(args, device) -> dict:
     with torch.no_grad():
         s = prepare_stream(cam0, scene)
         props = s.props()
-        ct = s.chunk_tile
-        color, t_fin = stream.composite_stream_tiles(props, ct, s.grid_w, s.grid_h)
+        ct, counts = s.chunk_tile, s.binned.tile_counts
+        color, t_fin = stream.composite_stream_tiles(props, ct, counts, s.grid_w, s.grid_h)
         p_color, p_t, (pairs, live) = stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h,
                                                                           count_work=True)
         cov = s.binned.covered
@@ -506,6 +539,9 @@ def run(args, device) -> dict:
         print(f"K1 vs plain: max abs diff {k1_err:.3e} (tolerance {K1_MAX_ERR}), "
               f"share beyond {K1_ATOL}: {k1_share:.3e} (tolerance {K1_MAX_SHARE})")
         check(k1_err <= K1_MAX_ERR and k1_share <= K1_MAX_SHARE, "K1 agrees with its plain version")
+        k1_sum = checksum(color, t_fin)
+        print(f"K1 checksum of (color, final T) on test view 0: {k1_sum}")
+        k1_steps = warp_steps("K1", stream.stream_warp_steps(props, ct, counts, s.grid_w, s.grid_h))
 
         img = render(cam0, scene)["render"]
         gt = torch.clamp(img + 0.05 * torch.randn(img.shape, generator=torch.Generator(device).manual_seed(args.seed), device=device), 0, 1)
@@ -561,11 +597,11 @@ def run(args, device) -> dict:
                 "gather": cuda_ms(lambda: s.props(), reps=5),
             }
             profile = render_profile(lambda: render(cam0, scene))
-            k1_ms = cuda_ms(lambda: stream.composite_stream_tiles(props, ct, s.grid_w, s.grid_h), reps=20)
+            k1_ms = cuda_ms(lambda: stream.composite_stream_tiles(props, ct, counts, s.grid_w, s.grid_h), reps=20)
             k1_plain_ms = cuda_ms(lambda: stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h), reps=2)
             k3_ms = cuda_ms(lambda: fused_ssim.fused_ssim(img, gt), reps=50)
             k3_plain_ms = cuda_ms(lambda: fused_ssim.ssim_plain(img, gt), reps=5)
-            k1_cold_ms = cuda_ms_cold(lambda: stream.composite_stream_tiles(props, ct, s.grid_w, s.grid_h), reps=10)
+            k1_cold_ms = cuda_ms_cold(lambda: stream.composite_stream_tiles(props, ct, counts, s.grid_w, s.grid_h), reps=10)
             k3_cold_ms = cuda_ms_cold(lambda: fused_ssim.fused_ssim(img, gt), reps=20)
         T = s.grid_w * s.grid_h
         real_rows = int(s.binned.tile_counts.sum())
@@ -581,7 +617,8 @@ def run(args, device) -> dict:
               f"K1 {k1_ms:.3f} ms (stages timed apart)")
         print(f"top CUDA kernels of one render (torch.profiler, device time):\n{profile}")
         print(f"[{smi}] K1 {k1_ms:.4f} ms (L2 cold {k1_cold_ms:.4f}), plain {k1_plain_ms:.2f} ms, "
-              f"bound {k1_bound:.4f} ms ({k1_by}: {k1_bytes} B, {k1_ops} fp32 ops)")
+              f"bound {k1_bound:.4f} ms ({k1_by}: {k1_bytes} B, {k1_ops} fp32 ops); "
+              f"{sm_cycles(k1_ms, clk, k1_steps['steps']):.2f} SM cycles per warp step")
         print(f"[{smi}] K3 {k3_ms:.4f} ms (L2 cold {k3_cold_ms:.4f}), plain {k3_plain_ms:.3f} ms, "
               f"bound {k3_bound:.4f} ms ({k3_by}: {k3_bytes} B, {k3_ops} fp32 ops)")
         print_clocks(clk, "5")
@@ -592,7 +629,7 @@ def run(args, device) -> dict:
              "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms, "ms_l2_cold": k1_cold_ms,
              "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
              "tolerance": {"atol": K1_ATOL, "max_share_beyond": K1_MAX_SHARE, "max_abs": K1_MAX_ERR},
-             "share_beyond_atol": k1_share},
+             "share_beyond_atol": k1_share, "checksum": k1_sum, "warp_steps": k1_steps},
             {"name": "ssim_fwd", "route": "cuda",
              "source": "gaussian_transformer_tpu_torch/csrc/ssim_fwd.cu",
              "replaces": "gaussian_transformer_tpu/ops/fused_ssim.py:106",
@@ -602,7 +639,7 @@ def run(args, device) -> dict:
         ]
         summary.update(smi=smi, render_ms=render_ms, stage_ms=stages, walked_pairs=pairs, live_pairs=live,
                        real_rows=real_rows, render_profile=profile)
-    del s, props, ct, color, t_fin, p_color, p_t, img, gt
+    del s, props, ct, counts, color, t_fin, p_color, p_t, img, gt
 
     train_entries, train_cfg = train_path(args, device, scene, summary)
     kernels_line["kernels"] += train_entries
@@ -727,7 +764,9 @@ def train_path(args, device, scene, summary):
         props, ct = s.props(), s.chunk_tile
         chunk = props.shape[0] // ct.shape[0]
         gw, gh = s.grid_w, s.grid_h
-        color, final_t = stream.composite_stream_tiles(props, ct, gw, gh)
+        color, final_t = stream.composite_stream_tiles(props, ct, s.binned.tile_counts, gw, gh)
+    k1_train_sum = checksum(color, final_t)
+    print(f"K1 checksum of (color, final T) on train view 0: {k1_train_sum}")
     # The loss's true cotangents of the compositor's outputs.
     c, t = color.clone().requires_grad_(), final_t.clone().requires_grad_()
     img = stream.tiles_to_image(c, t, s.binned.covered, bg, grid_w=gw, grid_h=gh)[0][:, :H, :W]
@@ -760,7 +799,7 @@ def train_path(args, device, scene, summary):
                   f"{scale4:.3e} (tolerance {K4_MAX_ERR})")
             check(k4_err <= K4_MAX_ERR * scale4, "K4 agrees with its plain version")
     del d_plain, d_plain_ssim, g0
-    summary.update(train_k2_chunk=chunk, train_k2_rows=props.shape[0])
+    summary.update(train_k2_chunk=chunk, train_k2_rows=props.shape[0], train_k1_checksum=k1_train_sum)
 
     if not on_card:
         return entries, cfg
@@ -902,6 +941,9 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
         print(f"K5 vs plain: max abs diff {k5_err:.3e} (tolerance {K1_MAX_ERR}), share beyond {K1_ATOL}: "
               f"{k5_share:.3e} (tolerance {K1_MAX_SHARE})")
         check(k5_err <= K1_MAX_ERR and k5_share <= K1_MAX_SHARE, "K5 agrees with its plain version")
+        k5_sum = checksum(color, final_t)
+        print(f"K5 checksum of (color, final T) on test view 0: {k5_sum}")
+        k5_steps = warp_steps("K5", table_composite.table_warp_steps(props, counts, gw))
         ref = render(cams[0], scene)
         err = torch.cat([(outs[0]["render"] - ref["render"]).flatten(),
                          (outs[0]["final_T"] - ref["final_T"]).flatten()]).abs()
@@ -912,7 +954,7 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
     del outs, ref, p_color, p_t, err
     summary.update(table_k_serve=k_serve, table_serve_peaks=peaks, table_serve_k=k_views, table_serve_overflow=overflow,
                    table_serve_s=t_serve, table_k5_pairs=pairs, table_k5_live_pairs=live, table_real_rows=real_rows,
-                   table_vs_stream_err=tvs_err)
+                   table_vs_stream_err=tvs_err, table_k5_checksum=k5_sum)
     entries = []
     if on_card:
         smi = smi_line()
@@ -938,7 +980,8 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
               f"K5 {k5_ms:.3f} ms (stages timed apart)")
         print(f"top CUDA kernels of one table render (torch.profiler, device time):\n{profile}")
         print(f"[{smi}] K5 {k5_ms:.4f} ms (L2 cold {k5_cold_ms:.4f}), plain {k5_plain_ms:.2f} ms, "
-              f"bound {k5_bound:.4f} ms ({k5_by}: {k5_bytes} B, {k5_ops} fp32 ops)")
+              f"bound {k5_bound:.4f} ms ({k5_by}: {k5_bytes} B, {k5_ops} fp32 ops); "
+              f"{sm_cycles(k5_ms, clk, k5_steps['steps']):.2f} SM cycles per warp step")
         print_clocks(clk, "10")
         summary.update(table_render_ms=render_ms, table_stage_ms=stages, table_render_profile=profile)
         entries.append(
@@ -948,7 +991,8 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
              "launches": k5_serve, "max_abs_err": k5_err, "ms": k5_ms, "ms_l2_cold": k5_cold_ms,
              "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None,
              "tolerance": {"atol": K1_ATOL, "max_share_beyond": K1_MAX_SHARE, "max_abs": K1_MAX_ERR},
-             "share_beyond_atol": k5_share, "max_per_tile": k_serve})
+             "share_beyond_atol": k5_share, "max_per_tile": k_serve, "checksum": k5_sum,
+             "warp_steps": k5_steps})
     del s, props, counts, color, final_t
 
     print("== 11. table path, training: train/splat.py training() on the section-6 dataset")
@@ -1010,6 +1054,9 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
         s = prepare_table(cam, g0, tcfg)
         props, counts, gw, gh = s.props(), s.binned.tile_counts, s.grid_w, s.grid_h
         color, final_t = table_composite.composite_table_tiles(props, counts, gw)
+    k5_train_sum = checksum(color, final_t)
+    print(f"K5 checksum of (color, final T) on train view 0: {k5_train_sum}")
+    summary.update(table_k5_train_checksum=k5_train_sum)
     c, t = color.clone().requires_grad_(), final_t.clone().requires_grad_()
     img = stream.tiles_to_image(c, t, None, bg, grid_w=gw, grid_h=gh)[0][:, :H, :W]
     loss = 0.8 * l1_loss(img, gt) + 0.2 * (1.0 - fused_ssim.ssim_plain(img, gt))
@@ -1141,7 +1188,7 @@ def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
         clk = sm_clock()
         p = s.proj
         with torch.no_grad():
-            k1_ms, k7_ms = interleaved_ms([lambda: stream.composite_stream_tiles(props, ct, gw, gh),
+            k1_ms, k7_ms = interleaved_ms([lambda: stream.composite_stream_tiles(props, ct, s.binned.tile_counts, gw, gh),
                                            lambda: stream_t.composite_stream_tiles_t(props_t, ct, gw, gh)],
                                           rounds=10, reps=5)
             img_ms, img_t_ms = interleaved_ms([

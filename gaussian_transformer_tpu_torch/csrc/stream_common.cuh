@@ -52,11 +52,138 @@ __device__ __forceinline__ float next_t(float T, float alpha) {
   return __fmul_rn(T, __fsub_rn(1.0f, alpha));
 }
 
-// Rows of a table tile the walk reads: its count rounded up to the
-// reference's 32-row chunk, at most K.
+// Rows of a table tile the walks read (K5, K6 and the plain versions): its
+// count rounded up to the reference's 32-row chunk, at most K.
 constexpr int kChunk = 32;
 __device__ __forceinline__ int walked_rows(int count, int K) {
   return min((max(count, 0) + kChunk - 1) / kChunk * kChunk, K);
+}
+
+// ---- The forward walk (K1 stream_fwd.cu, K5 table_fwd.cu) ----
+//
+// One walk, two entry points: a block of 256 threads composites one 16x16
+// tile over n contiguous rows of 16 floats, front to back. K1 passes its
+// tile's real stream rows in the tile-local frame (origin = the tile's
+// corner, pixel centers 0..15); K5 its table slab's walked_rows in screen
+// coordinates (origin 0, absolute pixel centers). The zero sentinel rows
+// past a tile's real count never contribute and never stop a pixel (alpha
+// 0 < 1/255), so where K1 ends its run changes no output bit.
+//
+// Pixel map. Warp w, lane l takes the pixel at column (w & 1) * 8 + (l & 7),
+// row (w >> 1) * 4 + (l >> 3): a warp covers an 8x4 block, whose shorter
+// perimeter leaves more of its steps uniform (all lanes skip, or none) than
+// a 16x2 strip. Outputs stay indexed by pixel.
+//
+// Staging. Batches of 256 rows in shared memory: the threads copy each row's
+// (x, y, a, b) and (c, r, g, b) float4, and thread k writes row k's head
+// (x - ox, y - oy, P_row, opacity), so the frame shift and the skip floor
+// are computed once per row. Two barriers a batch (staged; consumed, which
+// __syncthreads_count also uses to stop the block once every pixel has
+// terminated). 12 KB of shared memory a block.
+//
+// Exp-free skip. The walk first forms power (splat_power, unchanged) and
+// skips the pair when power < P_row, before expf; a warp whose live lanes
+// all skip takes that branch together. P_row = fl(logf(fl(1/255 / opacity))
+// - m), m = kSkipMargin = 1e-3, is formed once per row at staging (1/255
+// stands for kMinAlpha, the float). Claim: power < P_row implies the exact
+// test skips, i.e. power > 0 or fl(opacity * expf(min(power, 0))) < 1/255
+// (then so is the capped alpha, 0.99 > 1/255). Proof, for 0 < opacity <=
+// 1e30 (CUDA's error bounds: __fdiv_rn and __fsub_rn correctly rounded, logf
+// 1 ulp, expf 2 ulp):
+//   q = fl(1/255 / opacity) = (1/255 / opacity)(1 + d), |d| <= 2^-24, and q
+//     is a normal float or +inf (1/255 / 1e30 > 2^-126);
+//   if q = +inf, P_row = +inf and opacity < 1/255 / FLT_MAX, so any alpha is
+//     below 1/255; otherwise |ln q| < 89, logf(q) = ln q + e, |e| <= 2^-17,
+//     and P_row <= logf(q) - m + 2^-18;
+//   so power < P_row gives opacity e^power < (1/255) exp(2^-24 + 2^-17 +
+//     2^-18 - m); with power <= 0 (else the exact test skips), expf(power)
+//     <= e^power (1 + 2^-22) where the result is normal, and the product
+//     rounds up by at most (1 + 2^-24): alpha < (1/255) exp(2.4e-5 - m) <
+//     1/255. Where expf(power) is subnormal (power < -87.3), opacity * expf
+//     <= 1e30 * 2^-126 < 1/255.
+// Other opacities: 0 (either sign) gives P_row = +inf, every pair with a
+// number for power skips, as the exact test does (alpha = 0); negative,
+// NaN or above 1e30 gives P_row = -inf, the exact path. power = NaN fails
+// the comparison (the exact path); power = -inf skips, as expf(-inf) = 0
+// does. Only skips move earlier, so every output bit stays as it was.
+
+constexpr int kFwdBatch = kPixels;  // rows per staged batch: one head per thread
+constexpr float kSkipMargin = 1e-3f;
+constexpr float kSkipMaxOpacity = 1e30f;
+
+struct FwdBatch {
+  float4 raw[kFwdBatch * 2];  // per row: (x, y, a, b), (c, r, g, b)
+  float4 head[kFwdBatch];     // per row: (x - ox, y - oy, P_row, opacity)
+};
+
+// The pixel (index y * 16 + x in the tile) of thread tid.
+__device__ __forceinline__ int fwd_pixel(int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  return ((warp >> 1) * 4 + (lane >> 3)) * kTile + (warp & 1) * 8 + (lane & 7);
+}
+
+// P_row: a pair whose power is below it skips (see the proof above).
+__device__ __forceinline__ float skip_floor(float opac) {
+  if (opac > 0.0f && opac <= kSkipMaxOpacity)
+    return __fsub_rn(logf(__fdiv_rn(kMinAlpha, opac)), kSkipMargin);
+  return __uint_as_float(opac == 0.0f ? 0x7f800000u : 0xff800000u);  // +inf : -inf
+}
+
+// Stages rows [0, n) of src into b.
+__device__ __forceinline__ void stage_batch(FwdBatch& b, const float4* __restrict__ src, int n,
+                                            int tid, float ox, float oy) {
+  for (int i = tid; i < 2 * n; i += kPixels) b.raw[i] = src[(i >> 1) * kRowV + (i & 1)];
+  if (tid < n) {
+    const float2 xy = __ldg(reinterpret_cast<const float2*>(src + tid * kRowV));
+    const float opac = __ldg(reinterpret_cast<const float*>(src + tid * kRowV + 2));
+    b.head[tid] = make_float4(__fsub_rn(xy.x, ox), __fsub_rn(xy.y, oy), skip_floor(opac), opac);
+  }
+}
+
+// One pixel's walk over the n rows of a staged batch.
+__device__ __forceinline__ void walk_batch(const FwdBatch& b, int n, float px, float py, float& T,
+                                           float& c0, float& c1, float& c2, int& done) {
+  for (int k = 0; k < n; ++k) {
+    const float4 h = b.head[k];          // x - ox, y - oy, P_row, opacity
+    const float4 v0 = b.raw[2 * k];      // x, y, a, b
+    const float4 v1 = b.raw[2 * k + 1];  // c, r, g, b
+    const float power = splat_power(h.x, h.y, v0.z, v0.w, v1.x, px, py);
+    if (power < h.z) continue;
+    const float alpha = fminf(kAlphaCap, splat_alpha_raw(h.w, power));
+    if (splat_skipped(power, alpha)) continue;
+    const float test_t = next_t(T, alpha);
+    if (test_t < kMinT) {
+      done = 1;
+      return;
+    }
+    const float w = alpha * T;
+    c0 += v1.y * w;
+    c1 += v1.z * w;
+    c2 += v1.w * w;
+    T = test_t;
+  }
+}
+
+// The forward walk of one tile: rows [0, n_rows) of src, means shifted by
+// (ox, oy), this thread's pixel p at (px, py) in that frame. Writes the
+// pre-background color planes color[0 / 256 / 512 + p] and final_t[p].
+__device__ __forceinline__ void forward_walk(FwdBatch& buf, const float4* __restrict__ src, int n_rows,
+                                             float ox, float oy, int p, float px, float py,
+                                             float* __restrict__ color, float* __restrict__ final_t) {
+  const int tid = threadIdx.x;
+  float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+  int done = 0;
+  for (int base = 0; base < n_rows; base += kFwdBatch) {
+    const int n = min(kFwdBatch, n_rows - base);
+    stage_batch(buf, src + (size_t)base * kRowV, n, tid, ox, oy);  // the last batch is consumed
+    __syncthreads();
+    if (!done) walk_batch(buf, n, px, py, T, c0, c1, c2, done);
+    if (__syncthreads_count(done) == kPixels) break;
+  }
+  color[p] = c0;
+  color[kPixels + p] = c1;
+  color[2 * kPixels + p] = c2;
+  final_t[p] = T;
 }
 
 // The transposed stream layout (stream_t_fwd.cu, stream_t_bwd.cu): plane j

@@ -5,9 +5,11 @@ Kernel K1: ``csrc/stream_fwd.cu`` replaces the TPU kernel
 ``render/stream.py:266 _fwd_kernel``. It is bound by operations (~14 fp32
 operations and one ``expf`` per walked (row, pixel) pair, ~6 more where the
 row contributes, the row's 36 useful bytes shared by a tile's 256 pixels);
-its design answer is one CTA per tile with rows staged in shared memory and
-a block-wide early exit once every pixel has terminated (see the source's
-header).
+its design answer is one CTA per tile over only its run's real rows
+(``real_row_ranges``), warps of 8x4 pixels, rows staged in shared memory, a
+skip test before the ``expf`` and a block-wide early exit once every pixel has
+terminated (the walk is ``csrc/stream_common.cuh forward_walk``, shared
+with K5).
 
 Kernel K2: ``csrc/stream_bwd.cu`` replaces the TPU kernel
 ``render/stream.py:411 _bwd_kernel``: it replays each tile's run with K1's
@@ -50,7 +52,7 @@ STREAM_FWD = CudaKernel(
     "stream_fwd.cu",
     "stream_fwd",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
 )
 STREAM_BWD = CudaKernel(
     "stream_bwd.cu",
@@ -141,6 +143,66 @@ def tile_chunk_ranges(chunk_tile: torch.Tensor, n_tiles: int):
     start = torch.searchsorted(chunk_tile, tiles, out_int32=True)
     end = torch.searchsorted(chunk_tile, tiles, right=True, out_int32=True)
     return start, end
+
+
+def real_row_ranges(chunk_tile: torch.Tensor, tile_counts: torch.Tensor, n_tiles: int, chunk: int):
+    """[row_start, row_end) of the real rows of every tile's run, int32 [T]
+    each (K1's walk): a run starts at its first chunk and pads only at its
+    tail, so its ``tile_counts`` (``StreamBinned.tile_counts``) real rows
+    come first. ``row_end`` is clamped to the run's padded end, so a count
+    larger than its run never reaches the next tile's rows. Five small ops, as
+    K1's wrapper runs them per launch."""
+    tiles = torch.arange(n_tiles + 1, dtype=chunk_tile.dtype, device=chunk_tile.device)
+    bounds = torch.searchsorted(chunk_tile, tiles, out_int32=True) * chunk  # run t: [bounds[t], bounds[t + 1])
+    row_start = bounds[:-1]
+    return row_start, torch.minimum(row_start + tile_counts.to(torch.int32), bounds[1:])
+
+
+def warp_lanes(device=None) -> torch.Tensor:
+    """[8, 32] pixel of each (warp, lane) of a forward block (K1 and K5,
+    ``csrc/stream_common.cuh fwd_pixel``): warp w covers columns (w & 1) * 8
+    + 0..7, rows (w >> 1) * 4 + 0..3."""
+    tid = torch.arange(P, device=device)
+    warp, lane = tid // 32, tid % 32
+    return (((warp // 2) * 4 + lane // 8) * TILE + (warp % 2) * 8 + lane % 8).reshape(8, 32)
+
+
+def warp_step_counts(active, skip, lanes):
+    """(steps, uniform-skip steps) of one plain round: ``active`` [Ta, B, P]
+    marks the (row, pixel) pairs a pixel walks, ``skip`` [Ta, B, P] those
+    that fail the alpha test. A warp steps through a row where any of its
+    lanes is active; the step is a uniform skip where every active lane
+    skips."""
+    a = active[..., lanes]  # [Ta, B, 8, 32]
+    step = a.any(dim=-1)
+    live = (a & ~skip[..., lanes]).any(dim=-1)
+    return step.sum(), (step & ~live).sum()
+
+
+def walked_mask(lv, trigger):
+    """[Ta, B, P] pairs a sequential walk reaches: pixels live before the
+    round, up to and including each one's first trigger."""
+    trig = trigger.to(torch.int32)
+    return (lv > 0.0) & ((torch.cumsum(trig, dim=1) - trig) == 0)
+
+
+def stream_warp_steps(props, chunk_tile, tile_counts, grid_w, grid_h):
+    """(steps, uniform-skip steps) of K1's warps over a stream, counted by
+    the plain walk: per (row, warp), whether any lane walks the row (up to
+    its run's last real row, where K1 ends) and whether every lane that does
+    skips it."""
+    T = grid_w * grid_h
+    chunk = props.shape[0] // chunk_tile.shape[0]
+    row_end = real_row_ranges(chunk_tile.to(torch.int32), tile_counts, T, chunk)[1].long()
+    lanes = warp_lanes(props.device)
+    steps = torch.zeros((), dtype=torch.int64, device=props.device)
+    uniform = torch.zeros((), dtype=torch.int64, device=props.device)
+    for rd in _plain_rounds(props, chunk_tile, grid_w, grid_h):
+        active = walked_mask(rd.lv, rd.trigger) & (rd.idx < row_end[rd.tiles, None])[..., None]
+        s, u = warp_step_counts(active, rd.alpha == 0.0, lanes)
+        steps += s
+        uniform += u
+    return int(steps), int(uniform)
 
 
 def _termination(alpha, t_in, lv):
@@ -240,9 +302,7 @@ def walked_pairs(rows, lv, trigger):
     """The (row, pixel) pairs of a round that a sequential walk evaluates:
     real rows (opacity > 0) of pixels live before the round, up to and
     including each pixel's first trigger."""
-    trig = trigger.to(torch.int32)
-    before_stop = (torch.cumsum(trig, dim=1) - trig) == 0
-    return ((rows[..., 8:9] > 0.0) & (lv > 0.0) & before_stop).sum()
+    return ((rows[..., 8:9] > 0.0) & walked_mask(lv, trigger)).sum()
 
 
 def composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h, count_work=False, absolute=False):
@@ -321,13 +381,14 @@ def composite_stream_tiles_bwd_plain(props, chunk_tile, grid_w, grid_h, color, f
 
 class _StreamComposite(torch.autograd.Function):
     """K1 forward and K2 backward on CUDA tensors; the plain versions on CPU
-    tensors. Saves the stream rows and the forward's outputs (the backward's
-    C_total and T_final)."""
+    tensors (which walk each run to its padded end: the sentinel rows past
+    its real count change nothing). Saves the stream rows and the forward's
+    outputs (the backward's C_total and T_final)."""
 
     @staticmethod
-    def forward(ctx, props, chunk_tile, grid_w, grid_h):
+    def forward(ctx, props, chunk_tile, tile_counts, grid_w, grid_h):
         if props.is_cuda:
-            color, final_t = _launch_stream_fwd(props, chunk_tile, grid_w, grid_h)
+            color, final_t = _launch_stream_fwd(props, chunk_tile, tile_counts, grid_w, grid_h)
         else:
             color, final_t = composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h)
         ctx.save_for_backward(props, chunk_tile, color, final_t)
@@ -346,7 +407,7 @@ class _StreamComposite(torch.autograd.Function):
             dprops = composite_stream_tiles_bwd_plain(
                 props, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t
             )
-        return dprops, None, None, None
+        return dprops, None, None, None, None
 
 
 def _checked_props(props, chunk_tile):
@@ -365,19 +426,28 @@ def _checked_props(props, chunk_tile):
     return props
 
 
-def _launch_stream_fwd(props, chunk_tile, grid_w, grid_h):
-    """K1: (color [T, 3, P], final_T [T, 1, P])."""
+def _launch_stream_fwd(props, chunk_tile, tile_counts, grid_w, grid_h):
+    """K1: (color [T, 3, P], final_T [T, 1, P]), each run walked to its last
+    real row."""
     T = grid_w * grid_h
     G = chunk_tile.shape[0]
     props = _checked_props(props, chunk_tile)
-    start, end = tile_chunk_ranges(chunk_tile.to(torch.int32).contiguous(), T)
+    _check_counts(tile_counts, T, props.device)
+    row_start, row_end = real_row_ranges(chunk_tile.to(torch.int32).contiguous(), tile_counts, T,
+                                         props.shape[0] // G)
     color = torch.empty(T, 3, P, dtype=torch.float32, device=props.device)
     final_t = torch.empty(T, 1, P, dtype=torch.float32, device=props.device)
     STREAM_FWD.launch(
-        props.data_ptr(), start.data_ptr(), end.data_ptr(), props.shape[0] // G, grid_w, T,
+        props.data_ptr(), row_start.data_ptr(), row_end.data_ptr(), grid_w, T,
         color.data_ptr(), final_t.data_ptr(), torch.cuda.current_stream(props.device).cuda_stream,
     )
     return color, final_t
+
+
+def _check_counts(tile_counts, n_tiles, device):
+    if tuple(tile_counts.shape) != (n_tiles,) or tile_counts.device != device or tile_counts.is_floating_point():
+        raise ValueError(f"tile_counts must be integer [{n_tiles}] on {device}, got "
+                         f"{tile_counts.dtype} {tuple(tile_counts.shape)} on {tile_counts.device}")
 
 
 def _launch_stream_bwd(props, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t):
@@ -403,13 +473,15 @@ def _launch_stream_bwd(props, chunk_tile, grid_w, grid_h, color, final_t, g_colo
     return dprops
 
 
-def composite_stream_tiles(props, chunk_tile, grid_w, grid_h) -> Tuple[torch.Tensor, torch.Tensor]:
+def composite_stream_tiles(props, chunk_tile, tile_counts, grid_w, grid_h) -> Tuple[torch.Tensor, torch.Tensor]:
     """(color [T, 3, P], final_T [T, 1, P]) pre-background, differentiable in
-    ``props``. CUDA tensors go through kernels K1 and K2; CPU tensors through
-    the plain versions."""
+    ``props``; ``tile_counts`` [T] are the real rows of each tile's run
+    (``StreamBinned.tile_counts``), where K1 ends the run. CUDA tensors go
+    through kernels K1 and K2; CPU tensors through the plain versions."""
     if not (props.is_cuda or props.device.type == "cpu"):
         raise ValueError(f"no stream compositor for device {props.device}")
-    return _StreamComposite.apply(props, chunk_tile, grid_w, grid_h)
+    _check_counts(tile_counts, grid_w * grid_h, props.device)
+    return _StreamComposite.apply(props, chunk_tile, tile_counts, grid_w, grid_h)
 
 
 def stream_image(binned, means2d, conics, rgbs, opac, bg, *, grid_w: int, grid_h: int):
@@ -418,7 +490,7 @@ def stream_image(binned, means2d, conics, rgbs, opac, bg, *, grid_w: int, grid_h
     order that ``binned.stream_gauss`` indexes."""
     stream_gauss, chunk_tile = used_stream(binned)
     props = stream_gather(pack_props(means2d, conics, rgbs, opac), binned, stream_gauss)
-    color, final_t = composite_stream_tiles(props, chunk_tile, grid_w, grid_h)
+    color, final_t = composite_stream_tiles(props, chunk_tile, binned.tile_counts, grid_w, grid_h)
     return tiles_to_image(color, final_t, binned.covered, bg, grid_w=grid_w, grid_h=grid_h)
 
 

@@ -6,12 +6,13 @@ tables and its backward (port of
 Kernel K5: ``csrc/table_fwd.cu`` replaces the TPU kernel
 ``render/pallas_composite.py:187 _fwd_kernel``. It walks tile t's rows
 [0, counts[t]) (in whole chunks of 32, as the reference does) of its
-[K, 16] slab and composites every pixel with the upstream rules. Like K1 it
-is bound by operations (~14 fp32 operations and one ``expf`` per walked
+[K, 16] slab and composites every pixel with the upstream rules. Like K1 it is
+bound by operations (~14 fp32 operations and one ``expf`` per walked
 (row, pixel) pair, ~6 more where the row contributes, the row's 36 useful
-bytes shared by 256 pixels); its design answer is K1's: one CTA per tile,
-rows staged in shared memory, a block-wide exit once every pixel has
-terminated.
+bytes shared by 256 pixels); its walk is K1's
+(``csrc/stream_common.cuh forward_walk``): one CTA per tile, 8x4-pixel
+warps, rows staged in shared memory, a skip test before the ``expf``, a
+block-wide exit once every pixel has terminated.
 
 Kernel K6: ``csrc/table_bwd.cu`` replaces the TPU kernel
 ``render/pallas_composite.py:237 _bwd_kernel``: it replays K5's walk with
@@ -51,7 +52,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 from gaussian_transformer_tpu_torch.kernels import CudaKernel
-from gaussian_transformer_tpu_torch.render.stream import GRAD_F, PROPS_F, instance_pullback, walked_pairs
+from gaussian_transformer_tpu_torch.render.stream import (
+    GRAD_F, PROPS_F, instance_pullback, walked_mask, walked_pairs, warp_lanes, warp_step_counts,
+)
 from gaussian_transformer_tpu_torch.render.tiles import TILE
 
 P = TILE * TILE
@@ -112,7 +115,7 @@ def build_props_table(props_full, binned) -> torch.Tensor:
 
 
 def walked_rows(counts, K):
-    """Rows of each tile the walk reads: counts rounded up to a chunk, at most K."""
+    """Rows of each tile the walks read: counts rounded up to a chunk, at most K."""
     return torch.clamp((counts.long() + CH - 1) // CH * CH, 0, K)
 
 
@@ -171,6 +174,20 @@ def _plain_rounds(props, counts, grid_w):
         yield _Round(tiles, r * CH, rows, dx, dy, alpha_raw, alpha, t_in, live_k, lv, trigger, t_after)
         t_run[tiles] = t_after
         live[tiles] = lv * (~done_inc[:, -1:]).to(torch.float32)
+
+
+def table_warp_steps(props, counts, grid_w):
+    """(steps, uniform-skip steps) of K5's warps over a table (each tile to
+    its ``walked_rows``), counted by the plain walk as
+    ``stream.stream_warp_steps`` counts K1's."""
+    lanes = warp_lanes(props.device)
+    steps = torch.zeros((), dtype=torch.int64, device=props.device)
+    uniform = torch.zeros((), dtype=torch.int64, device=props.device)
+    for rd in _plain_rounds(props, counts, grid_w):
+        s, u = warp_step_counts(walked_mask(rd.lv, rd.trigger), rd.alpha == 0.0, lanes)
+        steps += s
+        uniform += u
+    return int(steps), int(uniform)
 
 
 def composite_table_tiles_plain(props, counts, grid_w, count_work=False):

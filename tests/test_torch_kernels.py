@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels (K1-K9) against their plain PyTorch
 versions, on the card only (marker ``gpu``; each test skips without a CUDA
-device), and the plain replay backwards on the kernels' edge cases on the CPU.
+device), and on the CPU the plain replay backwards on the kernels' edge cases
+and the plain forwards on the skip-floor sweep.
 
 This file imports no JAX, so it also runs where only the port is installed:
 
@@ -62,7 +63,7 @@ def _check_k1(s):
     props = s.props()
     ct = s.chunk_tile
     before = stream.STREAM_FWD.launches
-    color, t = stream.composite_stream_tiles(props, ct, s.grid_w, s.grid_h)
+    color, t = stream.composite_stream_tiles(props, ct, s.binned.tile_counts, s.grid_w, s.grid_h)
     torch.cuda.synchronize()
     assert stream.STREAM_FWD.launches == before + 1
     p_color, p_t = stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h)
@@ -111,7 +112,7 @@ def _check_k2(s, seed):
     """K2 against its plain version on random cotangents: the same bounded
     share of termination flips as K1 (relative to the largest gradient)."""
     props, ct = s.props(), s.chunk_tile
-    color, t = stream.composite_stream_tiles(props, ct, s.grid_w, s.grid_h)
+    color, t = stream.composite_stream_tiles(props, ct, s.binned.tile_counts, s.grid_w, s.grid_h)
     gen = torch.Generator(props.device).manual_seed(seed)
     g_color = torch.randn(color.shape, generator=gen, device=props.device)
     g_t = torch.randn(t.shape, generator=gen, device=props.device)
@@ -196,9 +197,23 @@ def test_kernels_reject_bad_inputs_and_gradients(cuda):
     assert x.grad is not None and torch.all(torch.isfinite(x.grad))
     props = torch.zeros(64, 16, device=cuda, requires_grad=True)
     ct = torch.zeros(2, dtype=torch.int32, device=cuda)
-    color, t = stream.composite_stream_tiles(props, ct, 1, 1)
+    counts = torch.full((1,), 64, dtype=torch.int32, device=cuda)  # 64 rows of opacity 0
+    for bad_counts in (counts.float(), counts.cpu(), counts.repeat(2)):
+        with pytest.raises(ValueError):
+            stream.composite_stream_tiles(props, ct, bad_counts, 1, 1)
+    color, t = stream.composite_stream_tiles(props, ct, counts, 1, 1)
     (color.sum() + t.sum()).backward()
     assert props.grad is not None and float(props.grad.abs().max()) == 0.0  # empty rows: no gradient
+    # Counts larger than their runs: K1 ends each run at its padded end (never
+    # in the next tile's run, nor past the stream), so it matches its plain
+    # version and its walk to the real counts.
+    (props, ct), (_, counts) = _replay_layouts(_forward_edge_tiles(), 32, cuda)
+    fwd = stream.composite_stream_tiles(props, ct, counts, 2, 1)
+    over = stream.composite_stream_tiles(props, ct, counts + 10 * 32, 2, 1)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, over))
+    ref = stream.composite_stream_tiles_plain(props, ct, 2, 1)
+    err = torch.cat([(over[0] - ref[0]).flatten(), (over[1] - ref[1]).flatten()]).abs()
+    assert float(err.max()) <= 1e-3 and float((err > K1_ATOL).float().mean()) <= 1e-4
 
 
 def _check_k5_k6(s, seed):
@@ -334,7 +349,8 @@ def _replay_case(case):
 
 def _replay_layouts(tiles, chunk, device):
     """The same per-tile rows as a stream (props [I_pad, 16], chunk_tile
-    with one trash chunk) and as a table (props [T, K, 16], counts)."""
+    with one trash chunk) and as a table (props [T, K, 16], counts); the
+    counts are also the stream's tile counts."""
     stream_rows, chunk_tile = [], []
     for t, rows in enumerate(tiles):
         n = -(-len(rows) // chunk) * chunk
@@ -404,7 +420,7 @@ def test_replay_backwards_edge_cases(cuda, case):
     the float64 evaluation. There the kernels are held to that only."""
     tiles, chunk = _replay_case(case)
     (props, ct), (table, counts) = _replay_layouts(tiles, chunk, cuda)
-    fwd2 = stream.composite_stream_tiles(props, ct, 2, 1)
+    fwd2 = stream.composite_stream_tiles(props, ct, counts, 2, 1)
     g_color, g_t = _cotangents(*fwd2, seed=3)
     got2 = stream._launch_stream_bwd(props, ct, 2, 1, *fwd2, g_color, g_t)
     ref2 = stream.composite_stream_tiles_bwd_plain(props, ct, 2, 1, *fwd2, g_color, g_t)
@@ -443,7 +459,7 @@ def test_plain_replay_backwards_edge_cases(case):
     cpu = torch.device("cpu")
     tiles, chunk = _replay_case(case)
     (props, ct), (table, counts) = _replay_layouts(tiles, chunk, cpu)
-    fwd2 = stream.composite_stream_tiles(props, ct, 2, 1)
+    fwd2 = stream.composite_stream_tiles(props, ct, counts, 2, 1)
     g_color, g_t = _cotangents(*fwd2, seed=3)
     ref2 = stream.composite_stream_tiles_bwd_plain(props, ct, 2, 1, *fwd2, g_color, g_t)
     exact2 = _table_to_stream(_table_bwd_f64(table, counts, 2, *fwd2, g_color, g_t), tiles, chunk)
@@ -455,13 +471,166 @@ def test_plain_replay_backwards_edge_cases(case):
         assert max_err <= 1e-3 and share <= 1e-4, (max_err, share)
 
 
+def _forward_edge_tiles(spike=True):
+    """Hand-made rows (absolute means) of a 2x1 tile grid for the forward
+    walk's edge cases. Tile 0 (45 rows: not a multiple of 32, and no pixel
+    terminates): for k = -3..3, a row whose alpha at pixel (8 + 2k, 6) is
+    k float32 ulps from 1/255 as numpy evaluates it (expf may differ by an ulp
+    or two), so the exact test and the exp-free floor both decide rows on
+    either side of the threshold; rows of opacity 0; with ``spike``, a row of
+    conic 1e38 that only its centre pixel sees (power -inf elsewhere; its
+    per-pixel gradient terms overflow, so the backward checks go without
+    it); soft rows between. Tile 1 (77 rows): soft rows, then three opaque
+    broad rows (opacity 0.99, below the cap) that stop every pixel by row 32,
+    then rows no pixel reaches."""
+    rng = np.random.RandomState(12)
+    f32 = np.float32
+
+    def soft(n, ox, opac=(0.02, 0.2)):
+        return [_row(ox + rng.uniform(0, 16), rng.uniform(0, 16), *rng.uniform(0.02, 0.2, 1), 0.0,
+                     *rng.uniform(0.02, 0.2, 1), rng.uniform(*opac)) for _ in range(n)]
+
+    near = []
+    for k in range(-3, 4):
+        px, py = f32(8 + 2 * k), f32(6)
+        x, y = px + f32(2), py  # dx = 2, dy = 0: power = -0.5 * (1 * 2 * 2) = -2 exactly
+        opac = f32(f32(1.0 / 255.0) / np.exp(f32(-2.0)))
+        opac = (np.array([opac], f32).view(np.int32) + k).view(f32)[0]
+        near.append(_row(float(x), float(y), 1.0, 0.0, 1.0, float(opac)))
+    zero = [_row(4.0, 4.0, 0.05, 0.0, 0.05, 0.0), _row(12.0, 3.0, 0.0, 0.0, 0.0, 0.0)]
+    spike = [_row(5.0, 11.0, 1e38 if spike else 0.05, 0.0, 1e38 if spike else 0.05, 0.6)]
+    tile0 = soft(10, 0) + near + zero + soft(12, 0) + spike + soft(13, 0)
+    opaque = [_row(24.0, 8.0, 1e-4, 0.0, 1e-4, 0.99) for _ in range(3)]
+    tile1 = soft(30, 16) + opaque + soft(44, 16)
+    assert (len(tile0), len(tile1)) == (45, 77)
+    return [tile0, tile1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [512, 32])
+def test_forward_kernels_edge_rows(cuda, chunk):
+    """K1 and K5 on ``_forward_edge_tiles`` (each run walked to its real
+    count; at chunk 512 most of a run is sentinel) against their plain
+    versions under K1's rule; tile 0's frame is the screen's for both, so
+    their outputs there agree bit for bit. K2 and K6, fed the forwards'
+    outputs (rows without the spike), against their plain versions under
+    K2's rule."""
+    tiles = _forward_edge_tiles()
+    (props, ct), (table, counts) = _replay_layouts(tiles, chunk, cuda)
+    before = (stream.STREAM_FWD.launches, table_composite.TABLE_FWD.launches)
+    fwd1 = stream.composite_stream_tiles(props, ct, counts, 2, 1)
+    fwd5 = table_composite.composite_table_tiles(table, counts, 2)
+    torch.cuda.synchronize()
+    assert (stream.STREAM_FWD.launches, table_composite.TABLE_FWD.launches) == (before[0] + 1, before[1] + 1)
+    for got, ref in ((fwd1, stream.composite_stream_tiles_plain(props, ct, 2, 1)),
+                     (fwd5, table_composite.composite_table_tiles_plain(table, counts, 2))):
+        err = torch.cat([(got[0] - ref[0]).flatten(), (got[1] - ref[1]).flatten()]).abs()
+        assert float(err.max()) <= 1e-3
+        assert float((err > K1_ATOL).float().mean()) <= 1e-4
+    assert torch.equal(fwd1[0][0], fwd5[0][0]) and torch.equal(fwd1[1][0], fwd5[1][0])
+    # Tile 1 stops by row 32 (a run cut there gives the same bits), tile 0 never.
+    cut = counts.clone()
+    cut[1] = 33
+    assert all(torch.equal(a, b) for a, b in zip(fwd1, stream.composite_stream_tiles(props, ct, cut, 2, 1)))
+    assert float(fwd1[1][0].min()) > 0.1 and float(fwd1[1][1].max()) < 0.02
+    (props, ct), (table, counts) = _replay_layouts(_forward_edge_tiles(spike=False), chunk, cuda)
+    fwd1 = stream.composite_stream_tiles(props, ct, counts, 2, 1)
+    fwd5 = table_composite.composite_table_tiles(table, counts, 2)
+    g_color, g_t = _cotangents(*fwd1, seed=6)
+    got2 = stream._launch_stream_bwd(props, ct, 2, 1, *fwd1, g_color, g_t)
+    ref2 = stream.composite_stream_tiles_bwd_plain(props, ct, 2, 1, *fwd1, g_color, g_t)
+    got6 = table_composite._launch_table_bwd(table, counts, 2, *fwd5, g_color, g_t)
+    ref6 = table_composite.composite_table_tiles_bwd_plain(table, counts, 2, *fwd5, g_color, g_t)
+    for got, ref in ((got2, ref2), (got6, ref6)):
+        max_err, share = _k2_rule(got, ref)
+        assert max_err <= 1e-3 and share <= 1e-4, (max_err, share)
+
+
+def _skip_floor_sweep():
+    """Rows of a 48x1 tile grid that sweep the forward walk's exp-free skip
+    (absolute means), and the walk's outputs evaluated in float64. Tile t
+    holds 32 rows of one opacity o_t (44 values over [1/255, 1] and four
+    just above 1/255), each centred one pixel left of the tile with conic
+    (a, 0, 0), a = -2p, so its power at pixel column 0 is exactly p = ln(1/255
+    / o_t) + d: d runs from 1e-5 to 3e-3 on either side of the exact alpha
+    threshold, so rows fall below the floor (1e-3 under the threshold),
+    between floor and threshold, and above it. Every pair's alpha is at
+    least 5e-6 (in log) from 1/255, so float32 (with expf's 2 ulp) and
+    float64 take the same skips; the rows' colors are 1 and T stays above
+    0.8, so a row skipped wrongly moves its pixels by ~3e-3. Returns
+    (tiles, color [48, 3, 256], final_T [48, 1, 256])."""
+    f32, f64 = np.float32, np.float64
+    lo = f32(1.0 / 255.0)
+    opac = np.concatenate([np.geomspace(lo, 1.0, 44), lo * (1 + np.array([1e-3, 2e-3, 1e-2, 3e-2]))]).astype(f32)
+    d = np.concatenate([-np.geomspace(3e-3, 1e-5, 16), np.geomspace(1e-5, 3e-3, 16)])
+    power0 = (np.log(f64(lo) / opac.astype(f64))[:, None] + d[None, :]).astype(f32)  # [48, 32]
+    tiles = [[_row(16.0 * t - 1.0, 8.0, float(f32(-2) * p), 0.0, 0.0, float(o), rgb=(1.0, 1.0, 1.0))
+              for p in power0[t]] for t, o in enumerate(opac)]
+    pix = np.arange(256)
+    color = np.zeros((len(tiles), 3, 256))
+    final_t = np.zeros((len(tiles), 1, 256))
+    for t, rows in enumerate(tiles):
+        rows = np.asarray(rows, f32)
+        dx = rows[:, :1] - (f32(16 * t) + pix % 16).astype(f32)  # [32, 256], as the kernels round
+        dy = rows[:, 1:2] - (pix // 16).astype(f32)
+        a, b, c = rows[:, 2:3], rows[:, 3:4], rows[:, 4:5]
+        power = f32(-0.5) * ((a * dx) * dx + (c * dy) * dy) - (b * dx) * dy
+        assert power.dtype == f32 and np.array_equal(power[:, 0], power0[t])
+        log_alpha = np.log(rows[:, 8:9].astype(f64)) + power - np.log(f64(lo))
+        assert np.all((power > 0) | (np.abs(log_alpha) >= 5e-6))
+        alpha = np.minimum(0.99, rows[:, 8:9].astype(f64) * np.exp(np.minimum(power, 0).astype(f64)))
+        alpha = np.where((power > 0) | (log_alpha < 0), 0.0, alpha)
+        T = np.ones(256)
+        for k in range(len(rows)):
+            color[t] += rows[k, 5:8, None] * alpha[k] * T
+            T = T * (1.0 - alpha[k])
+        final_t[t, 0] = T
+    lit = (color[:, 0] > 0).sum(axis=1)  # at o = 1/255 no row reaches the threshold
+    assert final_t.min() > 0.8 and lit[0] == 0 and lit[1:].min() > 0 and lit.max() < 256
+    return tiles, color, final_t
+
+
+@pytest.mark.gpu
+def test_forward_kernels_skip_floor_sweep(cuda):
+    """The exp-free skip with the kernels' own logf and expf: K1 and K5 on
+    ``_skip_floor_sweep``'s rows against the float64 evaluation (1e-5) and
+    against their plain versions under K1's rule; K1 = K5 bit for bit (the
+    same dx in both frames)."""
+    tiles, color, final_t = _skip_floor_sweep()
+    (props, ct), (table, counts) = _replay_layouts(tiles, 32, cuda)
+    fwd1 = stream.composite_stream_tiles(props, ct, counts, len(tiles), 1)
+    fwd5 = table_composite.composite_table_tiles(table, counts, len(tiles))
+    for got, ref in ((fwd1, stream.composite_stream_tiles_plain(props, ct, len(tiles), 1)),
+                     (fwd5, table_composite.composite_table_tiles_plain(table, counts, len(tiles)))):
+        assert float((got[0].cpu().double() - torch.from_numpy(color)).abs().max()) <= 1e-5
+        assert float((got[1].cpu().double() - torch.from_numpy(final_t)).abs().max()) <= 1e-5
+        err = torch.cat([(got[0] - ref[0]).flatten(), (got[1] - ref[1]).flatten()]).abs()
+        assert float(err.max()) <= 1e-3 and float((err > K1_ATOL).float().mean()) <= 1e-4
+    assert torch.equal(fwd1[0], fwd5[0]) and torch.equal(fwd1[1], fwd5[1])
+
+
+@pytest.mark.parametrize("layout", ["stream", "table"])
+def test_plain_forward_skip_floor_sweep(layout):
+    """The plain K1 and K5 (the CPU path) on ``_skip_floor_sweep``'s rows
+    against its float64 evaluation, as the card test holds the kernels."""
+    cpu = torch.device("cpu")
+    tiles, color, final_t = _skip_floor_sweep()
+    (props, ct), (table, counts) = _replay_layouts(tiles, 32, cpu)
+    if layout == "stream":
+        got = stream.composite_stream_tiles(props, ct, counts, len(tiles), 1)
+    else:
+        got = table_composite.composite_table_tiles(table, counts, len(tiles))
+    assert float((got[0].double() - torch.from_numpy(color)).abs().max()) <= 1e-5
+    assert float((got[1].double() - torch.from_numpy(final_t)).abs().max()) <= 1e-5
+
+
 @pytest.mark.gpu
 def test_replay_backwards_deterministic(cuda):
     """Two launches of K2 and of K6 give the same bits."""
     with torch.no_grad():
         s = prepare_stream(_camera(160, 112, cuda), _scene(4000, 1, cuda))
         props, ct, gw, gh = s.props(), s.chunk_tile, s.grid_w, s.grid_h
-        color, t = stream.composite_stream_tiles(props, ct, gw, gh)
+        color, t = stream.composite_stream_tiles(props, ct, s.binned.tile_counts, gw, gh)
         k2_in = (props, ct, gw, gh, color, t, *_cotangents(color, t, seed=4))
         first = stream._launch_stream_bwd(*k2_in)
         assert torch.equal(first, stream._launch_stream_bwd(*k2_in))
@@ -483,7 +652,7 @@ def _check_k7_k8(s, seed):
     color, t = stream_t.composite_stream_tiles_t(props_t, ct, gw, gh)
     cov = s.binned.covered
     for ref_color, ref_t in (stream_t.composite_stream_tiles_t_plain(props_t, ct, gw, gh),
-                             stream.composite_stream_tiles(props, ct, gw, gh)):
+                             stream.composite_stream_tiles(props, ct, s.binned.tile_counts, gw, gh)):
         err = torch.cat([(color - ref_color)[cov].flatten(), (t - ref_t)[cov].flatten()]).abs()
         assert float(err.max()) <= 1e-3
         assert float((err > K1_ATOL).float().mean()) <= 1e-4

@@ -21,7 +21,7 @@ from gaussian_transformer_tpu_torch.render import stream
 from gaussian_transformer_tpu_torch.render.tiles import StreamBinned
 
 from tests.test_render import make_camera, make_scene
-from tests.torch_port_support import sequential_work, torch_camera, torch_scene
+from tests.torch_port_support import sequential_warp_steps, sequential_work, torch_camera, torch_scene
 
 ATOL = 2e-5
 
@@ -138,3 +138,102 @@ def test_plain_work_counts_match_a_sequential_walk(seed, n, opacity):
     assert work == tuple(int(v) for v in want)
     assert 0 < work[1] < work[0]
 
+
+
+@pytest.mark.parametrize("chunk,overflow", [(32, False), (32, True), (512, False), (512, True)])
+def test_real_row_ranges_are_the_real_rows(chunk, overflow):
+    """K1's walk, [row_start, row_end) of each tile as the wrapper computes
+    it: the run's first chunk start plus its tile count. Those rows are the
+    real ones (Gaussian < C) and the rest of the run is sentinel, also when
+    the stream budget cuts runs (overflow)."""
+    scene = torch_scene(make_scene(200, seed=4, spread=1.2))
+    cam = torch_camera(make_camera(width=80, height=48))
+    with torch.no_grad():
+        b = prepare_stream(cam, scene, RenderConfig(chunk=chunk)).binned
+        if overflow:
+            b = prepare_stream(cam, scene, RenderConfig(chunk=chunk, max_stream=int(b.n_padded) // 2)).binned
+    assert (int(b.overflow) > 0) == overflow
+    C, T = scene.get_xyz.shape[0], b.tile_counts.shape[0]
+    stream_gauss, ct = stream.used_stream(b)
+    real = (stream_gauss < C).numpy()
+    row_start, row_end = (v.numpy() for v in stream.real_row_ranges(ct, b.tile_counts, T, chunk))
+    start, end = (v.numpy() for v in stream.tile_chunk_ranges(ct, T))
+    assert np.array_equal(row_start, start * chunk)
+    for t in range(T):
+        assert real[row_start[t]:row_end[t]].all()
+        assert not real[row_end[t]:end[t] * chunk].any()
+    assert int((row_end - row_start).sum()) == int(real.sum()) > 0
+    assert (row_end < end * chunk).any()  # some runs do pad past their real rows
+    # A count larger than its run ends at the run's padded end, never in the next tile's run.
+    over = stream.real_row_ranges(ct, b.tile_counts + 10 * chunk, T, chunk)[1].numpy()
+    assert np.array_equal(over, end * chunk)
+
+
+def skip_floor(opac: np.ndarray) -> np.ndarray:
+    """The kernels' per-row skip floor P_row (``csrc/stream_common.cuh
+    skip_floor``), in float32 as they form it: log(fl(1/255 / opacity)) -
+    1e-3 for 0 < opacity <= 1e30, +inf for opacity 0 (every pair skips) and
+    -inf otherwise (no early skip)."""
+    f32 = np.float32
+    opac = np.asarray(opac, f32)
+    ok = (opac > 0) & (opac <= f32(1e30))
+    with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+        floor = np.log(f32(1.0 / 255.0) / np.where(ok, opac, f32(1))) - f32(1e-3)
+    return np.where(ok, floor, np.where(opac == 0, f32(np.inf), f32(-np.inf))).astype(f32)
+
+
+def test_skip_floor_implies_the_exact_skip():
+    """The kernels' exp-free skip: power < P_row (the row's floor, formed in
+    float32 as the kernels form it) must imply the exact test's skip,
+    fl(opacity * exp(min(power, 0))) < 1/255. A float32 sweep of opacity over
+    [1/255, 1] and of power from 64 ulps to 0.05 below each floor; the floor
+    sits within 2e-3 of the true threshold (not vacuous); and the edge
+    opacities (0: skip all; NaN, negative, above 1e30: no early skip)."""
+    f32 = np.float32
+    rng = np.random.RandomState(0)
+    lo = f32(1.0 / 255.0)
+    opac = np.concatenate([np.geomspace(lo, 1.0, 3000), rng.uniform(lo, 1.0, 3000),
+                           [lo, np.nextafter(lo, f32(1)), 0.99, 1.0]]).astype(f32)
+    floor = skip_floor(opac)
+    assert floor.dtype == np.float32 and np.all(floor < 0)
+    # floor < 0: a float further from zero has a larger bit pattern.
+    ulps = (floor.view(np.int32)[:, None] + np.arange(1, 65, dtype=np.int32)).view(f32)
+    steps = floor[:, None] - np.linspace(0.0, 0.05, 257, dtype=f32)[None, 1:]
+    power = np.concatenate([ulps, steps], axis=1)
+    assert np.all(power < floor[:, None])
+    alpha = np.minimum(f32(0.99), opac[:, None] * np.exp(np.minimum(power, f32(0))))
+    assert alpha.dtype == np.float32 and np.all(alpha < lo)
+    above = opac.astype(np.float64) * np.exp(floor.astype(np.float64) + 2e-3)
+    assert np.all(above >= 1.0 / 255.0)
+    got = skip_floor(np.array([0.0, -0.0, np.nan, -0.5, 2e30, 1e-44], np.float32)).tolist()
+    assert got[:2] == [float("inf")] * 2 and got[2:5] == [float("-inf")] * 3
+    assert got[5] == float("inf")  # 1/255 / 1e-44 overflows: no alpha reaches 1/255
+
+
+@pytest.mark.parametrize("seed,n,opacity", [(1, 256, None), (3, 96, 0.97)], ids=["dense", "saturated"])
+def test_warp_step_counts_match_a_sequential_walk(seed, n, opacity):
+    """K1's warp steps and uniform-skip steps as ``stream_warp_steps``
+    counts them from the plain rounds, against a row-by-row walk of each
+    tile's real rows with K1's 8x4 warps."""
+    scene = make_scene(n, seed=seed, spread=0.2 if opacity else 1.5)
+    if opacity:
+        scene = scene.replace(opacity=jnp.full_like(scene.opacity, inverse_sigmoid(jnp.asarray(opacity))))
+    with torch.no_grad():
+        s = prepare_stream(torch_camera(make_camera(width=64, height=48)), torch_scene(scene), RenderConfig(chunk=64))
+        props, ct, counts = s.props(), s.chunk_tile, s.binned.tile_counts
+    T = s.grid_w * s.grid_h
+    chunks = props.numpy().reshape(ct.shape[0], -1, 16)
+    p = np.arange(256)
+    px, py = (p % 16).astype(np.float32), (p // 16).astype(np.float32)
+    lanes = stream.warp_lanes().numpy()
+    assert sorted(lanes.ravel()) == list(range(256))
+    assert all(len(set(lanes[w] // 16)) == 4 and len(set(lanes[w] % 16)) == 8 for w in range(8))  # 8x4 blocks
+    want = np.zeros(2, np.int64)
+    for t in range(T):
+        rows = chunks[ct.numpy() == t].reshape(-1, 16)[:int(counts[t])].copy()
+        rows[:, 0] -= (t % s.grid_w) * 16
+        rows[:, 1] -= (t // s.grid_w) * 16
+        want += sequential_warp_steps(rows, px, py, lanes)
+    got = stream.stream_warp_steps(props, ct, counts, s.grid_w, s.grid_h)
+    assert got == tuple(int(v) for v in want)
+    assert 0 < got[1] < got[0]

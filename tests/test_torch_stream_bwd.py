@@ -97,6 +97,6 @@ def test_plain_backward_matches_autograd_of_plain_forward(seed, opacity):
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-4 * scale, rtol=0)
 
     props = props0.clone().requires_grad_()
-    color2, t2 = stream.composite_stream_tiles(props, ct, s.grid_w, s.grid_h)
+    color2, t2 = stream.composite_stream_tiles(props, ct, s.binned.tile_counts, s.grid_w, s.grid_h)
     (via_node,) = torch.autograd.grad((color2 * g_color).sum() + (t2 * g_t).sum(), props)
     np.testing.assert_array_equal(via_node.numpy(), got.numpy())

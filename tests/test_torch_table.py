@@ -25,11 +25,11 @@ from gaussian_transformer_tpu.render.project import project_gaussians as jax_pro
 from gaussian_transformer_tpu.render.tiles import bin_gaussians as jax_bin_gaussians, num_tiles
 from gaussian_transformer_tpu.utils.general import inverse_sigmoid
 from gaussian_transformer_tpu_torch.render import RenderConfig, prepare_table, render, render_naive
-from gaussian_transformer_tpu_torch.render import table_composite
+from gaussian_transformer_tpu_torch.render import stream, table_composite
 from gaussian_transformer_tpu_torch.render.tiles import Binned, bin_gaussians
 
 from tests.test_render import make_camera, make_scene
-from tests.torch_port_support import sequential_work, torch_camera, torch_scene
+from tests.torch_port_support import sequential_warp_steps, sequential_work, torch_camera, torch_scene
 
 ATOL = 2e-5
 W, H = 80, 48  # 5 x 3 tiles
@@ -214,3 +214,48 @@ def test_empty_scene_and_device_policy():
             table_composite._checked_table(torch.zeros(2, 32, 16), bad_counts)
         with pytest.raises(ValueError):
             table_composite.composite_table_tiles(torch.zeros(2, 32, 16), bad_counts, 1)
+
+
+@pytest.mark.parametrize("K,overflow", [(256, False), (16, True)])
+def test_real_rows_of_the_table_are_the_counts(K, overflow):
+    """Rows [0, min(counts, K)) of each tile's slab are the real instances
+    of the tile's list and every later row of the slab (padded to a multiple
+    of 32) is the zero sentinel, also where the list cap drops instances
+    (overflow); so K5's walk to ``walked_rows`` (counts rounded up to 32)
+    reads at most 31 sentinel rows a tile, which change nothing."""
+    scene = torch_scene(make_scene(200, seed=4, spread=1.2))
+    with torch.no_grad():
+        s = prepare_table(torch_camera(make_camera(width=W, height=H)), scene,
+                          RenderConfig(use_stream=False, max_per_tile=K))
+        props = s.props()
+    b = s.binned
+    assert (int(b.overflow) > 0) == overflow
+    C = scene.get_xyz.shape[0]
+    n_real = torch.clamp(b.tile_counts.long(), 0, props.shape[1])
+    k = torch.arange(props.shape[1])[None, :]
+    inside = k < n_real[:, None]
+    assert props.shape[1] % 32 == 0 and int(n_real.max()) > 0
+    assert bool(torch.all((b.tile_lists < C) == inside[:, :b.tile_lists.shape[1]]))
+    assert bool(torch.all(props[inside][:, 8] > 0)) and bool(torch.all(props[~inside] == 0))
+    walked = table_composite.walked_rows(b.tile_counts, props.shape[1])
+    assert bool(torch.all(n_real <= walked)) and bool(torch.any(n_real < walked))
+
+
+@pytest.mark.parametrize("seed,n,opacity", [(1, 256, None), (3, 96, 0.97)], ids=["dense", "saturated"])
+def test_warp_step_counts_match_a_sequential_walk(seed, n, opacity):
+    """K5's warp steps and uniform-skip steps as ``table_warp_steps`` counts
+    them from the plain rounds, against a row-by-row walk of each tile's
+    slab to its ``walked_rows`` with K5's 8x4 warps."""
+    props, counts, gw = _jax_table(seed, n, 64, opacity, spread=0.2 if opacity else 1.5)
+    p = np.arange(256)
+    lanes = stream.warp_lanes().numpy()
+    end = table_composite.walked_rows(torch.from_numpy(counts.copy()), 64).numpy()
+    assert np.any(end > counts)  # some walks read sentinel rows
+    want = np.zeros(2, np.int64)
+    for t in range(props.shape[0]):
+        px = ((t % gw) * 16 + p % 16).astype(np.float32)
+        py = ((t // gw) * 16 + p // 16).astype(np.float32)
+        want += sequential_warp_steps(props[t, :end[t]], px, py, lanes)
+    got = table_composite.table_warp_steps(torch.from_numpy(props.copy()), torch.from_numpy(counts.copy()), gw)
+    assert got == tuple(int(v) for v in want)
+    assert 0 < got[1] < got[0]

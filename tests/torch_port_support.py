@@ -51,3 +51,30 @@ def sequential_work(rows, px, py):
         live &= ~stop
     return walked, contributing
 
+
+
+def sequential_warp_steps(rows, px, py, lanes):
+    """(steps, uniform-skip steps) of a forward kernel's warps over one tile
+    walked row by row: rows [n, 16] front to back (means in the frame of the
+    pixel centers px, py [256]), ``lanes`` [8, 32] the pixel of each (warp,
+    lane). A warp steps through a row where any lane is still live (a pixel
+    walks its terminating row); the step is a uniform skip where every live
+    lane skips the row (power > 0 or alpha < 1/255)."""
+    f32 = np.float32
+    T = np.ones(px.shape, f32)
+    live = np.ones(px.shape, bool)
+    steps = uniform = 0
+    for r in rows.astype(f32):
+        dx, dy = r[0] - px, r[1] - py
+        power = f32(-0.5) * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy
+        alpha = np.minimum(f32(0.99), r[8] * np.exp(np.minimum(power, f32(0))))
+        skip = (power > 0) | (alpha < f32(1.0 / 255.0))
+        step = live[lanes].any(axis=1)
+        steps += int(step.sum())
+        uniform += int((step & ~(live & ~skip)[lanes].any(axis=1)).sum())
+        hit = live & ~skip
+        next_t = T * (f32(1) - alpha)
+        stop = hit & (next_t < f32(1e-4))
+        T = np.where(hit & ~stop, next_t, T)
+        live &= ~stop
+    return steps, uniform
