@@ -15,8 +15,9 @@ The serving path:
    Blender-layout dataset of 1920x1080 test views; the ground truth is the
    port's own render plus N(0, 0.05) noise.
 3. Kernel checks on one main-path view: K1 (stream compositor forward) and
-   K3 (fused SSIM forward) against their plain PyTorch versions; an exact
-   checksum of K1's outputs (equal checksums: equal bits), and K1's warp
+   K3 (fused SSIM forward) against their plain PyTorch versions; exact
+   checksums of K1's outputs and K3's mean (equal checksums: equal bits),
+   and K1's warp
    steps and uniform-skip steps counted by the plain walk with K1's 8x4
    warp map to the runs' real ends.
 4. The main path: ``cli.render`` then ``cli.metrics`` through their
@@ -24,8 +25,11 @@ The serving path:
    read just after; checks overflow, SSIM, and the PSNR against a numpy
    recomputation from the written PNGs.
 5. Times (CUDA events) of K1 and K3 (over repeated launches, and with the
-   L2 cache flushed before each launch) and their plain versions, the
-   per-view render time, each kernel's bound, and K1's time per warp step.
+   L2 cache flushed before each launch) and their plain versions, K3's
+   launch-only time (its C entry point on prepared inputs), the per-view
+   render time, each kernel's bound, and K1's time per warp step; a forward
+   and a backward through ``fused_ssim`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation).
 
 The training path:
 
@@ -44,10 +48,12 @@ The training path:
    (so the chunk size and stream length of the main path's K2 launches):
    K2 (stream compositor backward, fed the loss's true cotangents) and K4
    (fused SSIM backward on the render/GT pair) against their plain versions;
-   K1's checksum on that view.
+   K1's checksum on that view and the checksum of K4's two gradients.
 9. Times: the median train step (steps 11-60 without the densify step) split
-   into forward, loss, backward and Adam; K2 and K4 and their plain versions
-   with their bounds; the rows per tile K2 walks (max, median, p99).
+   into forward, loss, backward and Adam, and the host synchronisations of
+   one step by call site; K2 and K4 and their plain versions with their
+   bounds, K4's launch-only time; the rows per tile K2 walks (max, median,
+   p99).
 
 The table path (``RenderConfig(use_stream=False)``: ``bin_gaussians`` and the
 [T, K] table compositor, kernels K5 and K6):
@@ -94,7 +100,9 @@ stream as planes [16, I_pad], kernels K7 and K8) and the layout probe (K9):
     3.35 TB/s) and the extra bytes allocated.
 
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
-before and after its window.
+before and after its window. The K3 and K4 entries of the kernels line carry
+the registers, spills and static shared memory ``nvcc -Xptxas -v`` reported
+(the build log the loader keeps).
 
 The last three lines of standard output are the kernels JSON line, the
 card's ``name, power.limit`` as nvidia-smi prints them, and
@@ -213,6 +221,61 @@ def warp_steps(name, steps) -> dict:
     n, u = steps
     print(f"{name} warp steps (8x4 warps): {n} ({32 * n} lane slots), uniform skips {u} ({u / max(n, 1):.3f})")
     return {"steps": n, "uniform_skips": u}
+
+
+def ptxas_report(source: str) -> dict:
+    """Registers, spill bytes and static shared memory of the kernel in
+    ``source`` as ``nvcc -Xptxas -v`` reported them (the build log)."""
+    import re
+
+    from gaussian_transformer_tpu_torch import kernels
+
+    log = kernels.library_path(source).with_suffix(".log").read_text()
+    regs = re.search(r"Used (\d+) registers", log)
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    smem = re.search(r"(\d+) bytes smem", log)
+    return {"registers": int(regs.group(1)) if regs else None,
+            "spill_store_bytes": int(spill.group(1)) if spill else None,
+            "spill_load_bytes": int(spill.group(2)) if spill else None,
+            "static_smem_bytes": int(smem.group(1)) if smem else 0}
+
+
+def ssim_launch_only(img, gt):
+    """K3's and K4's C entry points on the wrapper's own arguments, prepared
+    once (no allocation, no counting): two closures."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.ops import fused_ssim
+
+    a, b, dims = fused_ssim._planes(fused_ssim._flatten(img), fused_ssim._flatten(gt))
+    N, H, W = dims[:3]
+    partials = torch.empty(N * -(-H // fused_ssim._TH) * -(-W // fused_ssim._TW), device=a.device)
+    mean = torch.empty((), device=a.device)
+    g = torch.ones(1, device=a.device)
+    d1, d2 = torch.empty((N, H, W), device=a.device), torch.empty((N, H, W), device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    fwd, bwd = fused_ssim.SSIM_FWD.load(), fused_ssim.SSIM_BWD.load()
+    return (lambda: fwd(a.data_ptr(), b.data_ptr(), *dims, partials.data_ptr(), mean.data_ptr(), stream),
+            lambda: bwd(a.data_ptr(), b.data_ptr(), g.data_ptr(), 1.0 / (N * H * W), *dims,
+                        d1.data_ptr(), d2.data_ptr(), stream))
+
+
+def no_sync_ssim(img, gt) -> None:
+    """A forward and a backward through ``fused_ssim`` with PyTorch's sync
+    debug mode set to raise on any synchronising call."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.ops import fused_ssim
+
+    x = img.detach().clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused_ssim.fused_ssim(x, gt).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(x.grad).all()), "fused_ssim forward and backward make no host synchronisation")
 
 
 # ---------------------------------------------------------------- scene ----
@@ -463,6 +526,43 @@ def train_step_profile(ckpt: Path, cam, gt, cfg, device, top: int = 25) -> str:
     return prof.key_averages().table(sort_by="cuda_time_total", row_limit=top, max_name_column_width=60)
 
 
+def train_step_syncs(ckpt: Path, cam, gt, cfg, device) -> dict:
+    """The host synchronisations one warm train step makes (PyTorch's sync
+    debug mode set to warn), by call site: {"file:line <- caller <- caller": count},
+    the innermost frames in the port."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    from gaussian_transformer_tpu_torch.train.splat import OptConfig, restore, train_step
+
+    scene, adam, stats, it, slrs = restore(dict(np.load(ckpt, allow_pickle=False)), device)
+    cam.original_image = gt
+    bg = torch.zeros(3, device=device)
+    scene, adam, stats, _ = train_step(scene, adam, stats, cam, bg, it, slrs, OptConfig(), cfg)
+    torch.cuda.synchronize()
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()[:-1] if "gaussian_transformer_tpu_torch" in f.filename]
+        where = " <- ".join(f"{f.filename.split('gaussian_transformer_tpu_torch/')[-1]}:{f.lineno}"
+                            for f in frames[::-1][:3])
+        sites[where] += 1
+
+    with warnings.catch_warnings():  # restores showwarning on exit
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            train_step(scene, adam, stats, cam, bg, it + 1, slrs, OptConfig(), cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return dict(sites)
+
+
 def numpy_psnr(model: Path, method: str) -> float:
     """Mean over views of the mean per-channel PSNR, from the written PNGs."""
     from gaussian_transformer_tpu_torch.utils.png import read_png
@@ -551,6 +651,8 @@ def run(args, device) -> dict:
         print(f"K3 vs plain: SSIM {float(k3):.7f} vs {float(k3_plain):.7f}, "
               f"abs diff {k3_err:.3e} (tolerance {K3_ATOL})")
         check(k3_err <= K3_ATOL, "K3 agrees with its plain version")
+        k3_sum = checksum(k3)
+        print(f"K3 checksum of the mean on test view 0: {k3_sum}")
 
     print("== 4. main path: cli.render then cli.metrics")
     stream.STREAM_FWD.launches = 0
@@ -600,6 +702,7 @@ def run(args, device) -> dict:
             k1_ms = cuda_ms(lambda: stream.composite_stream_tiles(props, ct, counts, s.grid_w, s.grid_h), reps=20)
             k1_plain_ms = cuda_ms(lambda: stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h), reps=2)
             k3_ms = cuda_ms(lambda: fused_ssim.fused_ssim(img, gt), reps=50)
+            k3_launch_ms = cuda_ms(ssim_launch_only(img, gt)[0], reps=50)
             k3_plain_ms = cuda_ms(lambda: fused_ssim.ssim_plain(img, gt), reps=5)
             k1_cold_ms = cuda_ms_cold(lambda: stream.composite_stream_tiles(props, ct, counts, s.grid_w, s.grid_h), reps=10)
             k3_cold_ms = cuda_ms_cold(lambda: fused_ssim.fused_ssim(img, gt), reps=20)
@@ -608,7 +711,7 @@ def run(args, device) -> dict:
         k1_bytes = real_rows * 9 * 4 + T * 4 * 256 * 4 + 2 * T * 4
         k1_ops = pairs * WALK_OPS_PER_PAIR + live * K1_OPS_PER_LIVE
         n_px = img.numel()
-        k3_bytes = 2 * n_px * 4 + 4 * math.ceil(args.height / 32) * math.ceil(args.width / 32) * img.shape[0]
+        k3_bytes = 2 * n_px * 4 + 4  # both images, the mean
         k3_ops = n_px * K3_OPS_PER_PIXEL
         k1_bound, k1_by = bound(k1_bytes, k1_ops)
         k3_bound, k3_by = bound(k3_bytes, k3_ops)
@@ -619,9 +722,12 @@ def run(args, device) -> dict:
         print(f"[{smi}] K1 {k1_ms:.4f} ms (L2 cold {k1_cold_ms:.4f}), plain {k1_plain_ms:.2f} ms, "
               f"bound {k1_bound:.4f} ms ({k1_by}: {k1_bytes} B, {k1_ops} fp32 ops); "
               f"{sm_cycles(k1_ms, clk, k1_steps['steps']):.2f} SM cycles per warp step")
-        print(f"[{smi}] K3 {k3_ms:.4f} ms (L2 cold {k3_cold_ms:.4f}), plain {k3_plain_ms:.3f} ms, "
-              f"bound {k3_bound:.4f} ms ({k3_by}: {k3_bytes} B, {k3_ops} fp32 ops)")
+        k3_build = ptxas_report("ssim_fwd.cu")
+        print(f"[{smi}] K3 {k3_ms:.4f} ms (L2 cold {k3_cold_ms:.4f}; launch-only {k3_launch_ms:.4f}), "
+              f"plain {k3_plain_ms:.3f} ms, bound {k3_bound:.4f} ms ({k3_by}: {k3_bytes} B, {k3_ops} fp32 ops); "
+              f"build {k3_build}")
         print_clocks(clk, "5")
+        no_sync_ssim(img, gt)
         kernels_line["kernels"] += [
             {"name": "stream_fwd", "route": "cuda",
              "source": "gaussian_transformer_tpu_torch/csrc/stream_fwd.cu",
@@ -635,7 +741,8 @@ def run(args, device) -> dict:
              "replaces": "gaussian_transformer_tpu/ops/fused_ssim.py:106",
              "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms, "ms_l2_cold": k3_cold_ms,
              "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
-             "tolerance": {"atol": K3_ATOL}},
+             "tolerance": {"atol": K3_ATOL}, "launch_only_ms": k3_launch_ms, "checksum": k3_sum,
+             "ptxas": k3_build},
         ]
         summary.update(smi=smi, render_ms=render_ms, stage_ms=stages, walked_pairs=pairs, live_pairs=live,
                        real_rows=real_rows, render_profile=profile)
@@ -798,6 +905,8 @@ def train_path(args, device, scene, summary):
             print(f"K4 vs plain: max abs diff {k4_err:.3e} = {k4_err / scale4:.3e} of max |plain| "
                   f"{scale4:.3e} (tolerance {K4_MAX_ERR})")
             check(k4_err <= K4_MAX_ERR * scale4, "K4 agrees with its plain version")
+            k4_sum = checksum(*d_k4)
+            print(f"K4 checksum of (d_img1, d_img2) on train view 0: {k4_sum}")
     del d_plain, d_plain_ssim, g0
     summary.update(train_k2_chunk=chunk, train_k2_rows=props.shape[0], train_k1_checksum=k1_train_sum)
 
@@ -815,6 +924,9 @@ def train_path(args, device, scene, summary):
           + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()))
     step_profile = train_step_profile(ckpt, cam, gt, res["render_cfgs"][-1][1], device)
     print(f"top CUDA ops of one train step (torch.profiler, device time):\n{step_profile}")
+    step_syncs = train_step_syncs(ckpt, cam, gt, res["render_cfgs"][-1][1], device)
+    print(f"host synchronisations in one train step (sync debug mode): {sum(step_syncs.values())} "
+          + json.dumps(step_syncs))
     with torch.no_grad():
         k2_ms = cuda_ms(lambda: stream._launch_stream_bwd(*k2_in), reps=20)
         k2_cold_ms = cuda_ms_cold(lambda: stream._launch_stream_bwd(*k2_in), reps=10)
@@ -822,6 +934,7 @@ def train_path(args, device, scene, summary):
         k4_ms = cuda_ms(lambda: fused_ssim._launch_ssim_bwd(img, gt, g_one), reps=50)
         k4_cold_ms = cuda_ms_cold(lambda: fused_ssim._launch_ssim_bwd(img, gt, g_one), reps=20)
         k4_plain_ms = cuda_ms(lambda: fused_ssim.ssim_bwd_plain(img, gt, g_one), reps=5)
+        k4_launch_ms = cuda_ms(ssim_launch_only(img, gt)[1], reps=50)
         pairs, live = stream.composite_stream_tiles_plain(props, ct, gw, gh, count_work=True)[2]
         start, end = stream.tile_chunk_ranges(ct.to(torch.int32).contiguous(), gw * gh)
         k2_rows = rows_per_tile((end - start).long() * chunk)
@@ -837,11 +950,13 @@ def train_path(args, device, scene, summary):
     print(f"[{smi}] K2 (chunk {chunk}, {props.shape[0]} stream rows) {k2_ms:.4f} ms "
           f"(L2 cold {k2_cold_ms:.4f}), plain {k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms ({k2_by}: {k2_bytes} B, "
           f"{k2_ops} fp32 ops, {pairs} walked pairs, {live} contributing)")
-    print(f"[{smi}] K4 {k4_ms:.4f} ms (L2 cold {k4_cold_ms:.4f}), plain {k4_plain_ms:.3f} ms, "
-          f"bound {k4_bound:.4f} ms ({k4_by}: {k4_bytes} B, {k4_ops} fp32 ops)")
+    k4_build = ptxas_report("ssim_bwd.cu")
+    print(f"[{smi}] K4 {k4_ms:.4f} ms (L2 cold {k4_cold_ms:.4f}; launch-only {k4_launch_ms:.4f}), "
+          f"plain {k4_plain_ms:.3f} ms, bound {k4_bound:.4f} ms ({k4_by}: {k4_bytes} B, {k4_ops} fp32 ops); "
+          f"build {k4_build}")
     print(f"[{smi}] K2 rows per tile (chunk_end - chunk_start): {k2_rows}")
     print_clocks(clk, "9")
-    summary.update(train_step_ms=step_ms, train_phase_ms=med, train_pairs=pairs, train_live_pairs=live,
+    summary.update(train_step_syncs=step_syncs, train_step_ms=step_ms, train_phase_ms=med, train_pairs=pairs, train_live_pairs=live,
                    train_real_rows=real_rows, train_step_profile=step_profile, k2_rows_per_tile=k2_rows)
     return [
         {"name": "stream_bwd", "route": "cuda",
@@ -858,7 +973,8 @@ def train_path(args, device, scene, summary):
          "replaces": "gaussian_transformer_tpu/ops/fused_ssim.py:132",
          "launches": launches["K4"], "max_abs_err": k4_err, "ms": k4_ms, "ms_l2_cold": k4_cold_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
-         "tolerance": {"max_abs_of_max": K4_MAX_ERR}},
+         "tolerance": {"max_abs_of_max": K4_MAX_ERR}, "launch_only_ms": k4_launch_ms, "checksum": k4_sum,
+         "ptxas": k4_build},
     ], cfg
 
 

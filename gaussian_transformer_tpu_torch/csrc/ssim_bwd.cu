@@ -12,182 +12,232 @@
 //   d_img1 = W*P_mu1 + 2 img1 W*P_m11 + img2 W*P_m12
 //   d_img2 = W*P_mu2 + 2 img2 W*P_m11 + img1 W*P_m12   (P_m22 == P_m11)
 //
-// Design. One CTA of 256 threads per (image, 32x32 output tile). The block
-// loads both images' 52x52 window (a halo of 2 (K - 1) / 2 = 10 per side,
-// zeros outside the image) into shared memory; computes the five fields on
-// the tile extended by 5 per side (42x42: vertical pass into a 5x42x52
-// buffer, then the horizontal pass), turns them into the four scaled
-// cotangent maps (4x42x42), filters those back to the 32x32 tile (vertical
-// pass into the reused field buffer, horizontal pass in registers) and
-// combines pointwise. About 94 KB of shared memory a block, above the 48 KB
-// static limit: the entry point opts in once with cudaFuncSetAttribute
-// (dynamic shared memory), which leaves two blocks per SM. The TPU kernel
-// walked 64-row bands with whole-width slabs in VMEM; a Hopper block holds
-// far less on-chip memory, so the tile is 2-D and neighbouring blocks
-// re-read and re-filter the halo (from L2).
+// Bound. It reads each image once and writes two gradients (16 bytes a
+// pixel) against 441 fp32 operations a pixel (chip_smoke.py
+// K4_OPS_PER_PIXEL: the products, the fields' two passes, the partials, the
+// four maps filtered back, the combine): at 1080p it is bound by operations.
 //
-// Bound. It reads each image once and writes two gradients (16 bytes per
-// pixel) and does ~700 fp32 operations per output pixel (the five fields and
-// their partials on the 1.72x larger extended tile, four maps filtered back,
-// the combine), so at 1080p it is bound by operations. The scale g is read
-// from device memory, so the launch needs no host synchronisation.
+// Design. One CTA of 512 threads per (image, 32-row x 64-column output
+// tile), two CTAs an SM (32 warps). Phases, on ssim_common.cuh's
+// register-blocked passes:
+//   0. cp.async stages both images' window, 52 rows x 88 columns (a halo
+//      of 10 a side, widened to 16-byte aligned copies; zeros outside the
+//      image);
+//   1. the vertical pass of the five fields on the tile extended by 5 a
+//      side (42 rows) over the 84 window columns, 7 rows a thread;
+//   2. the horizontal pass on the extended 42 x 74 tile, 7 columns a
+//      thread, the map's partials and the four scaled cotangent maps;
+//   3. the vertical pass of the four maps onto the 32 output rows, 8 rows
+//      a thread;
+//   4. their horizontal pass, 8 columns a thread, into shared memory;
+//   5. the pointwise combine, lanes along the rows: the images' reads (an
+//      L2 hit) and the gradients' writes are coalesced.
+// Halo work: the fields on 1.52x the output pixels, their vertical pass on
+// 1.72x (the 32x32 tile before: 1.72x and 2.13x). Shared memory is one
+// 109,688-byte buffer reused across the phases: the windows and the
+// fields' vertical pass (phases 0-2), then the cotangent maps at its end
+// (2-3), their vertical pass at its start (3-4) and the filtered maps in
+// the cotangents' place (4-5). The partials of phase 2 wait in registers
+// until every thread has read the fields, so the cotangents may overwrite
+// them.
+//
+// Build (nvcc -Xptxas -v, sm_90a): 64 registers, no spills, 109,688 bytes
+// of dynamic shared memory, two CTAs an SM. Each output is the parent
+// design's arithmetic, tap for tap: the gradients are the same bits.
 
 #include <cuda_runtime.h>
 
+#include "ssim_common.cuh"
+
 namespace {
 
-constexpr int kK = 11;
-constexpr int kHalf = kK / 2;
-constexpr int kB = 32;               // output tile side
-constexpr int kE = kB + kK - 1;      // 42: extended tile (fields, cotangents)
-constexpr int kI = kB + 2 * (kK - 1);  // 52: input window
-constexpr int kThreads = 256;
-constexpr float kC1 = (float)(0.01 * 0.01);
-constexpr float kC2 = (float)(0.03 * 0.03);
+using namespace ssim;
 
-// Shared memory layout, in floats.
-constexpr int kInF = kI * kI;        // one image window
-constexpr int kVF = 5 * kE * kI;     // vertical pass of the five fields
-constexpr int kCotF = 4 * kE * kE;   // four cotangent maps
-constexpr int kSmemBytes = (2 * kInF + kVF + kCotF) * (int)sizeof(float);
-static_assert(4 * kB * kE <= kVF, "the cotangents' vertical pass reuses the field buffer");
+constexpr int kTH = 32;                  // output tile rows
+constexpr int kTW = 64;                  // output tile columns
+constexpr int kThreads = 512;
+constexpr int kMinBlocks = 2;
+constexpr int kIH = kTH + 4 * kHalf;     // 52: input window rows
+constexpr int kIW = kTW + 4 * kHalf;     // 84: input window columns used
+constexpr int kX0 = 2;                   // staged from 2 columns further left,
+constexpr int kSW = kIW + 2 * kX0;       // 88 columns: 16-byte aligned copies
+constexpr int kEH = kTH + 2 * kHalf;     // 42: extended tile (fields, cotangents)
+constexpr int kEW = kTW + 2 * kHalf;     // 74
+constexpr int kRv1 = 7;                  // rows a thread, fields' vertical pass
+constexpr int kRh2 = 7;                  // columns a thread, fields' horizontal pass
+constexpr int kRv3 = 8;                  // rows a thread, cotangents' vertical pass
+constexpr int kRh4 = 8;                  // columns a thread, cotangents' horizontal pass
+constexpr int kG2 = ceil_div(kEW, kRh2);             // 11 column groups (77 columns)
+constexpr int kG4 = kTW / kRh4;                      // 8
+static_assert(kEH % kRv1 == 0 && kTH % kRv3 == 0 && kTW % kRh4 == 0, "whole groups");
 
-__global__ void __launch_bounds__(kThreads) ssim_bwd_kernel(
+// Pitches (floats) and buffer sizes.
+constexpr int kPI = kSW;                                              // windows
+constexpr int kPV = odd_at_least(kG2 * kRh2 + kK - 1 > kIW ? kG2 * kRh2 + kK - 1 : kIW);  // 87
+constexpr int kPC = odd_at_least(kEW);                                // 75: cotangents
+constexpr int kPW = odd_at_least(kG4 * kRh4 + kK - 1 > kEW ? kG4 * kRh4 + kK - 1 : kEW);  // 75
+constexpr int kPQ = odd_at_least(kTW);                               // 65: filtered maps
+constexpr int kInF = kIH * kPI;          // one window
+constexpr int kVF = 5 * kEH * kPV;       // the fields' vertical pass
+constexpr int kCotF = 4 * kEH * kPC;     // the four cotangent maps
+constexpr int kVcF = 4 * kTH * kPW;      // their vertical pass
+constexpr int kSmemF = 2 * kInF + kVF;
+constexpr int kCotAt = kSmemF - kCotF;   // the cotangents sit at the buffer's end,
+static_assert(kVcF <= kCotAt, "their vertical pass at its start");
+static_assert(4 * kTH * kPQ <= kCotF, "the filtered maps take the cotangents' place");
+constexpr int kSmemBytes = kSmemF * (int)sizeof(float);
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks) ssim_bwd_kernel(
     const float* __restrict__ img1, const float* __restrict__ img2,
-    const float* __restrict__ taps_in, const float* __restrict__ g, float inv_count, int H,
-    int W, float* __restrict__ d1, float* __restrict__ d2) {
+    const float* __restrict__ g, float inv_count, int H, int W, int ld1, int ld2, long long ps1,
+    long long ps2, bool vec, float* __restrict__ d1, float* __restrict__ d2) {
   extern __shared__ float smem[];
-  float* s1 = smem;               // [kI][kI]
-  float* s2 = s1 + kInF;          // [kI][kI]
-  float* v = s2 + kInF;           // [5][kE][kI], later [4][kB][kE]
-  float* cot = v + kVF;           // [4][kE][kE]
-  __shared__ float taps[kK];
+  float* s1 = smem;                // [kIH][kPI]
+  float* s2 = s1 + kInF;           // [kIH][kPI]
+  float* v = s2 + kInF;            // [5][kEH][kPV]
+  float* cot = smem + kCotAt;      // [4][kEH][kPC], after phase 2's reads
+  float* vc = smem;                // [4][kTH][kPW], after phase 1's reads
+  float* qs = cot;                 // [4][kTH][kPQ], after phase 3's reads
 
   const int tid = threadIdx.x;
   const int n = blockIdx.z;
-  const int ox = blockIdx.x * kB;
-  const int oy = blockIdx.y * kB;
+  const int ox = blockIdx.x * kTW;
+  const int oy = blockIdx.y * kTH;
   const size_t plane = (size_t)H * W;
-  const float* a = img1 + n * plane;
-  const float* b = img2 + n * plane;
-  const float scale = g[0] * inv_count;  // g / (N H W)
+  const float* a = img1 + n * ps1;
+  const float* b = img2 + n * ps2;
 
-  if (tid < kK) taps[tid] = taps_in[tid];
-  for (int i = tid; i < kInF; i += kThreads) {
-    const int r = i / kI, c = i % kI;
-    const int gy = oy - 2 * kHalf + r, gx = ox - 2 * kHalf + c;
-    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    s1[i] = in ? a[(size_t)gy * W + gx] : 0.0f;
-    s2[i] = in ? b[(size_t)gy * W + gx] : 0.0f;
-  }
+  stage_window(s1, kPI, a, ld1, H, W, oy - 2 * kHalf, ox - 2 * kHalf - kX0, kIH, kSW, vec);
+  stage_window(s2, kPI, b, ld2, H, W, oy - 2 * kHalf, ox - 2 * kHalf - kX0, kIH, kSW, vec);
+  const float scale = g[0] * inv_count;  // g / (N H W), read while the copies fly
+  stage_wait();
   __syncthreads();
 
-  // Vertical pass of the five fields: extended rows, every window column.
-  for (int i = tid; i < kE * kI; i += kThreads) {
-    const int r = i / kI, c = i % kI;
-    float m1 = 0.0f, m2 = 0.0f, m11 = 0.0f, m22 = 0.0f, m12 = 0.0f;
+  // 1. Vertical pass of the five fields: extended rows, every window column.
+  for (int job = tid; job < kIW * (kEH / kRv1); job += kThreads) {
+    const int rg = job / kIW, c = job - rg * kIW;
+    const int r0 = rg * kRv1;
+    float f[5][kRv1];
+    vpass_fields<kRv1>(s1 + r0 * kPI + kX0 + c, s2 + r0 * kPI + kX0 + c, kPI, f);
 #pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      const float x = s1[(r + k) * kI + c], y = s2[(r + k) * kI + c], t = taps[k];
-      m1 += x * t;
-      m2 += y * t;
-      m11 += (x * x) * t;
-      m22 += (y * y) * t;
-      m12 += (x * y) * t;
+    for (int i = 0; i < kRv1; ++i) {
+#pragma unroll
+      for (int j = 0; j < 5; ++j) v[(j * kEH + r0 + i) * kPV + c] = f[j][i];
     }
-    v[(0 * kE + r) * kI + c] = m1;
-    v[(1 * kE + r) * kI + c] = m2;
-    v[(2 * kE + r) * kI + c] = m11;
-    v[(3 * kE + r) * kI + c] = m22;
-    v[(4 * kE + r) * kI + c] = m12;
   }
   __syncthreads();
 
-  // Horizontal pass, the map's partials, and the scaled cotangent maps on
-  // the extended tile (zero outside the image).
-  for (int i = tid; i < kE * kE; i += kThreads) {
-    const int r = i / kE, c = i % kE;
-    float f[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  // 2. Horizontal pass on the extended tile, the map's partials and the
+  // scaled cotangent maps (zero outside the image). A job is one extended
+  // row and kRh2 columns; lanes run down the rows.
+  constexpr int kJobs2 = kEH * kG2;
+  static_assert(kJobs2 <= kThreads, "one job a thread: the fields wait in registers");
+  float p[4][kRh2];
+  int e = 0, c0 = 0;
+  const bool has2 = tid < kJobs2;
+  if (has2) {
+    const int cg = tid / kEH;
+    e = tid - cg * kEH;
+    c0 = cg * kRh2;
+    float f[5][kRh2];
 #pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      const float t = taps[k];
+    for (int j = 0; j < 5; ++j) pass1<kRh2>(v + (j * kEH + e) * kPV + c0, 1, f[j]);
+    const int gy = oy - kHalf + e;
+    const bool row_in = gy >= 0 && gy < H;
 #pragma unroll
-      for (int j = 0; j < 5; ++j) f[j] += v[(j * kE + r) * kI + c + k] * t;
+    for (int i = 0; i < kRh2; ++i) {
+      float q[4];
+      map_partials(f[0][i], f[1][i], f[2][i], f[3][i], f[4][i], q);
+      const int gx = ox - kHalf + c0 + i;
+      const float s = (row_in && gx >= 0 && gx < W) ? scale : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[j][i] = q[j] * s;
     }
-    const float mu1 = f[0], mu2 = f[1];
-    const float a_ = 2.0f * mu1 * mu2 + kC1;
-    const float sigma12 = f[4] - mu1 * mu2;
-    const float b_ = 2.0f * sigma12 + kC2;
-    const float c_ = mu1 * mu1 + mu2 * mu2 + kC1;
-    const float d_ = (f[2] - mu1 * mu1) + (f[3] - mu2 * mu2) + kC2;
-    const float inv_cd = 1.0f / (c_ * d_);
-    const float map = a_ * b_ * inv_cd;
-    const float d_m12 = 2.0f * a_ * inv_cd;
-    const float d_m11 = -map / d_;
-    const float common = map * (d_ - c_) * inv_cd;
-    const float d_mu1 = 2.0f * mu2 * (b_ - a_) * inv_cd - 2.0f * mu1 * common;
-    const float d_mu2 = 2.0f * mu1 * (b_ - a_) * inv_cd - 2.0f * mu2 * common;
-    const int gy = oy - kHalf + r, gx = ox - kHalf + c;
-    const float s = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? scale : 0.0f;
-    cot[(0 * kE + r) * kE + c] = d_mu1 * s;
-    cot[(1 * kE + r) * kE + c] = d_mu2 * s;
-    cot[(2 * kE + r) * kE + c] = d_m11 * s;
-    cot[(3 * kE + r) * kE + c] = d_m12 * s;
   }
-  __syncthreads();
-
-  // Vertical pass of the four cotangent maps onto the output rows.
-  for (int i = tid; i < kB * kE; i += kThreads) {
-    const int r = i / kE, c = i % kE;
-    float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  __syncthreads();  // every read of the fields' buffer is done
+  if (has2) {
 #pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      const float t = taps[k];
+    for (int i = 0; i < kRh2; ++i) {
+      if (c0 + i < kEW) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) q[j] += cot[(j * kE + r + k) * kE + c] * t;
+        for (int j = 0; j < 4; ++j) cot[(j * kEH + e) * kPC + c0 + i] = p[j][i];
+      }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[(j * kB + r) * kE + c] = q[j];
   }
   __syncthreads();
 
-  // Horizontal pass and the pointwise combine.
-  for (int i = tid; i < kB * kB; i += kThreads) {
-    const int r = i / kB, c = i % kB;
+  // 3. Vertical pass of the four cotangent maps onto the output rows.
+  for (int job = tid; job < kEW * (kTH / kRv3); job += kThreads) {
+    const int rg = job / kEW, c = job - rg * kEW;
+    const int r0 = rg * kRv3;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float q[kRv3];
+      pass1<kRv3>(cot + (j * kEH + r0) * kPC + c, kPC, q);
+#pragma unroll
+      for (int i = 0; i < kRv3; ++i) vc[(j * kTH + r0 + i) * kPW + c] = q[i];
+    }
+  }
+  __syncthreads();
+
+  // 4. Horizontal pass of the four maps; lanes run down the rows.
+  if (tid < kTH * kG4) {
+    const int cg = tid / kTH;
+    const int r = tid - cg * kTH;
+    const int cc = cg * kRh4;
+    if (oy + r < H) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float q[kRh4];
+        pass1<kRh4>(vc + (j * kTH + r) * kPW + cc, 1, q);
+#pragma unroll
+        for (int i = 0; i < kRh4; ++i) qs[(j * kTH + r) * kPQ + cc + i] = q[i];
+      }
+    }
+  }
+  __syncthreads();
+
+  // 5. The pointwise combine; lanes run along the rows, so the images'
+  // reads and the gradients' writes are coalesced.
+  for (int px = tid; px < kTH * kTW; px += kThreads) {
+    const int r = px / kTW, c = px - r * kTW;
     const int gy = oy + r, gx = ox + c;
-    if (gy >= H || gx >= W) continue;
-    float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      const float t = taps[k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) q[j] += v[(j * kB + r) * kE + c + k] * t;
+    if (gy < H && gx < W) {
+      const float q0 = qs[(0 * kTH + r) * kPQ + c], q1 = qs[(1 * kTH + r) * kPQ + c];
+      const float q2 = qs[(2 * kTH + r) * kPQ + c], q3 = qs[(3 * kTH + r) * kPQ + c];
+      const size_t o = n * plane + (size_t)gy * W + gx;
+      const float x = __ldg(a + (size_t)gy * ld1 + gx);
+      const float y = __ldg(b + (size_t)gy * ld2 + gx);
+      d1[o] = q0 + 2.0f * x * q2 + y * q3;
+      d2[o] = q1 + 2.0f * y * q2 + x * q3;
     }
-    const float x = s1[(r + 2 * kHalf) * kI + c + 2 * kHalf];
-    const float y = s2[(r + 2 * kHalf) * kI + c + 2 * kHalf];
-    const size_t o = n * plane + (size_t)gy * W + gx;
-    d1[o] = q[0] + 2.0f * x * q[2] + y * q[3];
-    d2[o] = q[1] + 2.0f * y * q[2] + x * q[3];
   }
 }
 
 }  // namespace
 
-extern "C" int ssim_bwd(const void* img1, const void* img2, const void* taps, const void* g,
-                        float inv_count, int N, int H, int W, void* d1, void* d2,
-                        void* stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
+// img1/img2: N planes of H x W floats, unit column stride, row strides
+// ld1/ld2 and plane strides ps1/ps2 (floats); d1/d2: contiguous [N, H, W].
+extern "C" int ssim_bwd(const void* img1, const void* img2, const void* g, float inv_count, int N,
+                        int H, int W, int ld1, int ld2, long long ps1, long long ps2, void* d1,
+                        void* d2, void* stream) {
+  static bool attrs_set = false;
+  if (!attrs_set) {
+    cudaError_t err = cudaFuncSetAttribute(
         ssim_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(ssim_bwd_kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    attrs_set = true;
   }
   if (N > 0 && H > 0 && W > 0) {
-    const dim3 grid((W + kB - 1) / kB, (H + kB - 1) / kB, N);
+    const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, N);
     ssim_bwd_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-        (const float*)img1, (const float*)img2, (const float*)taps, (const float*)g, inv_count,
-        H, W, (float*)d1, (float*)d2);
+        (const float*)img1, (const float*)img2, (const float*)g, inv_count, H, W, ld1, ld2, ps1,
+        ps2, vec_ok(img1, img2, W, ld1, ld2, ps1, ps2), (float*)d1, (float*)d2);
   }
   return (int)cudaGetLastError();
 }

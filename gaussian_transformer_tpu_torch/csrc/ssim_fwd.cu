@@ -3,126 +3,171 @@
 // Replaces the TPU kernel gaussian_transformer_tpu/ops/fused_ssim.py:106
 // (_fwd_kernel, launched by _pallas_fwd :184). Same function: the mean
 // 11x11, sigma 1.5 windowed SSIM with 'same' zero padding, C1 = 0.01^2,
-// C2 = 0.03^2, over images [N, H, W] f32. Each block writes one partial sum;
-// the wrapper adds the partials in float64 and divides by N*H*W.
+// C2 = 0.03^2, over images [N, H, W] f32, written to one float.
 //
-// Design. One CTA of 256 threads per (image, 32x32 output tile). The block
-// loads both images' 42x42 halo (zeros outside the image: the 'same'
-// padding) into shared memory, runs the vertical 11-tap pass over the five
-// fields (mu1, mu2, E[x^2], E[y^2], E[xy]) into a 5x32x42 shared buffer,
-// then the horizontal pass and the SSIM map per output pixel, masks pixels
-// outside the image and reduces in the block. About 41 KB of shared memory a
-// block. The TPU kernel walked 64-row bands with whole-width slabs in VMEM;
-// a Hopper block holds far less on-chip memory, so the tile is 2-D and the
-// halo is re-read by neighbouring blocks (from L2).
+// Bound. It reads each image once (8 bytes a pixel) against 240 fp32
+// operations a pixel (chip_smoke.py K3_OPS_PER_PIXEL: the products, two
+// 11-tap passes over five fields, the map): at 1080p it is bound by
+// operations.
 //
-// Bound. It reads each image once (8 bytes per pixel of input) and does
-// ~240 fp32 operations per pixel (two 11-tap passes over five fields plus
-// the map), so at 1080p it is bound by operations, at tens of microseconds.
-// The taps come from the wrapper: _gaussian_window(11, 1.5).sum(axis=1).
+// Design. One CTA of 256 threads per (image, 32-row x 64-column output
+// tile), three CTAs an SM (24 warps). cp.async stages both images' 42 x 80
+// window (the 74 columns the filter needs, widened to 16-byte aligned
+// copies; zeros outside the image); the vertical pass of the five fields
+// runs 8 rows a thread over the window columns into a 5 x 32 x 75 buffer;
+// the horizontal pass runs 8 columns a thread and takes each output in
+// registers to the SSIM map (ssim_common.cuh). The fields' vertical pass
+// covers 1.16x the output pixels (the 32x32 tile before: 1.31x). Each CTA
+// sums its masked map in a fixed order into its partial; the last CTA to
+// finish (a device counter, which that CTA resets) adds the partials in
+// float64 in a fixed order, divides by N H W and writes the mean. The
+// result does not depend on the order in which CTAs finish (no float
+// atomics), and the wrapper launches nothing else: no host
+// synchronisation, no follow-up ops. Two launches may not run at once on
+// two streams of one card: they would share the counter.
+//
+// Build (nvcc -Xptxas -v, sm_90a): 80 registers, no spills, 74,880 bytes of
+// dynamic and 48 of static shared memory, three CTAs an SM. The per-pixel
+// map is the parent design's arithmetic; only the order of the sum moved.
 
 #include <cuda_runtime.h>
 
+#include "ssim_common.cuh"
+
 namespace {
 
-constexpr int kK = 11;
-constexpr int kHalf = kK / 2;
-constexpr int kBX = 32;
-constexpr int kBY = 32;
-constexpr int kHX = kBX + kK - 1;  // 42
-constexpr int kHY = kBY + kK - 1;  // 42
-constexpr int kThreads = 256;
-constexpr float kC1 = (float)(0.01 * 0.01);
-constexpr float kC2 = (float)(0.03 * 0.03);
+using namespace ssim;
 
-__global__ void __launch_bounds__(kThreads) ssim_fwd_kernel(
-    const float* __restrict__ img1, const float* __restrict__ img2,
-    const float* __restrict__ taps_in, int H, int W, float* __restrict__ partials) {
-  __shared__ float s1[kHY][kHX];
-  __shared__ float s2[kHY][kHX];
-  __shared__ float v[5][kBY][kHX];
-  __shared__ float taps[kK];
-  __shared__ float warp_sums[kThreads / 32];
+constexpr int kTH = 32;                 // output tile rows
+constexpr int kTW = 64;                 // output tile columns
+constexpr int kThreads = 256;
+constexpr int kMinBlocks = 3;
+constexpr int kIH = kTH + 2 * kHalf;    // 42: input window rows
+constexpr int kIW = kTW + 2 * kHalf;    // 74: input window columns used
+constexpr int kX0 = 3;                  // staged from 3 columns further left,
+constexpr int kSW = kIW + 2 * kX0;      // 80 columns: 16-byte aligned copies
+constexpr int kRv = 8;                  // rows a thread, vertical pass
+constexpr int kRh = 8;                  // columns a thread, horizontal pass
+constexpr int kG = kTW / kRh;           // 8 column groups
+static_assert(kTH % kRv == 0 && kTW % kRh == 0, "whole groups");
+constexpr int kPI = kSW;                                                 // windows
+constexpr int kPV = odd_at_least(kG * kRh + kK - 1 > kIW ? kG * kRh + kK - 1 : kIW);  // 75
+constexpr int kInF = kIH * kPI;
+constexpr int kVF = 5 * kTH * kPV;
+constexpr int kSmemBytes = (2 * kInF + kVF) * (int)sizeof(float);
+constexpr int kWarps = kThreads / 32;
+
+// Blocks of the current launch that have written their partial; the last
+// one resets it to 0 for the next launch (launches on one stream are
+// ordered).
+__device__ unsigned int g_blocks_done = 0;
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks) ssim_fwd_kernel(
+    const float* __restrict__ img1, const float* __restrict__ img2, int H, int W, int ld1,
+    int ld2, long long ps1, long long ps2, bool vec, float* __restrict__ partials,
+    float* __restrict__ mean) {
+  extern __shared__ float smem[];
+  float* s1 = smem;            // [kIH][kPI]
+  float* s2 = s1 + kInF;       // [kIH][kPI]
+  float* v = s2 + kInF;        // [5][kTH][kPV]
+  __shared__ float warp_sums[kWarps];
+  __shared__ bool last;
 
   const int tid = threadIdx.x;
   const int n = blockIdx.z;
-  const int ox = blockIdx.x * kBX;
-  const int oy = blockIdx.y * kBY;
-  const float* a = img1 + (size_t)n * H * W;
-  const float* b = img2 + (size_t)n * H * W;
+  const int ox = blockIdx.x * kTW;
+  const int oy = blockIdx.y * kTH;
 
-  if (tid < kK) taps[tid] = taps_in[tid];
-  for (int i = tid; i < kHY * kHX; i += kThreads) {
-    const int r = i / kHX, c = i % kHX;
-    const int gy = oy - kHalf + r, gx = ox - kHalf + c;
-    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    s1[r][c] = in ? a[(size_t)gy * W + gx] : 0.0f;
-    s2[r][c] = in ? b[(size_t)gy * W + gx] : 0.0f;
-  }
+  stage_window(s1, kPI, img1 + n * ps1, ld1, H, W, oy - kHalf, ox - kHalf - kX0, kIH, kSW, vec);
+  stage_window(s2, kPI, img2 + n * ps2, ld2, H, W, oy - kHalf, ox - kHalf - kX0, kIH, kSW, vec);
+  stage_wait();
   __syncthreads();
 
-  // Vertical pass: rows of the output tile, every halo column.
-  for (int i = tid; i < kBY * kHX; i += kThreads) {
-    const int r = i / kHX, c = i % kHX;
-    float m1 = 0.0f, m2 = 0.0f, m11 = 0.0f, m22 = 0.0f, m12 = 0.0f;
+  // Vertical pass: output rows, every window column.
+  for (int job = tid; job < kIW * (kTH / kRv); job += kThreads) {
+    const int rg = job / kIW, c = job - rg * kIW;
+    const int r0 = rg * kRv;
+    float f[5][kRv];
+    vpass_fields<kRv>(s1 + r0 * kPI + kX0 + c, s2 + r0 * kPI + kX0 + c, kPI, f);
 #pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      const float x = s1[r + k][c], y = s2[r + k][c], g = taps[k];
-      m1 += x * g;
-      m2 += y * g;
-      m11 += (x * x) * g;
-      m22 += (y * y) * g;
-      m12 += (x * y) * g;
+    for (int i = 0; i < kRv; ++i) {
+#pragma unroll
+      for (int j = 0; j < 5; ++j) v[(j * kTH + r0 + i) * kPV + c] = f[j][i];
     }
-    v[0][r][c] = m1;
-    v[1][r][c] = m2;
-    v[2][r][c] = m11;
-    v[3][r][c] = m22;
-    v[4][r][c] = m12;
   }
   __syncthreads();
 
-  // Horizontal pass and the SSIM map (the reference's _map_partials form).
+  // Horizontal pass and the map; lanes run down the rows.
   float sum = 0.0f;
-  for (int i = tid; i < kBY * kBX; i += kThreads) {
-    const int r = i / kBX, c = i % kBX;
-    float f[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (tid < kTH * kG) {
+    const int cg = tid / kTH;
+    const int r = tid - cg * kTH;
+    const int c0 = cg * kRh;
+    float f[5][kRh];
 #pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      const float g = taps[k];
+    for (int j = 0; j < 5; ++j) pass1<kRh>(v + (j * kTH + r) * kPV + c0, 1, f[j]);
+    if (oy + r < H) {
 #pragma unroll
-      for (int j = 0; j < 5; ++j) f[j] += v[j][r][c + k] * g;
+      for (int i = 0; i < kRh; ++i) {
+        const float map = ssim_map(f[0][i], f[1][i], f[2][i], f[3][i], f[4][i]);
+        if (ox + c0 + i < W) sum += map;
+      }
     }
-    const float mu1 = f[0], mu2 = f[1];
-    const float a_ = 2.0f * mu1 * mu2 + kC1;
-    const float sigma12 = f[4] - mu1 * mu2;
-    const float b_ = 2.0f * sigma12 + kC2;
-    const float c_ = mu1 * mu1 + mu2 * mu2 + kC1;
-    const float d_ = (f[2] - mu1 * mu1) + (f[3] - mu2 * mu2) + kC2;
-    const float map = a_ * b_ * (1.0f / (c_ * d_));
-    if (oy + r < H && ox + c < W) sum += map;
   }
 
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, off);
   if ((tid & 31) == 0) warp_sums[tid >> 5] = sum;
   __syncthreads();
-  if (tid < 32) {
-    sum = tid < kThreads / 32 ? warp_sums[tid] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, off);
-    if (tid == 0) {
-      partials[((size_t)n * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = sum;
-    }
+  const unsigned int nblocks = gridDim.x * gridDim.y * gridDim.z;
+  if (tid == 0) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += warp_sums[w];
+    partials[(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = s;
+    __threadfence();
+    last = atomicAdd(&g_blocks_done, 1u) == nblocks - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // The last block: the partials in float64, each thread a fixed stride,
+  // then thread 0 in thread order (the windows' buffer is free by now).
+  __threadfence();
+  double* dsum = reinterpret_cast<double*>(smem);
+  double acc = 0.0;
+  for (unsigned int i = tid; i < nblocks; i += kThreads) acc += (double)__ldcg(partials + i);
+  dsum[tid] = acc;
+  __syncthreads();
+  if (tid == 0) {
+    double total = 0.0;
+    for (int t = 0; t < kThreads; ++t) total += dsum[t];
+    mean[0] = (float)(total / ((double)gridDim.z * H * W));
+    g_blocks_done = 0;
   }
 }
 
 }  // namespace
 
-extern "C" int ssim_fwd(const void* img1, const void* img2, const void* taps, int N, int H,
-                        int W, void* partials, void* stream) {
+// img1/img2: N planes of H x W floats, unit column stride, row strides
+// ld1/ld2 and plane strides ps1/ps2 (floats).
+extern "C" int ssim_fwd(const void* img1, const void* img2, int N, int H, int W, int ld1, int ld2,
+                        long long ps1, long long ps2, void* partials, void* mean, void* stream) {
+  static bool attrs_set = false;
+  if (!attrs_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ssim_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(ssim_fwd_kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return (int)err;
+    attrs_set = true;
+  }
   if (N > 0 && H > 0 && W > 0) {
-    const dim3 grid((W + kBX - 1) / kBX, (H + kBY - 1) / kBY, N);
-    ssim_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)img1, (const float*)img2, (const float*)taps, H, W, (float*)partials);
+    const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, N);
+    ssim_fwd_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+        (const float*)img1, (const float*)img2, H, W, ld1, ld2, ps1, ps2,
+        vec_ok(img1, img2, W, ld1, ld2, ps1, ps2), (float*)partials, (float*)mean);
   }
   return (int)cudaGetLastError();
 }

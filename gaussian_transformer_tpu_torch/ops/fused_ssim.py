@@ -4,19 +4,26 @@
 Kernel K3: ``csrc/ssim_fwd.cu`` replaces the TPU kernel
 ``ops/fused_ssim.py:106 _fwd_kernel``: the mean 11x11, sigma 1.5 windowed
 SSIM ('same' zero padding, C1 = 0.01^2, C2 = 0.03^2) in one pass that keeps
-the five filtered fields on chip. It is bound by operations (~240 fp32
+the five filtered fields on chip. It is bound by operations (240 fp32
 operations per pixel against 8 bytes read); its design answer is one CTA per
-(image, 32x32 tile) with the halo and the vertical-pass fields in shared
-memory (see the source's header).
+(image, 32x64 tile), register-blocked separable passes
+(``csrc/ssim_common.cuh``), ~73 KB of shared memory and three CTAs an SM,
+and the last CTA to finish writing the mean, so the call needs no other op.
 
 Kernel K4: ``csrc/ssim_bwd.cu`` replaces the TPU kernel
 ``ops/fused_ssim.py:132 _bwd_kernel``: the analytic gradient of the mean
 SSIM w.r.t. both images (the fields recomputed on the tile extended by the
 window, the map's closed-form partials, the same filter applied to the four
-cotangent maps, a pointwise combine). It is bound by operations (~700 fp32
+cotangent maps, a pointwise combine). It is bound by operations (441 fp32
 operations per pixel against 16 bytes moved); its design answer is one CTA
-per (image, 32x32 tile) with every intermediate in ~94 KB of dynamic shared
-memory.
+per (image, 32x64 tile) of 512 threads on the same register-blocked passes,
+with its intermediates in one ~108 KB shared buffer reused across phases
+(two CTAs an SM).
+
+The taps are compile-time constants of the kernels (``ssim_common.cuh``,
+the bits of ``taps()``), and ``g`` stays on the card: neither wrapper copies
+from the host or synchronises. The kernels read each image through its row
+and plane strides, so a cropped render is read in place.
 
 Images are CHW or BCHW; the batch is handled natively (the Pallas version had
 no batching rule). ``fused_ssim`` launches K3 (and K4 in its backward) for
@@ -40,21 +47,24 @@ K = 11  # window size
 C1 = 0.01**2
 C2 = 0.03**2
 
+# Both entry points take each image as N planes with a unit column stride
+# and their own row and plane strides (in floats).
+_PLANES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_longlong, ctypes.c_longlong]  # N, H, W, row strides, plane strides
 SSIM_FWD = CudaKernel(
     "ssim_fwd.cu",
     "ssim_fwd",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p, *_PLANES, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p],
 )
 SSIM_BWD = CudaKernel(
     "ssim_bwd.cu",
     "ssim_bwd",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, *_PLANES,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
 )
-# Output tile of one K3 block (must match csrc/ssim_fwd.cu).
-_BX = _BY = 32
+# Output tile of one K3 block, rows x columns (must match csrc/ssim_fwd.cu).
+_TH, _TW = 32, 64
 
 
 @functools.lru_cache(maxsize=None)
@@ -176,32 +186,45 @@ def _check_images(img1: torch.Tensor, img2: torch.Tensor) -> None:
         raise ValueError("images must be on the same device")
 
 
-def _launch_ssim_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K3 on [N, H, W] images: the mean SSIM (a 0-dim tensor)."""
-    a, b = a.contiguous(), b.contiguous()
+def _planes(a: torch.Tensor, b: torch.Tensor):
+    """The kernels' plane arguments of two [N, H, W] images: (a, b, N, H, W,
+    row strides, plane strides). A view with a unit column stride (the
+    renderer's cropped output) is passed as it is; only other layouts are
+    copied."""
+    a = a if a.stride(-1) == 1 else a.contiguous()
+    b = b if b.stride(-1) == 1 else b.contiguous()
     N, H, W = a.shape
+    return a, b, (N, H, W, a.stride(1), b.stride(1), a.stride(0), b.stride(0))
+
+
+def _launch_ssim_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K3 on [N, H, W] images: the mean SSIM (a 0-dim tensor), written by
+    the kernel itself."""
     dev = a.device
-    g = torch.as_tensor(taps(), device=dev)
-    partials = torch.empty(N, -(-H // _BY), -(-W // _BX), dtype=torch.float32, device=dev)
+    if a.numel() == 0:
+        return torch.full((), float("nan"), device=dev)  # the mean of no pixels
+    a, b, dims = _planes(a, b)
+    N, H, W = dims[:3]
+    partials = torch.empty(N * -(-H // _TH) * -(-W // _TW), dtype=torch.float32, device=dev)
+    mean = torch.empty((), dtype=torch.float32, device=dev)
     SSIM_FWD.launch(
-        a.data_ptr(), b.data_ptr(), g.data_ptr(), N, H, W, partials.data_ptr(),
+        a.data_ptr(), b.data_ptr(), *dims, partials.data_ptr(), mean.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    return (partials.sum(dtype=torch.float64) / (N * H * W)).to(torch.float32)
+    return mean
 
 
 def _launch_ssim_bwd(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor):
-    """K4 on [N, H, W] images: (d_img1, d_img2) of g * mean SSIM. ``g`` stays
-    on the card (no host read)."""
-    a, b = a.contiguous(), b.contiguous()
-    N, H, W = a.shape
+    """K4 on [N, H, W] images: (d_img1, d_img2) of g * mean SSIM, contiguous.
+    ``g`` stays on the card (no host read)."""
     dev = a.device
-    g1 = torch.as_tensor(taps(), device=dev)
+    a, b, dims = _planes(a, b)
+    N, H, W = dims[:3]
     g = g.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
-    d1 = torch.empty_like(a)
-    d2 = torch.empty_like(b)
+    d1 = torch.empty((N, H, W), dtype=torch.float32, device=dev)
+    d2 = torch.empty((N, H, W), dtype=torch.float32, device=dev)
     SSIM_BWD.launch(
-        a.data_ptr(), b.data_ptr(), g1.data_ptr(), g.data_ptr(), 1.0 / (N * H * W), N, H, W,
+        a.data_ptr(), b.data_ptr(), g.data_ptr(), 1.0 / (N * H * W), *dims,
         d1.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     return d1, d2

@@ -96,8 +96,15 @@ def test_stream_kernel_saturated_and_empty(cuda):
         assert float(out["final_T"].min()) == 1.0
 
 
+# K3/K4's tile is 32 rows x 64 columns: one below, at and one above a tile
+# side in each axis (and at two tiles), sides under the window, a single
+# column, a batch of 4 x 3 channels.
+SSIM_EDGE_SHAPES = [(3, 31, 63), (3, 32, 64), (3, 33, 65), (3, 63, 127), (3, 64, 128),
+                    (3, 65, 129), (1, 7, 70), (1, 40, 9), (1, 20, 1), (4, 3, 33, 65)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(3, 1080, 1920), (2, 3, 70, 129), (1, 5, 7)])
+@pytest.mark.parametrize("shape", [(3, 1080, 1920), (2, 3, 70, 129), (1, 5, 7)] + SSIM_EDGE_SHAPES)
 def test_ssim_kernel_matches_plain(cuda, shape):
     rng = np.random.RandomState(4)
     a, b = (torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda) for _ in range(2))
@@ -164,7 +171,7 @@ def test_render_gradients_on_card_match_cpu(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(3, 1080, 1920), (2, 3, 70, 129), (1, 5, 7)])
+@pytest.mark.parametrize("shape", [(3, 1080, 1920), (2, 3, 70, 129), (1, 5, 7)] + SSIM_EDGE_SHAPES)
 def test_ssim_backward_kernel_matches_plain(cuda, shape):
     """Through autograd, on cropped (non-contiguous) images as the renderer's
     output is."""
@@ -174,16 +181,90 @@ def test_ssim_backward_kernel_matches_plain(cuda, shape):
             for _ in range(2))
     assert not a.is_contiguous()
     before = fused_ssim.SSIM_BWD.launches
-    d1, d2 = torch.autograd.grad(-3.0 * ssim(a, b), (a, b))
+    out = ssim(a, b)
+    d1, d2 = torch.autograd.grad(-3.0 * out, (a, b))
     torch.cuda.synchronize()
     assert fused_ssim.SSIM_BWD.launches == before + 1
     flat = lambda x: x.detach().reshape(-1, *x.shape[-2:])
+    assert abs(float(out) - float(fused_ssim.ssim_plain(flat(a), flat(b)))) < 1e-5  # K3 on the crop
     r1, r2 = fused_ssim.ssim_bwd_plain(flat(a), flat(b), torch.tensor(-3.0, device=cuda))
     for got, ref in ((d1, r1), (d2, r2)):
         assert got.shape == a.shape
         assert float((got.reshape(ref.shape) - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     k1, k2 = fused_ssim._launch_ssim_bwd(flat(a), flat(b), torch.tensor(-3.0, device=cuda))
     assert float((k1 - r1).abs().max()) <= 1e-4 * float(r1.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("amp", [1e-2, 1e-3, 1e-4])
+def test_ssim_kernels_near_constant(cuda, amp):
+    """Near-constant images (0.5 + amp U[0, 1)): D = sigma1^2 + sigma2^2 + C2
+    sits near C2, where the map's partials are largest and float32 loses
+    digits to E[x^2] - mu^2. Held to a float64 evaluation of the plain
+    versions: K3 within 1e-5 of the mean; K4 no further from it than the
+    float32 plain version, up to 1e-5 of the largest gradient."""
+    gen = torch.Generator(cuda).manual_seed(11)
+    a = 0.5 + amp * torch.rand((3, 70, 129), generator=gen, device=cuda)
+    b = 0.5 + amp * torch.rand((3, 70, 129), generator=gen, device=cuda)
+    g = torch.tensor(-3.0, device=cuda)
+    m64 = float(fused_ssim.ssim_plain(a.double(), b.double()))
+    r = fused_ssim.ssim_bwd_plain(a.double(), b.double(), g.double())
+    p32 = fused_ssim.ssim_bwd_plain(a, b, g)
+    k3 = float(fused_ssim._launch_ssim_fwd(a, b))
+    k4 = fused_ssim._launch_ssim_bwd(a, b, g)
+    scale = max(float(x.abs().max()) for x in r)
+    err = lambda got: max(float((x.double() - y).abs().max()) for x, y in zip(got, r)) / scale
+    print(f"amp {amp}: K3 - f64 {k3 - m64:+.3e}; K4 {err(k4):.3e}, plain f32 {err(p32):.3e} of max |grad| {scale:.3e}")
+    assert abs(k3 - m64) <= 1e-5
+    assert err(k4) <= err(p32) + 1e-5
+
+
+@pytest.mark.gpu
+def test_ssim_wrappers_do_not_synchronise(cuda):
+    """A forward and a backward through fused_ssim on CUDA tensors pass under
+    torch.cuda.set_sync_debug_mode("error"): no host copy, no host read."""
+    rng = np.random.RandomState(9)
+    a, b = (torch.from_numpy(rng.rand(3, 70, 133).astype(np.float32)).to(cuda) for _ in range(2))
+    x = a[..., :129].clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = -2.0 * fused_ssim.fused_ssim(x, b[..., :129])
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.gpu
+def test_ssim_kernels_unaligned_planes_and_repeats(cuda):
+    """Planes that are not 16-byte aligned (a misaligned base; a crop read in
+    place, rows of an odd stride) take the kernels' 4-byte staging and give
+    the bits of aligned contiguous copies; K3's mean (written by its last
+    CTA from the per-CTA partials in a fixed order) repeats bit for bit."""
+    rng = np.random.RandomState(10)
+    N, H, W = 3, 100, 192
+    flat = [torch.from_numpy(rng.rand(N * H * W + 1).astype(np.float32)).to(cuda) for _ in range(2)]
+    a, b = (f[1:].view(N, H, W) for f in flat)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    ac, bc = a.clone(), b.clone()
+    assert ac.data_ptr() % 16 == 0
+    g = torch.tensor(0.5, device=cuda)
+    assert torch.equal(fused_ssim._launch_ssim_fwd(a, b), fused_ssim._launch_ssim_fwd(ac, bc))
+    for u, v in zip(fused_ssim._launch_ssim_bwd(a, b, g), fused_ssim._launch_ssim_bwd(ac, bc, g)):
+        assert torch.equal(u, v)
+    # Rows of an odd stride from a misaligned base (a crop, read in place).
+    wide = [torch.from_numpy(rng.rand(N, H, W + 5).astype(np.float32)).to(cuda)[..., 3:W + 2] for _ in range(2)]
+    assert wide[0].stride(1) == W + 5 and not wide[0].is_contiguous()
+    tight = [w.contiguous() for w in wide]
+    assert torch.equal(fused_ssim._launch_ssim_fwd(*wide), fused_ssim._launch_ssim_fwd(*tight))
+    for u, v in zip(fused_ssim._launch_ssim_bwd(*wide, g), fused_ssim._launch_ssim_bwd(*tight, g)):
+        assert torch.equal(u, v)
+    big = [torch.from_numpy(rng.rand(12, 540, 960).astype(np.float32)).to(cuda) for _ in range(2)]
+    means = torch.stack([fused_ssim._launch_ssim_fwd(*big) for _ in range(20)])
+    assert torch.all(means == means[0])
+    assert abs(float(means[0]) - float(fused_ssim.ssim_plain(*big))) < 1e-5
 
 
 @pytest.mark.gpu

@@ -4,6 +4,9 @@ interpret mode to 1e-6, on CHW and BCHW images of unaligned sizes; the
 generic (non-fused) path too. Kernel K3 itself is checked on the card by
 tests/test_torch_kernels.py."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -20,7 +23,14 @@ def _pair(shape, seed=0):
     return rng.rand(*shape).astype(np.float32), rng.rand(*shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("shape", [(3, 37, 53), (3, 70, 129), (2, 3, 64, 200)])
+# The kernels' tile is 32 rows x 64 columns: the shapes one below, at and one
+# above a tile side in each axis, sides under the window, a single column, a
+# batch of 4 x 3 channels.
+EDGE_SHAPES = [(3, 31, 63), (3, 32, 64), (3, 33, 65), (1, 7, 70), (1, 40, 9), (1, 20, 1),
+               (4, 3, 33, 65)]
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 53), (3, 70, 129), (2, 3, 64, 200)] + EDGE_SHAPES)
 def test_plain_matches_reference(shape):
     a, b = _pair(shape)
     ref = float(jax_ssim(jnp.asarray(a), jnp.asarray(b)))
@@ -34,6 +44,23 @@ def test_plain_matches_pallas_interpret():
     ref = float(jax_fused_ssim(jnp.asarray(a), jnp.asarray(b), "pallas_interpret"))
     out = float(fused_ssim.fused_ssim(torch.from_numpy(a), torch.from_numpy(b)))
     assert abs(out - ref) < 1e-6
+
+
+def test_kernel_taps_are_the_window_bits():
+    """The taps the kernels compile in (csrc/ssim_common.cuh ``tap``) are the
+    bits of ``taps()``, tap by tap."""
+    src = (Path(fused_ssim.__file__).resolve().parent.parent / "csrc" / "ssim_common.cuh").read_text()
+    body = src[src.index("constexpr float tap(int k)"):]
+    body = body[:body.index("}")]
+    literals = {}
+    for ks, lit in re.findall(r"\(k == (\d+)(?: \|\| k == \d+)?\)\s*\?\s*(0x[0-9a-fp.+-]+)f", body):
+        literals[int(ks)] = float.fromhex(lit)
+    last = re.findall(r":\s*(0x[0-9a-fp.+-]+)f;", body)
+    t = fused_ssim.taps()
+    assert sorted(literals) == [0, 1, 2, 3, 4] and len(last) == 1
+    literals[5] = float.fromhex(last[0])
+    for k in range(11):
+        assert np.float32(literals[min(k, 10 - k)]).tobytes() == t[k].tobytes(), k
 
 
 @pytest.mark.parametrize("window_size,size_average", [(7, True), (11, False)])
