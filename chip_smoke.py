@@ -84,15 +84,19 @@ stream as planes [16, I_pad], kernels K7 and K8) and the layout probe (K9):
 13. Serving: the test views of the 1M scene through ``prepare_stream`` +
     ``stream_image_t``, counters zeroed just before and read just after;
     checks K7 ran once per view, K7 against its plain version and the view-0
-    image against the stream ``render()`` (K1's rule). Times K1 and K7 in
-    turns on the same stream (and the row and transposed paths from the
-    gather to the image), the transposed copy, plain K7, the bound.
+    image against the stream ``render()`` (K1's rule); K7's checksum, its
+    warp steps (the plain walk in screen coordinates, K1's 8x4 warps, to the
+    runs' real ends) and the rows it walks at most against the rows in the
+    runs. Times K1 and K7 in turns on the same stream (and the row and
+    transposed paths from the gather to the image), the transposed copy,
+    plain K7, the bound, SM cycles per warp step, K7's ptxas report.
 14. Gradients: train view 0 at the first step's state and the trainer's
     budgets (section 8's inputs); one backward of the trainer's loss
     through ``stream_image_t`` (K8 once), the Gaussians' screen-space
     gradients against those through ``stream_image`` (K2), K8 against its
-    plain version on the loss's true cotangents (K2's rule); K2 and K8 timed
-    in turns, plain K8, the bound.
+    plain version on the loss's true cotangents (K2's rule), K8's checksum
+    and rows; K2 and K8 timed in turns, plain K8, the bound, K8's ptxas
+    report, and K6's time on its own inputs (section 12b) for reference.
 15. The layout probe through ``tools.layout_probe.main`` at N = 3,232,768
     rows (the four layouts of the reference's probe), counter zeroed just
     before and read just after; K9 against its plain version on each layout
@@ -100,9 +104,9 @@ stream as planes [16, I_pad], kernels K7 and K8) and the layout probe (K9):
     3.35 TB/s) and the extra bytes allocated.
 
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
-before and after its window. The K3 and K4 entries of the kernels line carry
-the registers, spills and static shared memory ``nvcc -Xptxas -v`` reported
-(the build log the loader keeps).
+before and after its window. The K3, K4, K7 and K8 entries of the kernels
+line carry the registers, spills and static shared memory ``nvcc -Xptxas
+-v`` reported (the build log the loader keeps).
 
 The last three lines of standard output are the kernels JSON line, the
 card's ``name, power.limit`` as nvidia-smi prints them, and
@@ -770,6 +774,20 @@ def rows_per_tile(rows) -> dict:
             "p99": float(np.percentile(r, 99)), "mean": float(r.mean())}
 
 
+def run_rows(chunk_tile, tile_counts, n_tiles, chunk) -> dict:
+    """The rows of the tiles' runs (their chunk padding included) and the
+    real rows among them: what K7 and K8 walk at most, per run and in all."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.render import stream
+
+    ct = chunk_tile.to(torch.int32)
+    row_start, row_end = stream.real_row_ranges(ct, tile_counts, n_tiles, chunk)
+    start, end = stream.tile_chunk_ranges(ct, n_tiles)
+    return {"real": int((row_end - row_start).sum()), "padded": int(((end - start) * chunk).sum()),
+            "real_per_tile": rows_per_tile(row_end - row_start)}
+
+
 def train_path(args, device, scene, summary):
     """Sections 6-9: the training dataset, ``cli.train``, the K2/K4 checks
     at the trainer's budgets, and the times. Returns the K2 and K4 entries of
@@ -1218,7 +1236,7 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
           f"{live} contributing)")
     print(f"[{smi}] K6 rows per tile (walked_rows): {k6_rows}")
     print_clocks(clk, "12b")
-    summary.update(table_train_step_ms=step_ms, table_train_phase_ms=med, table_k6_pairs=pairs,
+    summary.update(table_train_step_ms=step_ms, table_train_phase_ms=med, table_k6_ms=k6_ms, table_k6_pairs=pairs,
                    table_k6_live_pairs=live, table_k6_real_rows=real_rows, k6_rows_per_tile=k6_rows)
     entries.append(
         {"name": "table_bwd", "route": "cuda",
@@ -1276,16 +1294,22 @@ def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
         s = prepare_stream(cams[0], scene)
         props, ct, gw, gh = s.props(), s.chunk_tile, s.grid_w, s.grid_h
         props_t = props.t().contiguous()
-        color, t_fin = stream_t.composite_stream_tiles_t(props_t, ct, gw, gh)
+        counts = s.binned.tile_counts
+        color, t_fin = stream_t.composite_stream_tiles_t(props_t, ct, counts, gw, gh)
         p_color, p_t, (pairs, live) = stream_t.composite_stream_tiles_t_plain(props_t, ct, gw, gh, count_work=True)
         cov = s.binned.covered
         err = torch.cat([(color - p_color)[cov].flatten(), (t_fin - p_t)[cov].flatten()]).abs()
         k7_err, k7_share = float(err.max()), float((err > K1_ATOL).float().mean())
+        k7_rows = run_rows(ct, counts, gw * gh, props_t.shape[1] // ct.shape[0])
         print(f"K7: planes [16, {props_t.shape[1]}], chunk {props_t.shape[1] // ct.shape[0]}, {pairs} walked "
-              f"(row, pixel) pairs, {live} contributing")
+              f"(row, pixel) pairs, {live} contributing; rows walked at most (the runs' real rows) "
+              f"{k7_rows['real']} of {k7_rows['padded']} in the runs")
         print(f"K7 vs plain: max abs diff {k7_err:.3e} (tolerance {K1_MAX_ERR}), share beyond {K1_ATOL}: "
               f"{k7_share:.3e} (tolerance {K1_MAX_SHARE})")
         check(k7_err <= K1_MAX_ERR and k7_share <= K1_MAX_SHARE, "K7 agrees with its plain version")
+        k7_sum = checksum(color, t_fin)
+        print(f"K7 checksum of (color, final T) on test view 0: {k7_sum}")
+        k7_steps = warp_steps("K7", stream.stream_warp_steps(props_t.t(), ct, counts, gw, gh, absolute=True))
         ref = render(cams[0], scene)
         err = torch.cat([(outs[0][0] - ref["render"]).flatten(), (outs[0][1] - ref["final_T"]).flatten()]).abs()
         tvr_err, tvr_share = float(err.max()), float((err > K1_ATOL).float().mean())
@@ -1295,7 +1319,7 @@ def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
               "the transposed-path render agrees with the stream render (K7 with K1)")
     del outs, ref, p_color, p_t, err
     summary.update(transposed_serve_s=t_serve, transposed_k7_pairs=pairs, transposed_k7_live_pairs=live,
-                   transposed_vs_stream_err=tvr_err)
+                   transposed_vs_stream_err=tvr_err, transposed_k7_checksum=k7_sum, transposed_k7_rows=k7_rows)
     entries = []
     T = gw * gh
     real_rows = int(s.binned.tile_counts.sum())
@@ -1304,14 +1328,14 @@ def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
         clk = sm_clock()
         p = s.proj
         with torch.no_grad():
-            k1_ms, k7_ms = interleaved_ms([lambda: stream.composite_stream_tiles(props, ct, s.binned.tile_counts, gw, gh),
-                                           lambda: stream_t.composite_stream_tiles_t(props_t, ct, gw, gh)],
+            k1_ms, k7_ms = interleaved_ms([lambda: stream.composite_stream_tiles(props, ct, counts, gw, gh),
+                                           lambda: stream_t.composite_stream_tiles_t(props_t, ct, counts, gw, gh)],
                                           rounds=10, reps=5)
             img_ms, img_t_ms = interleaved_ms([
                 lambda: stream.stream_image(s.binned, s.means2d, p.conics, p.rgbs, p.opacities, bg, grid_w=gw, grid_h=gh),
                 lambda: stream_t.stream_image_t(s.binned, s.means2d, p.conics, p.rgbs, p.opacities, bg,
                                                 grid_w=gw, grid_h=gh)], rounds=5, reps=3)
-            k7_cold_ms = cuda_ms_cold(lambda: stream_t.composite_stream_tiles_t(props_t, ct, gw, gh), reps=10)
+            k7_cold_ms = cuda_ms_cold(lambda: stream_t.composite_stream_tiles_t(props_t, ct, counts, gw, gh), reps=10)
             transpose_ms = cuda_ms(lambda: props.t().contiguous(), reps=20)
             k7_plain_ms = cuda_ms(lambda: stream_t.composite_stream_tiles_t_plain(props_t, ct, gw, gh), reps=2)
         k7_bytes = real_rows * 9 * 4 + T * 4 * 256 * 4 + 2 * T * 4
@@ -1319,8 +1343,10 @@ def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
         k7_bound, k7_by = bound(k7_bytes, k7_ops)
         print(f"[{smi}] in turns on view 0's stream: K1 {k1_ms:.4f} ms, K7 {k7_ms:.4f} ms (K7/K1 {k7_ms / k1_ms:.3f}); "
               f"gather to image: rows {img_ms:.3f} ms, transposed {img_t_ms:.3f} ms")
+        k7_build = ptxas_report("stream_t_fwd.cu")
         print(f"[{smi}] K7 {k7_ms:.4f} ms (L2 cold {k7_cold_ms:.4f}), transposed copy {transpose_ms:.4f} ms, "
-              f"plain {k7_plain_ms:.2f} ms, bound {k7_bound:.4f} ms ({k7_by}: {k7_bytes} B, {k7_ops} fp32 ops)")
+              f"plain {k7_plain_ms:.2f} ms, bound {k7_bound:.4f} ms ({k7_by}: {k7_bytes} B, {k7_ops} fp32 ops); "
+              f"{sm_cycles(k7_ms, clk, k7_steps['steps']):.2f} SM cycles per warp step; build {k7_build}")
         print_clocks(clk, "13")
         summary.update(transposed_k1_ms=k1_ms, transposed_k7_ms=k7_ms, transposed_copy_ms=transpose_ms,
                        transposed_image_ms={"rows": img_ms, "transposed": img_t_ms})
@@ -1331,8 +1357,9 @@ def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
              "launches": k7_serve, "max_abs_err": k7_err, "ms": k7_ms, "ms_l2_cold": k7_cold_ms,
              "plain_ms": k7_plain_ms, "bound_ms": k7_bound, "bound_by": k7_by, "library_ms": None,
              "tolerance": {"atol": K1_ATOL, "max_share_beyond": K1_MAX_SHARE, "max_abs": K1_MAX_ERR},
-             "share_beyond_atol": k7_share, "k1_ms_in_turns": k1_ms, "transpose_ms": transpose_ms})
-    del s, props, props_t, ct, color, t_fin
+             "share_beyond_atol": k7_share, "k1_ms_in_turns": k1_ms, "transpose_ms": transpose_ms,
+             "checksum": k7_sum, "warp_steps": k7_steps, "rows": k7_rows, "ptxas": k7_build})
+    del s, props, props_t, ct, counts, color, t_fin
 
     print("== 14. transposed path, gradients: train view 0, first step's state, the trainer's budgets")
     data = Path(args.work) / "train_data"
@@ -1376,26 +1403,32 @@ def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
     del g_t_path, g_row_path
     with torch.no_grad():
         props = s.props()
-        props_t, ct = props.t().contiguous(), s.chunk_tile
-        color, final_t = stream_t.composite_stream_tiles_t(props_t, ct, gw, gh)
+        props_t, ct, counts = props.t().contiguous(), s.chunk_tile, s.binned.tile_counts
+        color, final_t = stream_t.composite_stream_tiles_t(props_t, ct, counts, gw, gh)
     # The loss's true cotangents of the compositor's outputs.
     c, t = color.clone().requires_grad_(), final_t.clone().requires_grad_()
     img = stream.tiles_to_image(c, t, s.binned.covered, bg, grid_w=gw, grid_h=gh)[0]
     g_color, g_t = torch.autograd.grad(train_loss(img), [c, t])
-    k8_in = (props_t, ct, gw, gh, color, final_t, g_color, g_t)
+    k8_in = (props_t, ct, counts, gw, gh, color, final_t, g_color, g_t)
+    plain_in = k8_in[:2] + k8_in[3:]
+    chunk = props_t.shape[1] // ct.shape[0]
+    k8_rows = run_rows(ct, counts, gw * gh, chunk)
     with torch.no_grad():
-        d_plain = stream_t.composite_stream_tiles_t_bwd_plain(*k8_in)
+        d_plain = stream_t.composite_stream_tiles_t_bwd_plain(*plain_in)
         if not on_card:
             return entries
         d_k8 = stream_t._launch_stream_t_bwd(*k8_in)
         scale = float(d_plain.abs().max())
         err = (d_k8 - d_plain)[:stream.GRAD_F].abs()
         k8_err, k8_share = float(err.max()), float((err > K2_ATOL * scale).float().mean())
-        print(f"K8: chunk {props_t.shape[1] // ct.shape[0]}, planes [16, {props_t.shape[1]}]; K8 vs plain: max abs diff "
+        print(f"K8: chunk {chunk}, planes [16, {props_t.shape[1]}], rows walked at most (the runs' real rows) "
+              f"{k8_rows['real']} of {k8_rows['padded']} in the runs; K8 vs plain: max abs diff "
               f"{k8_err:.3e} = {k8_err / scale:.3e} of max |plain| {scale:.3e} (tolerance {K2_MAX_ERR}), share beyond "
               f"{K2_ATOL} of max: {k8_share:.3e} (tolerance {K2_MAX_SHARE})")
         check(k8_err <= K2_MAX_ERR * scale and k8_share <= K2_MAX_SHARE
               and bool(torch.all(d_k8[stream.GRAD_F:] == 0)), "K8 agrees with its plain version")
+        k8_sum = checksum(d_k8)
+        print(f"K8 checksum of the gradient planes on train view 0: {k8_sum}")
     del d_plain, d_k8, err, g0
     smi = smi_line()
     clk = sm_clock()
@@ -1404,7 +1437,7 @@ def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
         k2_ms, k8_ms = interleaved_ms([lambda: stream._launch_stream_bwd(*k2_in),
                                        lambda: stream_t._launch_stream_t_bwd(*k8_in)], rounds=10, reps=3)
         k8_cold_ms = cuda_ms_cold(lambda: stream_t._launch_stream_t_bwd(*k8_in), reps=10)
-        k8_plain_ms = cuda_ms(lambda: stream_t.composite_stream_tiles_t_bwd_plain(*k8_in), reps=2)
+        k8_plain_ms = cuda_ms(lambda: stream_t.composite_stream_tiles_t_bwd_plain(*plain_in), reps=2)
         pairs, live = stream_t.composite_stream_tiles_t_plain(props_t, ct, gw, gh, count_work=True)[2]
     T = gw * gh
     real_rows = int(s.binned.tile_counts.sum())
@@ -1413,11 +1446,16 @@ def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
     k8_bound, k8_by = bound(k8_bytes, k8_ops)
     print(f"[{smi}] in turns on the same inputs: K2 {k2_ms:.4f} ms, K8 {k8_ms:.4f} ms (K2/K8 {k2_ms / k8_ms:.3f}, "
           f"K8/K2 {k8_ms / k2_ms:.3f})")
+    k8_build = ptxas_report("stream_t_bwd.cu")
     print(f"[{smi}] K8 {k8_ms:.4f} ms (L2 cold {k8_cold_ms:.4f}), plain {k8_plain_ms:.2f} ms, bound {k8_bound:.4f} ms "
-          f"({k8_by}: {k8_bytes} B, {k8_ops} fp32 ops, {pairs} walked pairs, {live} contributing)")
+          f"({k8_by}: {k8_bytes} B, {k8_ops} fp32 ops, {pairs} walked pairs, {live} contributing); build {k8_build}")
+    if "table_k6_ms" in summary:
+        print(f"[{smi}] for reference, K6 on its own inputs (section 12b, train view 0's table): "
+              f"{summary['table_k6_ms']:.4f} ms; K8/K6 {k8_ms / summary['table_k6_ms']:.3f}")
     print_clocks(clk, "14")
     summary.update(transposed_k2_ms=k2_ms, transposed_k8_ms=k8_ms, transposed_k8_pairs=pairs,
-                   transposed_k8_live_pairs=live, transposed_grad_err=grad_err)
+                   transposed_k8_live_pairs=live, transposed_grad_err=grad_err, transposed_k8_checksum=k8_sum,
+                   transposed_k8_rows=k8_rows)
     entries.append(
         {"name": "stream_t_bwd", "route": "cuda",
          "source": "gaussian_transformer_tpu_torch/csrc/stream_t_bwd.cu",
@@ -1425,8 +1463,8 @@ def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
          "launches": k8_step, "max_abs_err": k8_err, "ms": k8_ms, "ms_l2_cold": k8_cold_ms,
          "plain_ms": k8_plain_ms, "bound_ms": k8_bound, "bound_by": k8_by, "library_ms": None,
          "tolerance": {"max_abs_of_max": K2_MAX_ERR, "atol_of_max": K2_ATOL, "max_share_beyond": K2_MAX_SHARE},
-         "share_beyond_atol": k8_share, "k2_ms_in_turns": k2_ms, "chunk": props_t.shape[1] // ct.shape[0],
-         "stream_rows": props_t.shape[1]})
+         "share_beyond_atol": k8_share, "k2_ms_in_turns": k2_ms, "chunk": chunk,
+         "stream_rows": props_t.shape[1], "checksum": k8_sum, "rows": k8_rows, "ptxas": k8_build})
     return entries
 
 

@@ -59,27 +59,33 @@ __device__ __forceinline__ int walked_rows(int count, int K) {
   return min((max(count, 0) + kChunk - 1) / kChunk * kChunk, K);
 }
 
-// ---- The forward walk (K1 stream_fwd.cu, K5 table_fwd.cu) ----
+// ---- The forward walk (K1 stream_fwd.cu, K5 table_fwd.cu, K7 stream_t_fwd.cu) ----
 //
-// One walk, two entry points: a block of 256 threads composites one 16x16
-// tile over n contiguous rows of 16 floats, front to back. K1 passes its
-// tile's real stream rows in the tile-local frame (origin = the tile's
-// corner, pixel centers 0..15); K5 its table slab's walked_rows in screen
-// coordinates (origin 0, absolute pixel centers). The zero sentinel rows
-// past a tile's real count never contribute and never stop a pixel (alpha
-// 0 < 1/255), so where K1 ends its run changes no output bit.
+// One walk, three entry points: a block of 256 threads composites one 16x16
+// tile over n contiguous rows, front to back. K1 passes its tile's real
+// stream rows in the tile-local frame (origin = the tile's corner, pixel
+// centers 0..15); K5 its table slab's walked_rows in screen coordinates
+// (origin 0, absolute pixel centers); K7 its tile's real rows of the
+// transposed stream (planes), in K5's frame. The zero sentinel rows past a
+// tile's real count never contribute and never stop a pixel (alpha 0 <
+// 1/255), so where K1 and K7 end their runs changes no output bit. The
+// layout is a compile-time choice, the stager (RowStager, PlaneStager);
+// everything after staging is one code path.
 //
 // Pixel map. Warp w, lane l takes the pixel at column (w & 1) * 8 + (l & 7),
 // row (w >> 1) * 4 + (l >> 3): a warp covers an 8x4 block, whose shorter
 // perimeter leaves more of its steps uniform (all lanes skip, or none) than
 // a 16x2 strip. Outputs stay indexed by pixel.
 //
-// Staging. Batches of 256 rows in shared memory: the threads copy each row's
-// (x, y, a, b) and (c, r, g, b) float4, and thread k writes row k's head
-// (x - ox, y - oy, P_row, opacity), so the frame shift and the skip floor
-// are computed once per row. Two barriers a batch (staged; consumed, which
-// __syncthreads_count also uses to stop the block once every pixel has
-// terminated). 12 KB of shared memory a block.
+// Staging. Batches of 256 rows in shared memory: each row's (x, y, a, b)
+// and (c, r, g, b) float4, and its head (x - ox, y - oy, P_row, opacity),
+// so the frame shift and the skip floor are computed once per row. Rows:
+// the threads copy the float4 and thread k writes row k's head. Planes:
+// thread k reads row k's 9 used planes (one coalesced 1 KB run per plane
+// across the block) and writes all three slots of row k; the origin is 0
+// and fl(x - 0) = x, so its head holds x and y as read. Two barriers a
+// batch (staged; consumed, which __syncthreads_count also uses to stop the
+// block once every pixel has terminated). 12 KB of shared memory a block.
 //
 // Exp-free skip. The walk first forms power (splat_power, unchanged) and
 // skips the pair when power < P_row, before expf; a warp whose live lanes
@@ -164,10 +170,25 @@ __device__ __forceinline__ void walk_batch(const FwdBatch& b, int n, float px, f
   }
 }
 
-// The forward walk of one tile: rows [0, n_rows) of src, means shifted by
-// (ox, oy), this thread's pixel p at (px, py) in that frame. Writes the
-// pre-background color planes color[0 / 256 / 512 + p] and final_t[p].
-__device__ __forceinline__ void forward_walk(FwdBatch& buf, const float4* __restrict__ src, int n_rows,
+// A stager puts rows [base, base + n) of its source into a batch. The walk
+// takes it as a template type with the source, origin and pixel as plain
+// parameters: so K1 and K5 compile to the machine code they had before K7
+// shared the walk (a stager object renumbered their registers). The row
+// layout's (K1, K5): rows of 16 floats from src, means shifted by (ox, oy).
+struct RowStager {
+  using Src = const float4*;
+  static __device__ __forceinline__ void stage(FwdBatch& b, const float4* __restrict__ src, int base, int n,
+                                               int tid, float ox, float oy) {
+    stage_batch(b, src + (size_t)base * kRowV, n, tid, ox, oy);
+  }
+};
+
+// The forward walk of one tile: rows [0, n_rows) of src as Stager stages
+// them, means shifted by (ox, oy), this thread's pixel p at (px, py) in
+// that frame. Writes the pre-background color planes color[0 / 256 / 512 +
+// p] and final_t[p].
+template <typename Stager>
+__device__ __forceinline__ void forward_walk(FwdBatch& buf, typename Stager::Src src, int n_rows,
                                              float ox, float oy, int p, float px, float py,
                                              float* __restrict__ color, float* __restrict__ final_t) {
   const int tid = threadIdx.x;
@@ -175,7 +196,7 @@ __device__ __forceinline__ void forward_walk(FwdBatch& buf, const float4* __rest
   int done = 0;
   for (int base = 0; base < n_rows; base += kFwdBatch) {
     const int n = min(kFwdBatch, n_rows - base);
-    stage_batch(buf, src + (size_t)base * kRowV, n, tid, ox, oy);  // the last batch is consumed
+    Stager::stage(buf, src, base, n, tid, ox, oy);  // the last batch is consumed
     __syncthreads();
     if (!done) walk_batch(buf, n, px, py, T, c0, c1, c2, done);
     if (__syncthreads_count(done) == kPixels) break;
@@ -187,24 +208,35 @@ __device__ __forceinline__ void forward_walk(FwdBatch& buf, const float4* __rest
 }
 
 // The transposed stream layout (stream_t_fwd.cu, stream_t_bwd.cu): plane j
-// of row r at props_t[j * ld + r]. The walk reads planes 0-8 (x, y, conic
-// a, b, c, r, g, b, opacity); a staged row keeps them 12 floats apart in
-// shared memory (three float4, the last holding opacity), so the walk reads
-// it as the row-layout kernels read theirs.
+// of row r at props_t[j * ld + r]. The walks read planes 0-8 (x, y, conic
+// a, b, c, r, g, b, opacity).
 constexpr int kUsedPlanes = 9;
-constexpr int kPlaneRowF = 12;
-constexpr int kPlaneRowV = kPlaneRowF / 4;
 
-// Row r's 9 used planes into dst[0..8]; a warp's threads on consecutive rows
-// read each plane coalesced.
-__device__ __forceinline__ void stage_planes(const float* __restrict__ props_t, long long ld,
-                                             long long r, float* dst) {
+// The transposed layout's stager (K7): thread k reads row k's 9 used planes
+// (plane j at rows[j * ld]). Its frame is the screen's: the origin is 0 and
+// fl(x - 0) = x, so the head takes x and y as read.
+struct PlaneRows {
+  const float* rows;  // plane 0 at the walk's first row
+  long long ld;       // the plane stride
+};
+struct PlaneStager {
+  using Src = PlaneRows;
+  static __device__ __forceinline__ void stage(FwdBatch& b, PlaneRows planes, int base, int n, int tid,
+                                               float, float) {
+    if (tid < n) {
+      const float* src = planes.rows + base + tid;
+      const long long ld = planes.ld;
+      float v[kUsedPlanes];
 #pragma unroll
-  for (int j = 0; j < kUsedPlanes; ++j) dst[j] = __ldg(props_t + j * ld + r);
-}
+      for (int j = 0; j < kUsedPlanes; ++j) v[j] = __ldg(src + j * ld);
+      b.raw[2 * tid] = make_float4(v[0], v[1], v[2], v[3]);
+      b.raw[2 * tid + 1] = make_float4(v[4], v[5], v[6], v[7]);
+      b.head[tid] = make_float4(v[0], v[1], skip_floor(v[8]), v[8]);
+    }
+  }
+};
 
-// ---- The backward replay (stream_bwd.cu, table_bwd.cu; K8 shares only
-// ---- pixel_grad_terms) ----
+// ---- The backward replay (stream_bwd.cu, table_bwd.cu, stream_t_bwd.cu) ----
 
 // One (row, pixel) step of a backward's replay, given the row's power in the
 // forward's frame: the forward's alpha and T walk, then, with w = alpha T and
@@ -256,7 +288,7 @@ __device__ __forceinline__ void pixel_grad_terms(float gp, float w, float gc0, f
   t[8] = gp;
 }
 
-// The per-batch reduction of K2 and K6. The walk phase takes B = 32 rows;
+// The per-batch reduction of K2, K6 and K8. The walk phase takes B = 32 rows;
 // each thread (pixel) stores its (g_power, w) for every row of the batch,
 // and lane 0 of each warp the warp's ballot of "contributes". Then the
 // block's 256 threads take (row, segment) jobs: 32 rows x 8 segments of 32

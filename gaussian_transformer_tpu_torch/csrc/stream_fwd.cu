@@ -17,9 +17,10 @@
 // row_end[t]) (the wrapper's stream.real_row_ranges: a run starts on a chunk
 // and pads only at its tail, so its first tile_counts[t] rows are the real
 // ones; row_end never passes the run's padded end). The walk itself is
-// stream_common.cuh forward_walk, shared with K5 (table_fwd.cu): 8x4-pixel
-// warps, rows staged 256 at a time in shared memory, a skip test before the
-// expf, and a block-wide exit once every pixel has terminated. Means are
+// stream_common.cuh forward_walk with the row stager, shared with K5 and K7
+// (table_fwd.cu, stream_t_fwd.cu): 8x4-pixel warps, rows staged 256 at a
+// time in shared memory, a skip test before the expf, and a block-wide exit
+// once every pixel has terminated. Means are
 // shifted into the tile-local frame once per row at staging (dx = (x -
 // tile_origin) - px_local, as the TPU kernel evaluates it).
 //
@@ -49,9 +50,10 @@ __global__ void __launch_bounds__(kPixels) stream_fwd_kernel(
   const int t = blockIdx.x;
   const int p = fwd_pixel(threadIdx.x);
   const int r0 = row_start[t];
-  forward_walk(buf, props + (size_t)r0 * kRowV, row_end[t] - r0, (float)((t % grid_w) * kTile),
-               (float)((t / grid_w) * kTile), p, (float)(p % kTile), (float)(p / kTile),
-               color + (size_t)t * 3 * kPixels, final_t + (size_t)t * kPixels);
+  forward_walk<RowStager>(buf, props + (size_t)r0 * kRowV, row_end[t] - r0,
+                          (float)((t % grid_w) * kTile), (float)((t / grid_w) * kTile), p,
+                          (float)(p % kTile), (float)(p / kTile), color + (size_t)t * 3 * kPixels,
+                          final_t + (size_t)t * kPixels);
 }
 
 }  // namespace

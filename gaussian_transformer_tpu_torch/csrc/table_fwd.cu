@@ -47,9 +47,10 @@ __global__ void __launch_bounds__(kPixels) table_fwd_kernel(
   __shared__ FwdBatch buf;
   const int t = blockIdx.x;
   const int p = fwd_pixel(threadIdx.x);
-  forward_walk(buf, props + (size_t)t * K * kRowV, walked_rows(counts[t], K), 0.0f, 0.0f, p,
-               (float)((t % grid_w) * kTile + p % kTile), (float)((t / grid_w) * kTile + p / kTile),
-               color + (size_t)t * 3 * kPixels, final_t + (size_t)t * kPixels);
+  forward_walk<RowStager>(buf, props + (size_t)t * K * kRowV, walked_rows(counts[t], K), 0.0f, 0.0f, p,
+                          (float)((t % grid_w) * kTile + p % kTile),
+                          (float)((t / grid_w) * kTile + p / kTile), color + (size_t)t * 3 * kPixels,
+                          final_t + (size_t)t * kPixels);
 }
 
 }  // namespace

@@ -186,18 +186,18 @@ def walked_mask(lv, trigger):
     return (lv > 0.0) & ((torch.cumsum(trig, dim=1) - trig) == 0)
 
 
-def stream_warp_steps(props, chunk_tile, tile_counts, grid_w, grid_h):
+def stream_warp_steps(props, chunk_tile, tile_counts, grid_w, grid_h, absolute=False):
     """(steps, uniform-skip steps) of K1's warps over a stream, counted by
     the plain walk: per (row, warp), whether any lane walks the row (up to
     its run's last real row, where K1 ends) and whether every lane that does
-    skips it."""
+    skips it. ``absolute``: K7's walk, in screen coordinates."""
     T = grid_w * grid_h
     chunk = props.shape[0] // chunk_tile.shape[0]
     row_end = real_row_ranges(chunk_tile.to(torch.int32), tile_counts, T, chunk)[1].long()
     lanes = warp_lanes(props.device)
     steps = torch.zeros((), dtype=torch.int64, device=props.device)
     uniform = torch.zeros((), dtype=torch.int64, device=props.device)
-    for rd in _plain_rounds(props, chunk_tile, grid_w, grid_h):
+    for rd in _plain_rounds(props, chunk_tile, grid_w, grid_h, absolute):
         active = walked_mask(rd.lv, rd.trigger) & (rd.idx < row_end[rd.tiles, None])[..., None]
         s, u = warp_step_counts(active, rd.alpha == 0.0, lanes)
         steps += s

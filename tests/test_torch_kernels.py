@@ -485,14 +485,45 @@ def _table_to_stream(table_rows, tiles, chunk):
     return torch.cat(parts + [table_rows.new_zeros(chunk, table_rows.shape[2])])
 
 
+def _real_rows(tiles, chunk, device):
+    """[I_pad] True at the real rows of the stream of ``_replay_layouts``."""
+    mask = []
+    for rows in tiles:
+        n = -(-len(rows) // chunk) * chunk
+        mask += [True] * len(rows) + [False] * (n - len(rows))
+    return torch.tensor(mask + [False] * chunk, device=device)
+
+
+def _check_k7_is_k5(fwd7, fwd5):
+    """K7 and K5 walk the same rows in the same frame with the same
+    arithmetic: their outputs agree bit for bit in every tile."""
+    assert torch.equal(fwd7[0], fwd5[0]) and torch.equal(fwd7[1], fwd5[1])
+
+
+def _check_k8_is_k6(got8, got6, tiles, chunk):
+    """K8's planes 0-8 at each tile's real rows equal K6's rows bit for bit
+    (the same walk, reduced in the same order); everywhere else (planes
+    9-15, the run padding, the trash chunk) K8 wrote zeros, as K6 did past
+    its counts."""
+    real = _real_rows(tiles, chunk, got8.device)
+    rows = got8.t()[real]
+    starts = np.cumsum([0] + [len(r) for r in tiles])
+    as_table = torch.zeros_like(got6)
+    for t, rows_t in enumerate(tiles):
+        as_table[t, :len(rows_t)] = rows[starts[t]:starts[t + 1]]
+    assert torch.equal(as_table, got6)
+    assert torch.all(got8[:, ~real] == 0) and torch.all(got8[stream.GRAD_F:] == 0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["one_lane", "capped", "partial_batch_exit", "flat_exit", "flatter_exit"])
 def test_replay_backwards_edge_cases(cuda, case):
-    """K2 and K6 on hand-made rows: a row one lane of one warp sees, rows at
-    the 0.99 cap, row counts off the batch size and a block that exits
-    mid-batch (every later row zero), held under K2's rule to their plain
-    versions and to the float64 evaluation of their function (the plain
-    versions are held to it too). Prints each reading (``-s``).
+    """K2, K6 and K8 on hand-made rows: a row one lane of one warp sees,
+    rows at the 0.99 cap, row counts off the batch size and a block that
+    exits mid-batch (every later row zero), held under K2's rule to their
+    plain versions and to the float64 evaluation of their function (the
+    plain versions are held to it too); K8's planes equal K6's rows bit for
+    bit. Prints each reading (``-s``).
 
     In the flat cases the kernels and the plain versions are two float32
     evaluations of rows whose per-pixel g_alpha divides a cancelling suffix
@@ -501,6 +532,7 @@ def test_replay_backwards_edge_cases(cuda, case):
     the float64 evaluation. There the kernels are held to that only."""
     tiles, chunk = _replay_case(case)
     (props, ct), (table, counts) = _replay_layouts(tiles, chunk, cuda)
+    props_t = props.t().contiguous()
     fwd2 = stream.composite_stream_tiles(props, ct, counts, 2, 1)
     g_color, g_t = _cotangents(*fwd2, seed=3)
     got2 = stream._launch_stream_bwd(props, ct, 2, 1, *fwd2, g_color, g_t)
@@ -510,11 +542,19 @@ def test_replay_backwards_edge_cases(cuda, case):
     got6 = table_composite._launch_table_bwd(table, counts, 2, *fwd6, g_color, g_t)
     ref6 = table_composite.composite_table_tiles_bwd_plain(table, counts, 2, *fwd6, g_color, g_t)
     exact6 = _table_bwd_f64(table, counts, 2, *fwd6, g_color, g_t)
+    fwd7 = stream_t.composite_stream_tiles_t(props_t, ct, counts, 2, 1)
+    got8 = stream_t._launch_stream_t_bwd(props_t, ct, counts, 2, 1, *fwd7, g_color, g_t)
+    ref8 = stream_t.composite_stream_tiles_t_bwd_plain(props_t, ct, 2, 1, *fwd7, g_color, g_t)
+    exact8 = _table_to_stream(_table_bwd_f64(table, counts, 2, *fwd7, g_color, g_t), tiles, chunk).t()
     torch.cuda.synchronize()
+    _check_k7_is_k5(fwd7, fwd6)
+    _check_k8_is_k6(got8, got6, tiles, chunk)
     readings = {
-        "K2 vs plain": _k2_rule(got2, ref2), "K6 vs plain": _k2_rule(got6, ref6),
+        "K2 vs plain": _k2_rule(got2, ref2), "K6 vs plain": _k2_rule(got6, ref6), "K8 vs plain": _k2_rule(got8, ref8),
         "K2 vs float64": _k2_rule(got2, exact2), "K6 vs float64": _k2_rule(got6, exact6),
+        "K8 vs float64": _k2_rule(got8, exact8),
         "plain K2 vs float64": _k2_rule(ref2, exact2), "plain K6 vs float64": _k2_rule(ref6, exact6),
+        "plain K8 vs float64": _k2_rule(ref8, exact8),
     }
     for name, (max_err, share) in readings.items():
         print(f"{case}: {name}: max abs error {max_err:.3e} of the largest gradient, share beyond 2e-4 {share:.3e}")
@@ -529,14 +569,15 @@ def test_replay_backwards_edge_cases(cuda, case):
         last = 40 if case == "partial_batch_exit" else 41
         assert float(got6[1, last, 5:8].abs().min()) > 0 and float(got2[48 + last, 5:8].abs().min()) > 0
         assert torch.all(got6[1, last + 1:] == 0) and torch.all(got2[48 + last + 1:] == 0)
+        assert float(got8[5:8, 48 + last].abs().min()) > 0 and torch.all(got8[:, 48 + last + 1:] == 0)
 
 
 @pytest.mark.parametrize("case", ["one_lane", "capped", "partial_batch_exit", "flat_exit", "flatter_exit"])
 def test_plain_replay_backwards_edge_cases(case):
-    """The references of the card test above, on the CPU: plain K2 and plain
-    K6 on the same hand-made rows each within K2's rule of the float64
-    evaluation of their function, so a kernel held to either is held to the
-    function."""
+    """The references of the card test above, on the CPU: plain K2, plain
+    K6 and plain K8 on the same hand-made rows each within K2's rule of the
+    float64 evaluation of their function, so a kernel held to any of them is
+    held to the function."""
     cpu = torch.device("cpu")
     tiles, chunk = _replay_case(case)
     (props, ct), (table, counts) = _replay_layouts(tiles, chunk, cpu)
@@ -547,7 +588,11 @@ def test_plain_replay_backwards_edge_cases(case):
     fwd6 = table_composite.composite_table_tiles(table, counts, 2)
     ref6 = table_composite.composite_table_tiles_bwd_plain(table, counts, 2, *fwd6, g_color, g_t)
     exact6 = _table_bwd_f64(table, counts, 2, *fwd6, g_color, g_t)
-    for got, exact in ((ref2, exact2), (ref6, exact6)):
+    props_t = props.t().contiguous()
+    fwd8 = stream_t.composite_stream_tiles_t(props_t, ct, counts, 2, 1)
+    ref8 = stream_t.composite_stream_tiles_t_bwd_plain(props_t, ct, 2, 1, *fwd8, g_color, g_t)
+    exact8 = _table_to_stream(_table_bwd_f64(table, counts, 2, *fwd8, g_color, g_t), tiles, chunk).t()
+    for got, exact in ((ref2, exact2), (ref6, exact6), (ref8, exact8)):
         max_err, share = _k2_rule(got, exact)
         assert max_err <= 1e-3 and share <= 1e-4, (max_err, share)
 
@@ -590,41 +635,55 @@ def _forward_edge_tiles(spike=True):
 @pytest.mark.gpu
 @pytest.mark.parametrize("chunk", [512, 32])
 def test_forward_kernels_edge_rows(cuda, chunk):
-    """K1 and K5 on ``_forward_edge_tiles`` (each run walked to its real
+    """K1, K5 and K7 on ``_forward_edge_tiles`` (each run walked to its real
     count; at chunk 512 most of a run is sentinel) against their plain
-    versions under K1's rule; tile 0's frame is the screen's for both, so
-    their outputs there agree bit for bit. K2 and K6, fed the forwards'
-    outputs (rows without the spike), against their plain versions under
-    K2's rule."""
+    versions under K1's rule; tile 0's frame is the screen's for K1, so
+    K1's and K5's outputs there agree bit for bit, and K7's equal K5's in
+    every tile. K2, K6 and K8, fed the forwards' outputs (rows without the
+    spike), against their plain versions under K2's rule; K8's planes equal
+    K6's rows bit for bit."""
     tiles = _forward_edge_tiles()
     (props, ct), (table, counts) = _replay_layouts(tiles, chunk, cuda)
-    before = (stream.STREAM_FWD.launches, table_composite.TABLE_FWD.launches)
+    props_t = props.t().contiguous()
+    kernels = (stream.STREAM_FWD, table_composite.TABLE_FWD, stream_t.STREAM_T_FWD)
+    before = [k.launches for k in kernels]
     fwd1 = stream.composite_stream_tiles(props, ct, counts, 2, 1)
     fwd5 = table_composite.composite_table_tiles(table, counts, 2)
+    fwd7 = stream_t.composite_stream_tiles_t(props_t, ct, counts, 2, 1)
     torch.cuda.synchronize()
-    assert (stream.STREAM_FWD.launches, table_composite.TABLE_FWD.launches) == (before[0] + 1, before[1] + 1)
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
     for got, ref in ((fwd1, stream.composite_stream_tiles_plain(props, ct, 2, 1)),
-                     (fwd5, table_composite.composite_table_tiles_plain(table, counts, 2))):
+                     (fwd5, table_composite.composite_table_tiles_plain(table, counts, 2)),
+                     (fwd7, stream_t.composite_stream_tiles_t_plain(props_t, ct, 2, 1))):
         err = torch.cat([(got[0] - ref[0]).flatten(), (got[1] - ref[1]).flatten()]).abs()
         assert float(err.max()) <= 1e-3
         assert float((err > K1_ATOL).float().mean()) <= 1e-4
     assert torch.equal(fwd1[0][0], fwd5[0][0]) and torch.equal(fwd1[1][0], fwd5[1][0])
+    _check_k7_is_k5(fwd7, fwd5)
     # Tile 1 stops by row 32 (a run cut there gives the same bits), tile 0 never.
     cut = counts.clone()
     cut[1] = 33
     assert all(torch.equal(a, b) for a, b in zip(fwd1, stream.composite_stream_tiles(props, ct, cut, 2, 1)))
+    assert all(torch.equal(a, b) for a, b in zip(fwd7, stream_t.composite_stream_tiles_t(props_t, ct, cut, 2, 1)))
     assert float(fwd1[1][0].min()) > 0.1 and float(fwd1[1][1].max()) < 0.02
-    (props, ct), (table, counts) = _replay_layouts(_forward_edge_tiles(spike=False), chunk, cuda)
+    tiles = _forward_edge_tiles(spike=False)
+    (props, ct), (table, counts) = _replay_layouts(tiles, chunk, cuda)
+    props_t = props.t().contiguous()
     fwd1 = stream.composite_stream_tiles(props, ct, counts, 2, 1)
     fwd5 = table_composite.composite_table_tiles(table, counts, 2)
+    fwd7 = stream_t.composite_stream_tiles_t(props_t, ct, counts, 2, 1)
+    _check_k7_is_k5(fwd7, fwd5)
     g_color, g_t = _cotangents(*fwd1, seed=6)
     got2 = stream._launch_stream_bwd(props, ct, 2, 1, *fwd1, g_color, g_t)
     ref2 = stream.composite_stream_tiles_bwd_plain(props, ct, 2, 1, *fwd1, g_color, g_t)
     got6 = table_composite._launch_table_bwd(table, counts, 2, *fwd5, g_color, g_t)
     ref6 = table_composite.composite_table_tiles_bwd_plain(table, counts, 2, *fwd5, g_color, g_t)
-    for got, ref in ((got2, ref2), (got6, ref6)):
+    got8 = stream_t._launch_stream_t_bwd(props_t, ct, counts, 2, 1, *fwd7, g_color, g_t)
+    ref8 = stream_t.composite_stream_tiles_t_bwd_plain(props_t, ct, 2, 1, *fwd7, g_color, g_t)
+    for got, ref in ((got2, ref2), (got6, ref6), (got8, ref8)):
         max_err, share = _k2_rule(got, ref)
         assert max_err <= 1e-3 and share <= 1e-4, (max_err, share)
+    _check_k8_is_k6(got8, got6, tiles, chunk)
 
 
 def _skip_floor_sweep():
@@ -673,21 +732,25 @@ def _skip_floor_sweep():
 
 @pytest.mark.gpu
 def test_forward_kernels_skip_floor_sweep(cuda):
-    """The exp-free skip with the kernels' own logf and expf: K1 and K5 on
-    ``_skip_floor_sweep``'s rows against the float64 evaluation (1e-5) and
-    against their plain versions under K1's rule; K1 = K5 bit for bit (the
-    same dx in both frames)."""
+    """The exp-free skip with the kernels' own logf and expf: K1, K5 and K7
+    on ``_skip_floor_sweep``'s rows against the float64 evaluation (1e-5)
+    and against their plain versions under K1's rule; K1 = K5 = K7 bit for
+    bit (the same dx in both frames)."""
     tiles, color, final_t = _skip_floor_sweep()
     (props, ct), (table, counts) = _replay_layouts(tiles, 32, cuda)
+    props_t = props.t().contiguous()
     fwd1 = stream.composite_stream_tiles(props, ct, counts, len(tiles), 1)
     fwd5 = table_composite.composite_table_tiles(table, counts, len(tiles))
+    fwd7 = stream_t.composite_stream_tiles_t(props_t, ct, counts, len(tiles), 1)
     for got, ref in ((fwd1, stream.composite_stream_tiles_plain(props, ct, len(tiles), 1)),
-                     (fwd5, table_composite.composite_table_tiles_plain(table, counts, len(tiles)))):
+                     (fwd5, table_composite.composite_table_tiles_plain(table, counts, len(tiles))),
+                     (fwd7, stream_t.composite_stream_tiles_t_plain(props_t, ct, len(tiles), 1))):
         assert float((got[0].cpu().double() - torch.from_numpy(color)).abs().max()) <= 1e-5
         assert float((got[1].cpu().double() - torch.from_numpy(final_t)).abs().max()) <= 1e-5
         err = torch.cat([(got[0] - ref[0]).flatten(), (got[1] - ref[1]).flatten()]).abs()
         assert float(err.max()) <= 1e-3 and float((err > K1_ATOL).float().mean()) <= 1e-4
     assert torch.equal(fwd1[0], fwd5[0]) and torch.equal(fwd1[1], fwd5[1])
+    _check_k7_is_k5(fwd7, fwd5)
 
 
 @pytest.mark.parametrize("layout", ["stream", "table"])
@@ -707,7 +770,7 @@ def test_plain_forward_skip_floor_sweep(layout):
 
 @pytest.mark.gpu
 def test_replay_backwards_deterministic(cuda):
-    """Two launches of K2 and of K6 give the same bits."""
+    """Two launches of K2, of K6 and of K8 give the same bits."""
     with torch.no_grad():
         s = prepare_stream(_camera(160, 112, cuda), _scene(4000, 1, cuda))
         props, ct, gw, gh = s.props(), s.chunk_tile, s.grid_w, s.grid_h
@@ -715,6 +778,9 @@ def test_replay_backwards_deterministic(cuda):
         k2_in = (props, ct, gw, gh, color, t, *_cotangents(color, t, seed=4))
         first = stream._launch_stream_bwd(*k2_in)
         assert torch.equal(first, stream._launch_stream_bwd(*k2_in))
+        k8_in = (props.t().contiguous(), ct, s.binned.tile_counts, *k2_in[2:])
+        first = stream_t._launch_stream_t_bwd(*k8_in)
+        assert torch.equal(first, stream_t._launch_stream_t_bwd(*k8_in))
         s = prepare_table(_camera(160, 112, cuda), _scene(4000, 1, cuda), RenderConfig(use_stream=False, max_per_tile=256))
         props, counts = s.props(), s.binned.tile_counts
         color, t = table_composite.composite_table_tiles(props, counts, s.grid_w)
@@ -730,7 +796,7 @@ def _check_k7_k8(s, seed):
     props = s.props()
     props_t, ct, gw, gh = props.t().contiguous(), s.chunk_tile, s.grid_w, s.grid_h
     before = (stream_t.STREAM_T_FWD.launches, stream_t.STREAM_T_BWD.launches)
-    color, t = stream_t.composite_stream_tiles_t(props_t, ct, gw, gh)
+    color, t = stream_t.composite_stream_tiles_t(props_t, ct, s.binned.tile_counts, gw, gh)
     cov = s.binned.covered
     for ref_color, ref_t in (stream_t.composite_stream_tiles_t_plain(props_t, ct, gw, gh),
                              stream.composite_stream_tiles(props, ct, s.binned.tile_counts, gw, gh)):
@@ -740,7 +806,7 @@ def _check_k7_k8(s, seed):
     gen = torch.Generator(props.device).manual_seed(seed)
     g_color = torch.randn(color.shape, generator=gen, device=props.device)
     g_t = torch.randn(t.shape, generator=gen, device=props.device)
-    got = stream_t._launch_stream_t_bwd(props_t, ct, gw, gh, color, t, g_color, g_t)
+    got = stream_t._launch_stream_t_bwd(props_t, ct, s.binned.tile_counts, gw, gh, color, t, g_color, g_t)
     torch.cuda.synchronize()
     assert (stream_t.STREAM_T_FWD.launches, stream_t.STREAM_T_BWD.launches) == (before[0] + 1, before[1] + 1)
     ref = stream_t.composite_stream_tiles_t_bwd_plain(props_t, ct, gw, gh, color, t, g_color, g_t)
@@ -766,6 +832,31 @@ def test_transposed_stream_kernels_saturated(cuda):
     with torch.no_grad():
         s = prepare_stream(_camera(96, 64, cuda), _scene(3000, 2, cuda, opacity=0.97, spread=0.3))
         _check_k7_k8(s, seed=5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [512, 32])
+def test_transposed_kernels_never_read_past_the_real_rows(cuda, chunk):
+    """K7 and K8 on ``_forward_edge_tiles``' stream with NaN in every row
+    past each tile's count (the run padding and the trash chunk): the
+    outputs are finite and equal those of the zero-sentinel stream bit for
+    bit, and K8 writes zeros at the NaN rows, so neither kernel reads
+    them."""
+    tiles = _forward_edge_tiles(spike=False)
+    (props, ct), (_, counts) = _replay_layouts(tiles, chunk, cuda)
+    real = _real_rows(tiles, chunk, cuda)
+    props_t = props.t().contiguous()
+    poisoned = props_t.clone()
+    poisoned[:, ~real] = float("nan")
+    fwd = stream_t.composite_stream_tiles_t(props_t, ct, counts, 2, 1)
+    fwd_nan = stream_t.composite_stream_tiles_t(poisoned, ct, counts, 2, 1)
+    assert all(bool(torch.isfinite(v).all()) for v in fwd_nan)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, fwd_nan))
+    g_color, g_t = _cotangents(*fwd, seed=8)
+    d8 = stream_t._launch_stream_t_bwd(props_t, ct, counts, 2, 1, *fwd, g_color, g_t)
+    d8_nan = stream_t._launch_stream_t_bwd(poisoned, ct, counts, 2, 1, *fwd_nan, g_color, g_t)
+    assert bool(torch.isfinite(d8_nan).all()) and torch.equal(d8, d8_nan)
+    assert torch.all(d8_nan[:, ~real] == 0) and float(d8_nan[:, real].abs().max()) > 0
 
 
 @pytest.mark.gpu

@@ -148,7 +148,7 @@ def test_plain_k7_k8_match_plain_k1_k2(seed, opacity):
     np.testing.assert_allclose(d8.t().numpy(), d2.numpy(), atol=GRAD_REL * scale, rtol=0)
 
     leaf = props_t.clone().requires_grad_()
-    color, final_t = stream_t.composite_stream_tiles_t(leaf, ct, gw, gh)
+    color, final_t = stream_t.composite_stream_tiles_t(leaf, ct, s.binned.tile_counts, gw, gh)
     (via_node,) = torch.autograd.grad((color * g_color).sum() + (final_t * g_t).sum(), leaf)
     np.testing.assert_array_equal(via_node.numpy(), d8.numpy())
 
@@ -192,6 +192,48 @@ def test_wrappers_reject_bad_planes():
         with pytest.raises(ValueError):
             stream_t._checked_planes(bad, ct)
     props_t = torch.zeros(16, 64, requires_grad=True)
-    color, t = stream_t.composite_stream_tiles_t(props_t, ct, 1, 1)
+    color, t = stream_t.composite_stream_tiles_t(props_t, ct, torch.tensor([64], dtype=torch.int32), 1, 1)
     (color.sum() + t.sum()).backward()
     assert float(t.detach().min()) == 1.0 and float(props_t.grad.abs().max()) == 0.0
+
+
+def test_wrapper_rejects_bad_tile_counts():
+    """The tile counts as ``stream._check_counts`` takes them for K1: integer
+    [T] on the planes' device; anything else raises before a launch."""
+    props_t = torch.zeros(16, 64)
+    ct = torch.tensor([0, 1], dtype=torch.int32)
+    counts = torch.tensor([20, 0], dtype=torch.int32)
+    assert stream_t.composite_stream_tiles_t(props_t, ct, counts, 2, 1)[0].shape == (2, 3, 256)
+    for bad in (counts[:1], torch.cat([counts, counts]), counts.float(),
+                torch.zeros(2, dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError):
+            stream_t.composite_stream_tiles_t(props_t, ct, bad, 2, 1)
+
+
+@pytest.mark.parametrize("seed,opacity", [(4, None), (5, 0.97)], ids=["dense", "saturated"])
+def test_plain_k8_is_zero_past_each_real_count(seed, opacity):
+    """The plain K8 walks each run to its padded end; the rows past a
+    tile's real count (its run's sentinel padding) and the trash chunks get
+    exactly zero gradients, which is what K8 writes there without walking
+    them."""
+    scene = make_scene(200, seed=seed, spread=0.3 if opacity else 1.5)
+    if opacity:
+        scene = scene.replace(opacity=jnp.full_like(scene.opacity, inverse_sigmoid(jnp.asarray(opacity))))
+    with torch.no_grad():
+        s = prepare_stream(torch_camera(make_camera(width=64, height=48)), torch_scene(scene), RenderConfig(chunk=32))
+        props_t = s.props().t().contiguous()
+    ct, gw, gh, counts = s.chunk_tile, s.grid_w, s.grid_h, s.binned.tile_counts
+    color, final_t = stream_t.composite_stream_tiles_t_plain(props_t, ct, gw, gh)
+    rng = np.random.RandomState(seed)
+    g_color = torch.from_numpy(rng.randn(*color.shape).astype(np.float32))
+    g_t = torch.from_numpy(rng.randn(*final_t.shape).astype(np.float32))
+    d8 = stream_t.composite_stream_tiles_t_bwd_plain(props_t, ct, gw, gh, color, final_t, g_color, g_t)
+    row_start, row_end = stream.real_row_ranges(ct, counts, gw * gh, props_t.shape[1] // ct.shape[0])
+    real = torch.zeros(props_t.shape[1], dtype=torch.bool)
+    for a, b in zip(row_start.tolist(), row_end.tolist()):
+        real[a:b] = True
+    padded = ~real
+    assert int(padded.sum()) > 0 and int((row_end > row_start).sum()) > 0
+    assert torch.all(props_t[8, padded] == 0)  # sentinel rows: opacity 0
+    assert torch.all(d8[:, padded] == 0)
+    assert float(d8[:, real].abs().max()) > 0
