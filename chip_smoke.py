@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--gaussians 1000000] [--views 4]
                           [--train_points 300000] [--iterations 60]
-                          [--probe_rows 3232768]
+                          [--probe_rows 3232768] [--stack 8] [--stacked_layers 2]
 
 The serving path:
 
@@ -103,6 +103,35 @@ stream as planes [16, I_pad], kernels K7 and K8) and the layout probe (K9):
     (1e-6 relative); times, GB/s, ``torch.sum``'s time, the bound (bytes /
     3.35 TB/s) and the extra bytes allocated.
 
+The stacked Gaussian-sequence transformer at full width (STACK 8: token dim
+and d_model 26 * 2^8 = 6656, N 2, h 8, 1,905,446,400 float32 parameters):
+
+16. A seeded synthetic scene of 17,618 Gaussians at SH degree 1 (the stacked
+    campaign scene's count) written as a trained model dir with a
+    Blender-layout dataset of 32 ring cameras at 320x240; the first batch of
+    ``train.stacked.TrainingScene`` (batch 4, bucket 16, epoch 0) and its
+    lengths in fat tokens; the model from seed 0 (its parameter count
+    checked); ``decode_step`` fed the scan decode's prefix (teacher-forced)
+    against the decoder's rows, and ``greedy_decode_cached`` free-running
+    against ``greedy_decode``; the cached decode's ms per token and the scan
+    decode's ms per window (CUDA events).
+17. The main path: ``cli.train_stacked`` through ``main(argv)`` for one
+    epoch (8 steps at batch 4 over 32 cameras), counters zeroed just before
+    and read just after; checks K1 ran once per camera's visibility render
+    (and 8 times per image-branch step), every loss and chamfer is finite,
+    and every parameter moved but the attention key biases; the median step
+    (CUDA events), the peak memory, and one more step's matmul FLOPs
+    (``FlopCounterMode``) against the float32 non-tensor peak.
+18. The image branch: ``train.stacked.image_loss`` on the first batch's
+    target tokens with pred = target + N(0, 0.01), and its backward,
+    counters zeroed just before and read just after (K1 8, K2 4, K3 1, K4
+    1); the target renders do not overflow, the gradient reaches the
+    predicted tokens finite and nonzero (zero on PAD rows), the loss and the
+    gradient agree with the same call on CPU copies (the plain versions of
+    K1-K4), and K1 agrees with its plain version on camera 0's target
+    render. The K1-K4 entries of the kernels line carry these launches as
+    ``stacked_launches``. Sections 16-18 print the peak memory of each.
+
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
 before and after its window. The K3, K4, K7 and K8 entries of the kernels
 line carry the registers, spills and static shared memory ``nvcc -Xptxas
@@ -118,6 +147,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import math
@@ -504,6 +534,26 @@ def render_profile(fn, top: int = 12) -> str:
         fn()
         torch.cuda.synchronize()
     return prof.key_averages().table(sort_by="cuda_time_total", row_limit=top, max_name_column_width=60)
+
+
+def step_profile(fn, top: int = 15):
+    """(table of device time by CUDA kernel, kernel ms, wall ms) over one
+    warm call of ``fn`` (torch.profiler; the wall time by CUDA events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    kernel_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=top, max_name_column_width=60)
+    return table, kernel_us / 1e3, start.elapsed_time(end)
 
 
 def train_step_profile(ckpt: Path, cam, gt, cfg, device, top: int = 25) -> str:
@@ -1525,6 +1575,257 @@ def probe_path(args, device, summary) -> list:
     ]
 
 
+STACKED_PARAMS = 1_905_446_400  # STACK 8, d_model 6656, N 2 (the stacked campaign's meta.json)
+DECODE_REL = 1e-4  # teacher-forced cached decode vs the decoder's rows, of max |row|
+IMAGE_LOSS_REL = 1e-5  # image loss on the card vs its CPU copy (plain K1-K4), relative
+IMAGE_GRAD_REL = K2_MAX_ERR  # its token gradient, of the largest (K2's rule)
+
+
+def param_fingerprint(model) -> dict:
+    """Per parameter, (sum, sum of |x|) in float64: equal fingerprints for
+    equal tensors, so a step that moves a parameter changes its entry."""
+    import torch
+
+    with torch.no_grad():
+        return {n: (float(p.double().sum()), float(p.double().abs().sum())) for n, p in model.named_parameters()}
+
+
+def add_stacked_launches(entries, launches) -> None:
+    """Write the stacked path's K1-K4 launches (the CLI's epoch and one
+    image-branch call) into those kernels' entries of the kernels line."""
+    names = {"K1": "stream_fwd", "K2": "stream_bwd", "K3": "ssim_fwd", "K4": "ssim_bwd"}
+    for entry in entries:
+        for k, name in names.items():
+            if entry["name"] == name:
+                entry["stacked_launches"] = {path: counts[k] for path, counts in launches.items()}
+
+
+def stacked_path(args, device, summary) -> dict:
+    """Sections 16-18: the stacked transformer at full width (STACK 8,
+    d_model 6656, N 2). Returns the launches of K1-K4 on its paths (the
+    CLI's epoch and one image-branch call), by kernel."""
+    import gc
+    import shutil
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from gaussian_transformer_tpu_torch.cli import train_stacked as cli_stacked
+    from gaussian_transformer_tpu_torch.convert import scene_from_numpy
+    from gaussian_transformer_tpu_torch.models.codec import fuzzy_token_equal, unstack_tokens
+    from gaussian_transformer_tpu_torch.models.decode_cache import (
+        decode_step,
+        greedy_decode_cached,
+        init_decode_state,
+    )
+    from gaussian_transformer_tpu_torch.models.transformer import count_params, subsequent_mask
+    from gaussian_transformer_tpu_torch.ops import fused_ssim
+    from gaussian_transformer_tpu_torch.render import RenderConfig, prepare_stream, stream
+    from gaussian_transformer_tpu_torch.scene import Scene
+    from gaussian_transformer_tpu_torch.train import stacked
+
+    on_card = device.type == "cuda"
+    smi = smi_line() if on_card else "cpu"
+    W, H, fovx = args.stacked_width, args.stacked_height, math.radians(50.0)
+    work = Path(args.work) / "stacked"
+    shutil.rmtree(work, ignore_errors=True)
+    data, model_dir, run_dir = work / "data", work / "model", work / "run"
+    counters = {"K1": stream.STREAM_FWD, "K2": stream.STREAM_BWD, "K3": fused_ssim.SSIM_FWD,
+                "K4": fused_ssim.SSIM_BWD}
+    out = {}
+
+    def peak(section):
+        if on_card:
+            gib = torch.cuda.max_memory_allocated() / 2**30
+            print(f"[{smi}] peak memory of section {section}: {gib:.2f} GiB (torch.cuda.max_memory_allocated)")
+            summary[f"stacked_peak_gib_{section}"] = gib
+            torch.cuda.reset_peak_memory_stats()
+
+    print(f"== 16. stacked transformer: model dir, first batch, serving (STACK {args.stack}, "
+          f"{args.stacked_layers} layers)")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    fields = synthetic_scene(args.stacked_gaussians, args.seed + 5)
+    fields["features_rest"] = fields["features_rest"][:, :3]  # SH degree 1, as the stacked CLI loads it
+    scene = scene_from_numpy(fields, 1, device)
+    write_train_dataset(data, scene, surface_points(2000, args.seed + 5), args.stacked_views, 1, W, H, fovx, device)
+    scene.save_ply(str(model_dir / "point_cloud" / "iteration_30000" / "point_cloud.ply"))
+    del scene
+    ns = Namespace(sh_degree=1, source_path=str(data), model_path=str(model_dir), images="images",
+                   resolution=-1, white_background=False, data_device=str(device), eval=True)
+    tscene = stacked.TrainingScene(Scene(ns, load_iteration=-1, sh_degree=1, device=device), RenderConfig(),
+                                   batch_size=4, stack=args.stack)
+    tscene.set_epoch(0)
+    batch = next(b for b in tscene.batches() if b is not None)
+    Ls, Lt = batch.src.shape[1], batch.trg_y.shape[1]
+    print(f"{args.stacked_gaussians} Gaussians, {tscene.size} cameras at {W}x{H}; first batch: src {Ls} fat "
+          f"tokens, trg {Lt} ({batch.ntokens} real), token dim {batch.src.shape[2]}")
+    summary.update(stacked_src_len=Ls, stacked_trg_len=Lt, stacked_ntokens=batch.ntokens)
+
+    model = stacked.make_stacked_model(args.stack, args.stacked_layers, 0, seed=0, device=device).eval()
+    n_params = count_params(model)
+    print(f"model: {n_params} parameters (float32); TF32 matmuls: {torch.backends.cuda.matmul.allow_tf32}")
+    if args.stack == 8 and args.stacked_layers == 2:
+        check(n_params == STACKED_PARAMS, f"{n_params} parameters == {STACKED_PARAMS}")
+    fingerprint = param_fingerprint(model)
+    start = stacked.start_token(args.stack)
+    with torch.no_grad():
+        ys = stacked.greedy_decode(model, batch.src, batch.src_mask, Lt + 1, args.stack)
+        rows = model.generator(model.decode(model.encode(batch.src, batch.src_mask), batch.src_mask, ys,
+                                            subsequent_mask(Lt + 1, device)))
+        state = init_decode_state(model, batch.src, batch.src_mask, Lt + 1)
+        tf_err = max(float((decode_step(model, state, ys[:, i:i + 1], i) - rows[:, i]).abs().max())
+                     for i in range(Lt + 1))
+        scale = float(rows.abs().max())
+        cached = greedy_decode_cached(model, batch.src, batch.src_mask, Lt + 1, start)
+        free_err = float((cached - ys).abs().max())
+    print(f"teacher-forced decode_step vs the decoder's rows: max abs diff {tf_err:.3e} of max |row| {scale:.3e} "
+          f"(tolerance {DECODE_REL} x max)")
+    check(math.isfinite(tf_err) and tf_err <= DECODE_REL * scale, "the cached decode matches the scan decode, teacher-forced")
+    print(f"free-running greedy_decode_cached vs greedy_decode: max abs diff {free_err:.3e} (of max |ys| "
+          f"{float(ys.abs().max()):.3e})")
+    check(math.isfinite(free_err), "the free-running cached decode is finite")
+    summary.update(stacked_params=n_params, stacked_teacher_forced_err=tf_err, stacked_row_scale=scale,
+                   stacked_free_running_err=free_err)
+    if on_card:
+        clk = sm_clock()
+        with torch.no_grad():
+            cached_ms = cuda_ms(lambda: greedy_decode_cached(model, batch.src, batch.src_mask, Lt + 1, start), reps=3)
+            scan_ms = cuda_ms(lambda: stacked.greedy_decode(model, batch.src, batch.src_mask, Lt + 1, args.stack),
+                              reps=2)
+        print(f"[{smi}] serving: greedy_decode_cached {cached_ms:.2f} ms for {Lt} tokens = "
+              f"{cached_ms / Lt:.3f} ms/token (encoder included); scan greedy_decode {scan_ms:.2f} ms for the window")
+        print_clocks(clk, "16")
+        summary.update(stacked_cached_ms=cached_ms, stacked_cached_ms_per_token=cached_ms / Lt,
+                       stacked_scan_ms=scan_ms)
+    del model, ys, rows, state, cached
+    gc.collect()
+    peak("16")
+
+    print("== 17. main path: cli.train_stacked for one epoch")
+    for k in counters.values():
+        k.launches = 0
+    dev_arg = [] if on_card else ["--device", str(device)]
+    t0 = time.time()
+    res = cli_stacked.main(["-s", str(data), "-m", str(model_dir), "--eval", "--epochs", "1", "--stack",
+                            str(args.stack), "--layers", str(args.stacked_layers), "--run_name", str(run_dir),
+                            "--quiet"] + dev_arg)
+    t_cli = time.time() - t0
+    launches = {k: v.launches for k, v in counters.items()}
+    hist = res["history"]
+    n_steps = tscene.size // 4
+    print(f"cli.train_stacked: {len(hist)} steps in {t_cli:.1f} s; launches {launches}")
+    print("by step: " + "; ".join(f"loss {h['loss']:.4f} chamfer {h['chamfer']:.4f} img {h['img_loss']:.4f} "
+                                  f"src {h['src_len']} trg {h['trg_len']}" for h in hist))
+    check(len(hist) == n_steps, f"{n_steps} steps at batch 4 over {tscene.size} cameras")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["chamfer"]) for h in hist),
+          "every step's loss and chamfer are finite")
+    img_steps = sum(h["img_loss"] != 0.0 for h in hist)
+    if on_card:
+        check(launches["K1"] == tscene.size + 2 * 4 * img_steps,
+              f"K1 launched once per camera's visibility render ({tscene.size}) and 8 times per image-branch "
+              f"step ({img_steps})")
+    after = param_fingerprint(res["model"])
+    moved = [n for n in after if after[n] != fingerprint[n]]
+    still = [n for n in after if n not in moved and not n.endswith("attn.k.bias")]
+    print(f"parameters moved by the epoch: {len(moved)} of {len(after)} (unmoved: "
+          f"{[n for n in after if n not in moved]})")
+    check(not still, "every parameter but the attention key biases (zero gradient) changed")
+    summary.update(stacked_cli_s=t_cli, stacked_history=hist, stacked_cli_launches=launches,
+                   stacked_image_steps=img_steps)
+    out["cli"] = launches
+    if on_card:
+        step_ms = float(np.median([h["ms"] for h in hist]))
+        peak("17")
+        # More steps of the trained state on the first batch: one profiled
+        # (after a warm one), one with its matmul FLOPs counted.
+        step_fn = stacked.make_train_step(res["model"], res["tscene"].handler, RenderConfig(), res["optimizer"],
+                                          args.stack)
+        run_step = lambda: step_fn(batch.src, batch.trg_y, batch.cameras, 5e-4, batch.src_mask, (42, 10**6))
+        profile, device_ms, wall_ms = step_profile(run_step)
+        print(f"top CUDA kernels of one stacked train step (torch.profiler, device time):\n{profile}")
+        print(f"[{smi}] profiled step: {device_ms:.2f} ms of kernel time in {wall_ms:.2f} ms "
+              f"(device idle {1 - device_ms / wall_ms:.3f} of the step)")
+        with FlopCounterMode(display=False) as fc:
+            run_step()
+        del step_fn, run_step
+        flops = fc.get_total_flops()
+        bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+        print(f"[{smi}] median train step {step_ms:.2f} ms over {len(hist)} steps (CUDA events); "
+              f"steps {[round(h['ms'], 2) for h in hist]}")
+        print(f"[{smi}] one train step on the first batch: {flops:.4e} matmul FLOPs (FlopCounterMode, "
+              f"checkpoint recomputation included) = {bound_ms:.2f} ms at the float32 non-tensor peak "
+              f"({PEAK_FP32_FLOPS:.3g} FLOP/s), {bound_ms / step_ms:.3f} of the median step")
+        summary.update(stacked_step_ms=step_ms, stacked_step_flops=flops, stacked_step_bound_ms=bound_ms,
+                       stacked_step_flop_share=bound_ms / step_ms, stacked_step_profile=profile,
+                       stacked_step_device_ms=device_ms, stacked_step_wall_ms=wall_ms)
+    del res
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        peak("17b")
+
+    print("== 18. the image branch: image_loss on the first batch's targets, pred = target + N(0, 0.01)")
+    tgt = unstack_tokens(batch.trg_y[0], args.stack)
+    valid = (~fuzzy_token_equal(batch.trg_y[0], stacked.pad_token(args.stack))).repeat_interleave(2**args.stack)
+    noise = torch.randn(tgt.shape, generator=torch.Generator(device).manual_seed(args.seed), device=device)
+    pred = (tgt + 0.01 * noise).requires_grad_()
+    for k in counters.values():
+        k.launches = 0
+    loss, overflow = stacked.image_loss(pred, tgt, valid, tscene.handler, batch.cameras, RenderConfig())
+    loss.backward()
+    img_launches = {k: v.launches for k, v in counters.items()}
+    grad = pred.grad
+    loss = loss.detach()
+    print(f"image loss {float(loss):.6f} over {len(batch.cameras)} cameras, {int(valid.sum())} real Gaussians; "
+          f"overflow (pred, target) {overflow.tolist()}; launches {img_launches}")
+    if on_card:
+        check(img_launches == {"K1": 8, "K2": 4, "K3": 1, "K4": 1},
+              "K1 per pred and target render (8), K2 per pred render (4), K3 and K4 once")
+    check(int(overflow[1].sum()) == 0, "overflow == 0 for the target renders")
+    check(bool(torch.isfinite(grad).all()) and float(grad[valid].abs().max()) > 0,
+          "the gradient reaches the predicted tokens finite and nonzero")
+    check(float(grad[~valid].abs().sum()) == 0.0, "PAD rows get no gradient")
+    summary.update(stacked_image_loss=float(loss), stacked_image_launches=img_launches,
+                   stacked_image_overflow=overflow.tolist())
+    out["image_loss"] = img_launches
+    if on_card:
+        # The same call on CPU copies runs the plain versions of K1-K4.
+        cpu = lambda t: t.detach().cpu()
+        p_cpu = cpu(pred).requires_grad_()
+        handler = type(tscene.handler)(*(cpu(t) for t in (tscene.handler.world_min, tscene.handler.world_max,
+                                                            tscene.handler.scaling_min, tscene.handler.scaling_max)),
+                                       tscene.handler.interval_num)
+        cams = [dataclasses.replace(c, **{f: cpu(getattr(c, f)) for f in
+                                          ("world_view_transform", "full_proj_transform", "camera_center")},
+                                    original_image=None) for c in batch.cameras]
+        loss_cpu, _ = stacked.image_loss(p_cpu, cpu(tgt), cpu(valid), handler, cams, RenderConfig())
+        loss_cpu.backward()
+        loss_cpu = loss_cpu.detach()
+        l_err = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+        g_scale = float(p_cpu.grad.abs().max())
+        g_err = float((cpu(grad) - p_cpu.grad).abs().max())
+        print(f"image loss on the card (K1-K4) vs on the CPU (plain versions): loss rel diff {l_err:.3e} "
+              f"(tolerance {IMAGE_LOSS_REL}), token gradient max abs diff {g_err:.3e} = {g_err / g_scale:.3e} of "
+              f"max {g_scale:.3e} (tolerance {IMAGE_GRAD_REL})")
+        check(l_err <= IMAGE_LOSS_REL and g_err <= IMAGE_GRAD_REL * g_scale,
+              "the image branch agrees with its plain versions")
+        with torch.no_grad():
+            g_tgt = tscene.handler.denormalize(stacked.unflatten_gaussians(tgt)).replace(alive=valid)
+            s = prepare_stream(batch.cameras[0], g_tgt)
+            props, ct = s.props(), s.chunk_tile
+            color, t_fin = stream.composite_stream_tiles(props, ct, s.binned.tile_counts, s.grid_w, s.grid_h)
+            p_color, p_t = stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h)[:2]
+            cov = s.binned.covered
+            k1_err = float(torch.cat([(color - p_color)[cov].flatten(), (t_fin - p_t)[cov].flatten()]).abs().max())
+        print(f"K1 vs plain on camera 0's target render: max abs diff {k1_err:.3e} (tolerance {K1_MAX_ERR})")
+        check(k1_err <= K1_MAX_ERR, "K1 agrees with its plain version at the stacked path's shapes")
+        summary.update(stacked_image_loss_rel_err=l_err, stacked_image_grad_err=g_err,
+                       stacked_k1_err=k1_err)
+        peak("18")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1536,6 +1837,12 @@ def main(argv=None) -> int:
     parser.add_argument("--train_views", type=int, default=8)
     parser.add_argument("--iterations", type=int, default=60)
     parser.add_argument("--probe_rows", type=int, default=3_232_768, help="stream rows N of the layout probe")
+    parser.add_argument("--stack", type=int, default=8, help="STACK of the stacked transformer (token dim 26 * 2^STACK)")
+    parser.add_argument("--stacked_layers", type=int, default=2)
+    parser.add_argument("--stacked_gaussians", type=int, default=17_618)
+    parser.add_argument("--stacked_views", type=int, default=32)
+    parser.add_argument("--stacked_width", type=int, default=320)
+    parser.add_argument("--stacked_height", type=int, default=240)
     parser.add_argument("--work", default=str(ROOT / "build" / "chip_smoke"),
                         help="scratch dir for the model dir (default build/chip_smoke)")
     args = parser.parse_args(argv)
@@ -1556,6 +1863,8 @@ def main(argv=None) -> int:
     t0 = time.time()
     try:
         summary = run(args, device)
+        torch.cuda.empty_cache()
+        add_stacked_launches(summary["kernels"], stacked_path(args, device, summary))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

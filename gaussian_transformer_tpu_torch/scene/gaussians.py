@@ -7,11 +7,13 @@ DC/rest), held as ``nn.Parameter``s at a static ``capacity`` with an ``alive``
 buffer, so densify slot edits and optimizer state map one to one onto the
 JAX layout. Densification edits slots in place; growing the capacity is
 ``compact``, which returns a new scene. PLY save/load keeps the reference's
-field order.
+field order. ``TensorScene`` is the JAX dataclass's form, plain tensors with
+``replace``: what the transformer path renders from decoded tokens.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Optional
 
@@ -224,3 +226,36 @@ class GaussianScene(nn.Module):
         })
         scene.active_sh_degree = max_sh_degree
         return scene
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorScene:
+    """A scene of plain tensors: the JAX ``GaussianScene`` dataclass's part
+    that the transformer path uses. ``replace`` returns a new scene, and the
+    fields stay in the autograd graph of whatever computed them, so decoded
+    tokens render (``render()`` reads only the ``get_*`` properties and
+    ``active_sh_degree``) and gradients flow back to the tokens."""
+
+    xyz: torch.Tensor
+    features_dc: torch.Tensor
+    features_rest: torch.Tensor
+    scaling: torch.Tensor
+    rotation: torch.Tensor
+    opacity: torch.Tensor
+    alive: torch.Tensor
+    active_sh_degree: int = 0
+    max_sh_degree: int = 3
+
+    @classmethod
+    def of(cls, scene) -> "TensorScene":
+        """The fields of any scene (a ``GaussianScene`` module included)."""
+        return cls(**{k: getattr(scene, k) for k in FIELDS + ("alive", "active_sh_degree", "max_sh_degree")})
+
+    def replace(self, **kw) -> "TensorScene":
+        return dataclasses.replace(self, **kw)
+
+    get_scaling = GaussianScene.get_scaling
+    get_rotation = GaussianScene.get_rotation
+    get_xyz = GaussianScene.get_xyz
+    get_features = GaussianScene.get_features
+    get_opacity = GaussianScene.get_opacity

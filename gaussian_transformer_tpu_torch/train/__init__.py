@@ -1,3 +1,3 @@
-"""Per-scene training (port of ``gaussian_transformer_tpu/train``): the Adam
-optimizer with state surgery (``optim``) and the 3DGS train step and loop
-(``splat``)."""
+"""Training (port of ``gaussian_transformer_tpu/train``): the per-scene Adam
+optimizer with state surgery (``optim``), the 3DGS train step and loop
+(``splat``), and the stacked-transformer trainer (``stacked``)."""
