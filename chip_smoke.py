@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--gaussians 1000000] [--views 4]
                           [--train_points 300000] [--iterations 60]
-                          [--probe_rows 3232768] [--stack 8] [--stacked_layers 2]
+                          [--probe_rows 3232768]
 
 The serving path:
 
@@ -104,32 +104,48 @@ stream as planes [16, I_pad], kernels K7 and K8) and the layout probe (K9):
     3.35 TB/s) and the extra bytes allocated.
 
 The stacked Gaussian-sequence transformer at full width (STACK 8: token dim
-and d_model 26 * 2^8 = 6656, N 2, h 8, 1,905,446,400 float32 parameters):
+and d_model 26 * 2^8 = 6656, N 2, h 8, 1,905,446,400 float32 parameters).
+These sections run first, after the device line, so that no torch.profiler
+window of the others precedes their timings (a window leaves the host's
+launches slower for the rest of the process):
 
 16. A seeded synthetic scene of 17,618 Gaussians at SH degree 1 (the stacked
     campaign scene's count) written as a trained model dir with a
     Blender-layout dataset of 32 ring cameras at 320x240; the first batch of
     ``train.stacked.TrainingScene`` (batch 4, bucket 16, epoch 0) and its
     lengths in fat tokens; the model from seed 0 (its parameter count
-    checked); ``decode_step`` fed the scan decode's prefix (teacher-forced)
-    against the decoder's rows, and ``greedy_decode_cached`` free-running
-    against ``greedy_decode``; the cached decode's ms per token and the scan
-    decode's ms per window (CUDA events).
+    checked against the closed form and the campaign's); ``decode_step`` fed
+    the scan decode's prefix (teacher-forced) against the decoder's rows, and
+    ``greedy_decode_cached`` free-running against ``greedy_decode``; the
+    cached decode timed 20 times one by one (CUDA events; median, min, max)
+    beside its weight-bytes bound per token, and the scan decode's time per
+    window. Last of all (16b), the same model again: one cached decode under
+    ``torch.profiler`` (kernels a token, device idle share), then 20 more
+    timed decodes.
 17. The main path: ``cli.train_stacked`` through ``main(argv)`` for one
     epoch (8 steps at batch 4 over 32 cameras), counters zeroed just before
     and read just after; checks K1 ran once per camera's visibility render
     (and 8 times per image-branch step), every loss and chamfer is finite,
     and every parameter moved but the attention key biases; the median step
     (CUDA events), the peak memory, and one more step's matmul FLOPs
-    (``FlopCounterMode``) against the float32 non-tensor peak.
+    (``FlopCounterMode``) against the float32 non-tensor peak. Before those
+    two (17b), one train step of the trained state whose target is the
+    model's own decode under the step's dropout key plus N(0, 0.01), so the
+    chamfer gate opens: counters zeroed just before and read just after (K1
+    8, K2 4, K3 1, K4 1), its time (CUDA events), its peak memory, and
+    whether the parameters stayed finite.
 18. The image branch: ``train.stacked.image_loss`` on the first batch's
     target tokens with pred = target + N(0, 0.01), and its backward,
     counters zeroed just before and read just after (K1 8, K2 4, K3 1, K4
     1); the target renders do not overflow, the gradient reaches the
-    predicted tokens finite and nonzero (zero on PAD rows), the loss and the
-    gradient agree with the same call on CPU copies (the plain versions of
-    K1-K4), and K1 agrees with its plain version on camera 0's target
-    render. The K1-K4 entries of the kernels line carry these launches as
+    predicted tokens finite and nonzero (zero on PAD rows), and the loss and
+    the gradient agree with the same call on CPU copies (the plain versions
+    of K1-K4). Each kernel against its plain version on this call's card
+    tensors, at its own rule's tolerance: K1 on camera 0's target render, K2
+    on camera 0's pred render with the loss's true cotangents of its
+    compositor outputs, K3 and K4 on the four pred and target images at
+    SSIM's cotangent. The K1-K4 entries of the kernels line carry the
+    launches of the epoch, one open-gate step and this call as
     ``stacked_launches``. Sections 16-18 print the peak memory of each.
 
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
@@ -152,6 +168,7 @@ import hashlib
 import json
 import math
 import os
+import random
 import subprocess
 import sys
 import time
@@ -537,8 +554,9 @@ def render_profile(fn, top: int = 12) -> str:
 
 
 def step_profile(fn, top: int = 15):
-    """(table of device time by CUDA kernel, kernel ms, wall ms) over one
-    warm call of ``fn`` (torch.profiler; the wall time by CUDA events)."""
+    """(table of device time by CUDA kernel, kernel ms, wall ms, kernels
+    launched) over one warm call of ``fn`` (torch.profiler; the wall time by
+    CUDA events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -550,10 +568,10 @@ def step_profile(fn, top: int = 15):
         fn()
         end.record()
         torch.cuda.synchronize()
-    kernel_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_us = sum(e.time_range.elapsed_us() for e in kernels)
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=top, max_name_column_width=60)
-    return table, kernel_us / 1e3, start.elapsed_time(end)
+    return table, kernel_us / 1e3, start.elapsed_time(end), len(kernels)
 
 
 def train_step_profile(ckpt: Path, cam, gt, cfg, device, top: int = 25) -> str:
@@ -1576,9 +1594,25 @@ def probe_path(args, device, summary) -> list:
 
 
 STACKED_PARAMS = 1_905_446_400  # STACK 8, d_model 6656, N 2 (the stacked campaign's meta.json)
+# The stacked campaign's shape (tools/stacked_campaign.py, logs/stacked_campaign/RUN.md):
+# STACK, layers, the scene's Gaussians, its cameras and their size.
+STACKED_STACK, STACKED_LAYERS = 8, 2
+STACKED_GAUSSIANS, STACKED_VIEWS = 17_618, 32
+STACKED_W, STACKED_H = 320, 240
+SERVING_REPS = 20  # cached decodes timed one by one, before and after a profiler window
+TOKEN_NOISE = 0.01  # N(0, sigma) on the targets of the open-gate step and of section 18
 DECODE_REL = 1e-4  # teacher-forced cached decode vs the decoder's rows, of max |row|
 IMAGE_LOSS_REL = 1e-5  # image loss on the card vs its CPU copy (plain K1-K4), relative
 IMAGE_GRAD_REL = K2_MAX_ERR  # its token gradient, of the largest (K2's rule)
+
+
+def stacked_param_count(stack: int, layers: int) -> int:
+    """The encoder-decoder's parameters in closed form, D = d_model = token
+    dim = 26 * 2^stack and d_ff 2D: an encoder layer 7D^2 + 11D, a decoder
+    layer 11D^2 + 17D, the two embeddings, the generator and the two final
+    norms 7D^2 + 11D."""
+    D = 26 * 2**stack
+    return layers * (18 * D * D + 28 * D) + 7 * D * D + 11 * D
 
 
 def param_fingerprint(model) -> dict:
@@ -1590,9 +1624,31 @@ def param_fingerprint(model) -> dict:
         return {n: (float(p.double().sum()), float(p.double().abs().sum())) for n, p in model.named_parameters()}
 
 
+def cuda_ms_each(fn, reps: int, warmup: int = 1) -> list:
+    """CUDA-event ms of each of ``reps`` calls of ``fn``, timed one by one."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def spread(times) -> str:
+    return f"median {np.median(times):.3f} ms (min {min(times):.3f}, max {max(times):.3f}, {len(times)} reps)"
+
+
 def add_stacked_launches(entries, launches) -> None:
-    """Write the stacked path's K1-K4 launches (the CLI's epoch and one
-    image-branch call) into those kernels' entries of the kernels line."""
+    """Write the stacked path's K1-K4 launches (the CLI's epoch, the
+    open-gate train step and one image-branch call) into those kernels'
+    entries of the kernels line."""
     names = {"K1": "stream_fwd", "K2": "stream_bwd", "K3": "ssim_fwd", "K4": "ssim_bwd"}
     for entry in entries:
         for k, name in names.items():
@@ -1600,16 +1656,19 @@ def add_stacked_launches(entries, launches) -> None:
                 entry["stacked_launches"] = {path: counts[k] for path, counts in launches.items()}
 
 
-def stacked_path(args, device, summary) -> dict:
+def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYERS, gaussians=STACKED_GAUSSIANS,
+                 views=STACKED_VIEWS, width=STACKED_W, height=STACKED_H) -> dict:
     """Sections 16-18: the stacked transformer at full width (STACK 8,
-    d_model 6656, N 2). Returns the launches of K1-K4 on its paths (the
-    CLI's epoch and one image-branch call), by kernel."""
+    d_model 6656, N 2; smaller sizes only for a rehearsal on the CPU).
+    Returns the launches of K1-K4 on its paths (the CLI's epoch, one
+    open-gate train step and one image-branch call), by kernel."""
     import gc
     import shutil
 
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
+    from gaussian_transformer_tpu_torch import kernels
     from gaussian_transformer_tpu_torch.cli import train_stacked as cli_stacked
     from gaussian_transformer_tpu_torch.convert import scene_from_numpy
     from gaussian_transformer_tpu_torch.models.codec import fuzzy_token_equal, unstack_tokens
@@ -1620,19 +1679,27 @@ def stacked_path(args, device, summary) -> dict:
     )
     from gaussian_transformer_tpu_torch.models.transformer import count_params, subsequent_mask
     from gaussian_transformer_tpu_torch.ops import fused_ssim
-    from gaussian_transformer_tpu_torch.render import RenderConfig, prepare_stream, stream
+    from gaussian_transformer_tpu_torch.ops.losses import l1_loss
+    from gaussian_transformer_tpu_torch.render import RenderConfig, prepare_stream, render, stream
     from gaussian_transformer_tpu_torch.scene import Scene
     from gaussian_transformer_tpu_torch.train import stacked
 
     on_card = device.type == "cuda"
     smi = smi_line() if on_card else "cpu"
-    W, H, fovx = args.stacked_width, args.stacked_height, math.radians(50.0)
+    W, H, fovx = width, height, math.radians(50.0)
     work = Path(args.work) / "stacked"
     shutil.rmtree(work, ignore_errors=True)
     data, model_dir, run_dir = work / "data", work / "model", work / "run"
     counters = {"K1": stream.STREAM_FWD, "K2": stream.STREAM_BWD, "K3": fused_ssim.SSIM_FWD,
                 "K4": fused_ssim.SSIM_BWD}
     out = {}
+
+    def zero_counts():
+        for k in counters.values():
+            k.launches = 0
+
+    def read_counts():
+        return {k: v.launches for k, v in counters.items()}
 
     def peak(section):
         if on_card:
@@ -1641,36 +1708,39 @@ def stacked_path(args, device, summary) -> dict:
             summary[f"stacked_peak_gib_{section}"] = gib
             torch.cuda.reset_peak_memory_stats()
 
-    print(f"== 16. stacked transformer: model dir, first batch, serving (STACK {args.stack}, "
-          f"{args.stacked_layers} layers)")
+    print(f"== 16. stacked transformer: model dir, first batch, serving (STACK {stack}, {layers} layers)")
     if on_card:
+        kernels.build(kernels.all_sources())  # before any timing (one nvcc per source, in parallel)
         torch.cuda.reset_peak_memory_stats()
-    fields = synthetic_scene(args.stacked_gaussians, args.seed + 5)
+    random.seed(args.seed)  # Scene shuffles its cameras with Python's random, as the reference does
+    fields = synthetic_scene(gaussians, args.seed + 5)
     fields["features_rest"] = fields["features_rest"][:, :3]  # SH degree 1, as the stacked CLI loads it
     scene = scene_from_numpy(fields, 1, device)
-    write_train_dataset(data, scene, surface_points(2000, args.seed + 5), args.stacked_views, 1, W, H, fovx, device)
+    write_train_dataset(data, scene, surface_points(2000, args.seed + 5), views, 1, W, H, fovx, device)
     scene.save_ply(str(model_dir / "point_cloud" / "iteration_30000" / "point_cloud.ply"))
     del scene
     ns = Namespace(sh_degree=1, source_path=str(data), model_path=str(model_dir), images="images",
                    resolution=-1, white_background=False, data_device=str(device), eval=True)
     tscene = stacked.TrainingScene(Scene(ns, load_iteration=-1, sh_degree=1, device=device), RenderConfig(),
-                                   batch_size=4, stack=args.stack)
+                                   batch_size=4, stack=stack)
     tscene.set_epoch(0)
     batch = next(b for b in tscene.batches() if b is not None)
     Ls, Lt = batch.src.shape[1], batch.trg_y.shape[1]
-    print(f"{args.stacked_gaussians} Gaussians, {tscene.size} cameras at {W}x{H}; first batch: src {Ls} fat "
+    print(f"{gaussians} Gaussians, {tscene.size} cameras at {W}x{H}; first batch: src {Ls} fat "
           f"tokens, trg {Lt} ({batch.ntokens} real), token dim {batch.src.shape[2]}")
     summary.update(stacked_src_len=Ls, stacked_trg_len=Lt, stacked_ntokens=batch.ntokens)
 
-    model = stacked.make_stacked_model(args.stack, args.stacked_layers, 0, seed=0, device=device).eval()
+    model = stacked.make_stacked_model(stack, layers, 0, seed=0, device=device).eval()
     n_params = count_params(model)
     print(f"model: {n_params} parameters (float32); TF32 matmuls: {torch.backends.cuda.matmul.allow_tf32}")
-    if args.stack == 8 and args.stacked_layers == 2:
-        check(n_params == STACKED_PARAMS, f"{n_params} parameters == {STACKED_PARAMS}")
+    check(n_params == stacked_param_count(stack, layers),
+          f"{n_params} parameters == {stacked_param_count(stack, layers)} (closed form)")
+    if (stack, layers) == (STACKED_STACK, STACKED_LAYERS):
+        check(n_params == STACKED_PARAMS, f"{n_params} parameters == {STACKED_PARAMS} (the campaign's meta.json)")
     fingerprint = param_fingerprint(model)
-    start = stacked.start_token(args.stack)
+    start = stacked.start_token(stack)
     with torch.no_grad():
-        ys = stacked.greedy_decode(model, batch.src, batch.src_mask, Lt + 1, args.stack)
+        ys = stacked.greedy_decode(model, batch.src, batch.src_mask, Lt + 1, stack)
         rows = model.generator(model.decode(model.encode(batch.src, batch.src_mask), batch.src_mask, ys,
                                             subsequent_mask(Lt + 1, device)))
         state = init_decode_state(model, batch.src, batch.src_mask, Lt + 1)
@@ -1688,30 +1758,40 @@ def stacked_path(args, device, summary) -> dict:
     summary.update(stacked_params=n_params, stacked_teacher_forced_err=tf_err, stacked_row_scale=scale,
                    stacked_free_running_err=free_err)
     if on_card:
+        # A decode step reads every decoder weight but the cross-attention
+        # K/V projections (applied once, to the encoder memory), the target
+        # embedding and the generator: its bytes bound the ms per token.
+        step_bytes = 4 * sum(p.numel() for n, p in model.named_parameters()
+                             if n.startswith(("decoder.", "tgt_embed.", "generator_proj."))
+                             and ".src_attn.k." not in n and ".src_attn.v." not in n)
+        token_bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+        run_cached = lambda: greedy_decode_cached(model, batch.src, batch.src_mask, Lt + 1, start)
         clk = sm_clock()
         with torch.no_grad():
-            cached_ms = cuda_ms(lambda: greedy_decode_cached(model, batch.src, batch.src_mask, Lt + 1, start), reps=3)
-            scan_ms = cuda_ms(lambda: stacked.greedy_decode(model, batch.src, batch.src_mask, Lt + 1, args.stack),
-                              reps=2)
-        print(f"[{smi}] serving: greedy_decode_cached {cached_ms:.2f} ms for {Lt} tokens = "
-              f"{cached_ms / Lt:.3f} ms/token (encoder included); scan greedy_decode {scan_ms:.2f} ms for the window")
+            cached_ms = cuda_ms_each(run_cached, SERVING_REPS)
+            scan_ms = cuda_ms_each(lambda: stacked.greedy_decode(model, batch.src, batch.src_mask, Lt + 1, stack),
+                                   reps=5)
+        med = float(np.median(cached_ms))
+        print(f"[{smi}] serving: greedy_decode_cached of {Lt} tokens (encoder included), {spread(cached_ms)} "
+              f"= {med / Lt:.3f} ms/token; bound by the decode step's {step_bytes / 1e9:.3f} GB of weights: "
+              f"{token_bound_ms:.3f} ms/token")
+        print(f"[{smi}] scan greedy_decode for the window: {spread(scan_ms)}")
         print_clocks(clk, "16")
-        summary.update(stacked_cached_ms=cached_ms, stacked_cached_ms_per_token=cached_ms / Lt,
-                       stacked_scan_ms=scan_ms)
+        summary.update(stacked_cached_ms=cached_ms, stacked_cached_ms_per_token=med / Lt,
+                       stacked_token_bound_ms=token_bound_ms, stacked_scan_ms=scan_ms)
     del model, ys, rows, state, cached
     gc.collect()
     peak("16")
 
     print("== 17. main path: cli.train_stacked for one epoch")
-    for k in counters.values():
-        k.launches = 0
+    zero_counts()
     dev_arg = [] if on_card else ["--device", str(device)]
     t0 = time.time()
     res = cli_stacked.main(["-s", str(data), "-m", str(model_dir), "--eval", "--epochs", "1", "--stack",
-                            str(args.stack), "--layers", str(args.stacked_layers), "--run_name", str(run_dir),
+                            str(stack), "--layers", str(layers), "--run_name", str(run_dir),
                             "--quiet"] + dev_arg)
     t_cli = time.time() - t0
-    launches = {k: v.launches for k, v in counters.items()}
+    launches = read_counts()
     hist = res["history"]
     n_steps = tscene.size // 4
     print(f"cli.train_stacked: {len(hist)} steps in {t_cli:.1f} s; launches {launches}")
@@ -1734,47 +1814,89 @@ def stacked_path(args, device, summary) -> dict:
     summary.update(stacked_cli_s=t_cli, stacked_history=hist, stacked_cli_launches=launches,
                    stacked_image_steps=img_steps)
     out["cli"] = launches
+    step_fn = stacked.make_train_step(res["model"], res["tscene"].handler, RenderConfig(), res["optimizer"], stack)
     if on_card:
         step_ms = float(np.median([h["ms"] for h in hist]))
+        print(f"[{smi}] median train step {step_ms:.2f} ms over {len(hist)} steps (CUDA events); "
+              f"steps {[round(h['ms'], 2) for h in hist]}")
+        summary["stacked_step_ms"] = step_ms
         peak("17")
-        # More steps of the trained state on the first batch: one profiled
-        # (after a warm one), one with its matmul FLOPs counted.
-        step_fn = stacked.make_train_step(res["model"], res["tscene"].handler, RenderConfig(), res["optimizer"],
-                                          args.stack)
+
+    # One more step of the trained state with the chamfer gate open: its
+    # target is the model's own decode under the step's dropout key (the
+    # step decodes the same tokens) plus noise, so chamfer reads ~0.005.
+    print(f"== 17b. an open-gate train step: the target is the model's own decode plus N(0, {TOKEN_NOISE})")
+    key = (42, 10**6 + 1)
+    real = ~fuzzy_token_equal(batch.trg_y, stacked.pad_token(stack))  # [1, Lt]
+    with torch.no_grad():
+        own = stacked.greedy_decode(res["model"], batch.src, batch.src_mask, Lt + 1, stack, key)[:, 1:]
+        noise = torch.randn(own.shape, generator=torch.Generator(device).manual_seed(args.seed + 1), device=device)
+        trg_open = torch.where(real[..., None], own + TOKEN_NOISE * noise, batch.trg_y)
+    zero_counts()
+    if on_card:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    gate_loss, met = step_fn(batch.src, trg_open, batch.cameras, 5e-4, batch.src_mask, key)
+    gate = {"launches": read_counts(), "loss": float(gate_loss), "chamfer": float(met["chamfer"]),
+            "img_loss": float(met["img_loss"]), "overflow": met["overflow"].tolist() if "overflow" in met else None}
+    if on_card:
+        ev[1].record()
+        torch.cuda.synchronize()
+        gate["ms"] = ev[0].elapsed_time(ev[1])
+    # A decoded Gaussian whose projected covariance overflows float32 gives
+    # a non-finite gradient, in the JAX package's projection as here; Adam
+    # then writes it into the parameters. Reported, not held.
+    gate["params_finite"] = all(bool(torch.isfinite(q).all()) for q in res["model"].parameters())
+    print(f"loss {gate['loss']:.6f}, chamfer {gate['chamfer']:.6f}, image loss {gate['img_loss']:.6f}; launches "
+          f"{gate['launches']}; overflow (pred, target) {gate['overflow']}; parameters finite after the step: "
+          f"{gate['params_finite']}")
+    check(gate["chamfer"] < 3.0 and gate["img_loss"] > 0 and math.isfinite(gate["loss"]),
+          "the chamfer gate opened, with a finite loss")
+    if on_card:
+        check(gate["launches"] == {"K1": 8, "K2": 4, "K3": 1, "K4": 1},
+              "K1 per pred and target render (8), K2 per pred render (4), K3 and K4 once")
+        gate["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[{smi}] open-gate train step {gate['ms']:.2f} ms (CUDA events, one step); peak memory "
+              f"{gate['peak_gib']:.2f} GiB (torch.cuda.max_memory_allocated)")
+        torch.cuda.reset_peak_memory_stats()
+    summary["stacked_open_gate"] = gate
+    out["open_gate_step"] = gate["launches"]
+    del own, noise, trg_open, gate_loss, met
+
+    if on_card:
+        # Two more steps on the first batch (gate shut): one profiled (after
+        # a warm one), one with its matmul FLOPs counted.
         run_step = lambda: step_fn(batch.src, batch.trg_y, batch.cameras, 5e-4, batch.src_mask, (42, 10**6))
-        profile, device_ms, wall_ms = step_profile(run_step)
+        profile, device_ms, wall_ms, _ = step_profile(run_step)
         print(f"top CUDA kernels of one stacked train step (torch.profiler, device time):\n{profile}")
         print(f"[{smi}] profiled step: {device_ms:.2f} ms of kernel time in {wall_ms:.2f} ms "
               f"(device idle {1 - device_ms / wall_ms:.3f} of the step)")
         with FlopCounterMode(display=False) as fc:
             run_step()
-        del step_fn, run_step
+        del run_step
         flops = fc.get_total_flops()
         bound_ms = flops / PEAK_FP32_FLOPS * 1e3
-        print(f"[{smi}] median train step {step_ms:.2f} ms over {len(hist)} steps (CUDA events); "
-              f"steps {[round(h['ms'], 2) for h in hist]}")
         print(f"[{smi}] one train step on the first batch: {flops:.4e} matmul FLOPs (FlopCounterMode, "
               f"checkpoint recomputation included) = {bound_ms:.2f} ms at the float32 non-tensor peak "
               f"({PEAK_FP32_FLOPS:.3g} FLOP/s), {bound_ms / step_ms:.3f} of the median step")
-        summary.update(stacked_step_ms=step_ms, stacked_step_flops=flops, stacked_step_bound_ms=bound_ms,
+        summary.update(stacked_step_flops=flops, stacked_step_bound_ms=bound_ms,
                        stacked_step_flop_share=bound_ms / step_ms, stacked_step_profile=profile,
                        stacked_step_device_ms=device_ms, stacked_step_wall_ms=wall_ms)
-    del res
+    del res, step_fn
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
         peak("17b")
 
-    print("== 18. the image branch: image_loss on the first batch's targets, pred = target + N(0, 0.01)")
-    tgt = unstack_tokens(batch.trg_y[0], args.stack)
-    valid = (~fuzzy_token_equal(batch.trg_y[0], stacked.pad_token(args.stack))).repeat_interleave(2**args.stack)
+    print(f"== 18. the image branch: image_loss on the first batch's targets, pred = target + N(0, {TOKEN_NOISE})")
+    tgt = unstack_tokens(batch.trg_y[0], stack)
+    valid = (~fuzzy_token_equal(batch.trg_y[0], stacked.pad_token(stack))).repeat_interleave(2**stack)
     noise = torch.randn(tgt.shape, generator=torch.Generator(device).manual_seed(args.seed), device=device)
-    pred = (tgt + 0.01 * noise).requires_grad_()
-    for k in counters.values():
-        k.launches = 0
+    pred = (tgt + TOKEN_NOISE * noise).requires_grad_()
+    zero_counts()
     loss, overflow = stacked.image_loss(pred, tgt, valid, tscene.handler, batch.cameras, RenderConfig())
     loss.backward()
-    img_launches = {k: v.launches for k, v in counters.items()}
+    img_launches = read_counts()
     grad = pred.grad
     loss = loss.detach()
     print(f"image loss {float(loss):.6f} over {len(batch.cameras)} cameras, {int(valid.sum())} real Gaussians; "
@@ -1789,6 +1911,66 @@ def stacked_path(args, device, summary) -> dict:
     summary.update(stacked_image_loss=float(loss), stacked_image_launches=img_launches,
                    stacked_image_overflow=overflow.tolist())
     out["image_loss"] = img_launches
+
+    # K1-K4 against their plain versions on this call's tensors: camera 0's
+    # target render (K1); the pred and target images and SSIM's cotangent
+    # (K3, K4); camera 0's pred render with the loss's true cotangents of its
+    # compositor outputs (K2). On the CPU the plain versions stand in for
+    # K2-K4's launch functions (K1's wrapper takes them itself).
+    n_cams = len(batch.cameras)
+    k_bwd = stream._launch_stream_bwd if on_card else stream.composite_stream_tiles_bwd_plain
+    k_ssim = fused_ssim._launch_ssim_fwd if on_card else fused_ssim.ssim_plain
+    k_ssim_bwd = fused_ssim._launch_ssim_bwd if on_card else fused_ssim.ssim_bwd_plain
+    with torch.no_grad():
+        g_pred = tscene.handler.denormalize(stacked.unflatten_gaussians(pred.detach())).replace(alive=valid)
+        g_tgt = tscene.handler.denormalize(stacked.unflatten_gaussians(tgt)).replace(alive=valid)
+        s = prepare_stream(batch.cameras[0], g_tgt)
+        props, ct = s.props(), s.chunk_tile
+        color, t_fin = stream.composite_stream_tiles(props, ct, s.binned.tile_counts, s.grid_w, s.grid_h)
+        p_color, p_t = stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h)[:2]
+        cov = s.binned.covered
+        k1_err = float(torch.cat([(color - p_color)[cov].flatten(), (t_fin - p_t)[cov].flatten()]).abs().max())
+        clip = lambda img: torch.clamp(torch.nan_to_num(img), 0.0, 1.0)
+        imgs = torch.stack([clip(render(c, g_pred)["render"]) for c in batch.cameras])
+        tgts = torch.stack([clip(render(c, g_tgt)["render"]) for c in batch.cameras])
+        s = prepare_stream(batch.cameras[0], g_pred)
+        props, ct, gw, gh = s.props(), s.chunk_tile, s.grid_w, s.grid_h
+        color, t_fin = stream.composite_stream_tiles(props, ct, s.binned.tile_counts, gw, gh)
+    c, t = color.clone().requires_grad_(), t_fin.clone().requires_grad_()
+    img0 = stream.tiles_to_image(c, t, s.binned.covered, torch.zeros(3, device=device), grid_w=gw, grid_h=gh)[0]
+    images = torch.cat([clip(img0[:, :H, :W])[None], imgs[1:]])
+    loss_0 = (l1_loss(images, tgts) * (5.0 / n_cams) * 0.1
+              + (1.0 - fused_ssim.ssim_plain(images, tgts)) * (0.2 / n_cams) * 0.1)
+    g_color, g_t = torch.autograd.grad(loss_0, [c, t])
+    with torch.no_grad():
+        k2_in = (props, ct, gw, gh, color, t_fin, g_color, g_t)
+        d_k2 = k_bwd(*k2_in)
+        d_plain = stream.composite_stream_tiles_bwd_plain(*k2_in)
+        scale2 = float(d_plain.abs().max())
+        err2 = (d_k2 - d_plain)[:, :stream.GRAD_F].abs()
+        k2_err, k2_share = float(err2.max()), float((err2 > K2_ATOL * scale2).float().mean())
+        a, b = fused_ssim._flatten(imgs), fused_ssim._flatten(tgts)
+        k3, k3_plain = float(k_ssim(a, b)), float(fused_ssim.ssim_plain(a, b))
+        k3_err = abs(k3 - k3_plain)
+        g_ssim = torch.full((), -0.02 / n_cams, device=device)  # d loss / d SSIM
+        d_k4, d_p4 = k_ssim_bwd(a, b, g_ssim), fused_ssim.ssim_bwd_plain(a, b, g_ssim)
+        scale4 = max(float(d.abs().max()) for d in d_p4)
+        k4_err = max(float((x - y).abs().max()) for x, y in zip(d_k4, d_p4))
+    print(f"K1 vs plain on camera 0's target render: max abs diff {k1_err:.3e} (tolerance {K1_MAX_ERR})")
+    print(f"K2 vs plain on camera 0's pred render ({props.shape[0]} stream rows): max abs diff {k2_err:.3e} = "
+          f"{k2_err / scale2:.3e} of max |plain| {scale2:.3e} (tolerance {K2_MAX_ERR}), share beyond {K2_ATOL} "
+          f"of max: {k2_share:.3e} (tolerance {K2_MAX_SHARE})")
+    print(f"K3 vs plain on the {n_cams} pred and target images: SSIM {k3:.7f} vs {k3_plain:.7f}, abs diff "
+          f"{k3_err:.3e} (tolerance {K3_ATOL})")
+    print(f"K4 vs plain on them at SSIM's cotangent {float(g_ssim):.4e}: max abs diff {k4_err:.3e} = "
+          f"{k4_err / scale4:.3e} of max |plain| {scale4:.3e} (tolerance {K4_MAX_ERR})")
+    check(k1_err <= K1_MAX_ERR, "K1 agrees with its plain version at the stacked path's shapes")
+    check(k2_err <= K2_MAX_ERR * scale2 and k2_share <= K2_MAX_SHARE and bool(torch.all(d_k2[:, stream.GRAD_F:] == 0)),
+          "K2 agrees with its plain version at the stacked path's shapes")
+    check(k3_err <= K3_ATOL, "K3 agrees with its plain version at the stacked path's shapes")
+    check(k4_err <= K4_MAX_ERR * scale4, "K4 agrees with its plain version at the stacked path's shapes")
+    summary.update(stacked_k1_err=k1_err, stacked_k2_err=k2_err, stacked_k2_scale=scale2, stacked_k2_share=k2_share,
+                   stacked_k3_err=k3_err, stacked_k4_err=k4_err, stacked_k4_scale=scale4)
     if on_card:
         # The same call on CPU copies runs the plain versions of K1-K4.
         cpu = lambda t: t.detach().cpu()
@@ -1810,19 +1992,30 @@ def stacked_path(args, device, summary) -> dict:
               f"max {g_scale:.3e} (tolerance {IMAGE_GRAD_REL})")
         check(l_err <= IMAGE_LOSS_REL and g_err <= IMAGE_GRAD_REL * g_scale,
               "the image branch agrees with its plain versions")
-        with torch.no_grad():
-            g_tgt = tscene.handler.denormalize(stacked.unflatten_gaussians(tgt)).replace(alive=valid)
-            s = prepare_stream(batch.cameras[0], g_tgt)
-            props, ct = s.props(), s.chunk_tile
-            color, t_fin = stream.composite_stream_tiles(props, ct, s.binned.tile_counts, s.grid_w, s.grid_h)
-            p_color, p_t = stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h)[:2]
-            cov = s.binned.covered
-            k1_err = float(torch.cat([(color - p_color)[cov].flatten(), (t_fin - p_t)[cov].flatten()]).abs().max())
-        print(f"K1 vs plain on camera 0's target render: max abs diff {k1_err:.3e} (tolerance {K1_MAX_ERR})")
-        check(k1_err <= K1_MAX_ERR, "K1 agrees with its plain version at the stacked path's shapes")
         summary.update(stacked_image_loss_rel_err=l_err, stacked_image_grad_err=g_err,
-                       stacked_k1_err=k1_err)
+                       stacked_image_grad_scale=g_scale)
         peak("18")
+
+        # Last, as a torch.profiler window slows the host's launches for the
+        # rest of the process: section 16's model again, one cached decode
+        # profiled, then the same timings as section 16's.
+        print("== 16b. serving under torch.profiler: the cached decode's kernels and device idle share")
+        model = stacked.make_stacked_model(stack, layers, 0, seed=0, device=device).eval()
+        run_cached = lambda: greedy_decode_cached(model, batch.src, batch.src_mask, Lt + 1, start)
+        clk = sm_clock()
+        with torch.no_grad():
+            _, busy_ms, wall_ms, n_kernels = step_profile(run_cached)
+            after_ms = cuda_ms_each(run_cached, SERVING_REPS)
+        after_med = float(np.median(after_ms))
+        print(f"[{smi}] one cached decode under torch.profiler: {n_kernels} kernels ({n_kernels / Lt:.1f} a token), "
+              f"{busy_ms:.2f} ms of kernel time ({busy_ms / Lt:.3f} a token) in {wall_ms:.2f} ms "
+              f"(device idle {1 - busy_ms / wall_ms:.3f})")
+        print(f"[{smi}] the cached decode after the profiler windows of sections 17 and 16b: {spread(after_ms)} "
+              f"= {after_med / Lt:.3f} ms/token ({after_med / med:.3f} of section 16's)")
+        print_clocks(clk, "16b")
+        summary.update(stacked_cached_busy_ms=busy_ms, stacked_cached_wall_ms=wall_ms,
+                       stacked_cached_kernels=n_kernels, stacked_cached_after_profiler_ms=after_ms)
+        del model
     return out
 
 
@@ -1837,12 +2030,6 @@ def main(argv=None) -> int:
     parser.add_argument("--train_views", type=int, default=8)
     parser.add_argument("--iterations", type=int, default=60)
     parser.add_argument("--probe_rows", type=int, default=3_232_768, help="stream rows N of the layout probe")
-    parser.add_argument("--stack", type=int, default=8, help="STACK of the stacked transformer (token dim 26 * 2^STACK)")
-    parser.add_argument("--stacked_layers", type=int, default=2)
-    parser.add_argument("--stacked_gaussians", type=int, default=17_618)
-    parser.add_argument("--stacked_views", type=int, default=32)
-    parser.add_argument("--stacked_width", type=int, default=320)
-    parser.add_argument("--stacked_height", type=int, default=240)
     parser.add_argument("--work", default=str(ROOT / "build" / "chip_smoke"),
                         help="scratch dir for the model dir (default build/chip_smoke)")
     args = parser.parse_args(argv)
@@ -1862,9 +2049,14 @@ def main(argv=None) -> int:
     print(f"nvidia-smi name, power.limit: {smi_line()}")
     t0 = time.time()
     try:
-        summary = run(args, device)
+        # The stacked sections first: no profiler window of the others
+        # precedes their timings.
+        stacked = {}
+        launches = stacked_path(args, device, stacked)
         torch.cuda.empty_cache()
-        add_stacked_launches(summary["kernels"], stacked_path(args, device, summary))
+        summary = run(args, device)
+        summary.update(stacked)
+        add_stacked_launches(summary["kernels"], launches)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

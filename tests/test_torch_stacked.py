@@ -273,6 +273,63 @@ def test_image_loss_matches_the_jax_pieces(scenes):
     assert float(tp.grad[~torch.from_numpy(valid)].abs().sum()) == 0.0
 
 
+# A token decoded by the full-width model after a few steps: its log-scale
+# token (14.6 normalized) activates to ~3e8, and the determinant of its
+# projected covariance overflows float32. The scene bounds are those of the
+# 17,618-Gaussian synthetic scene of chip_smoke.py's stacked sections.
+HUGE_TOKEN = [13.838, 6.982, 4.944, -13.149, -6.138, -13.923, 9.068, 4.999, 7.119, -7.099, -6.038, 12.769,
+              -7.46, -9.33, 5.942, -5.42, 3.075, -10.24, 6.661, -11.42, -14.553, -11.395, 14.601, -11.268,
+              3.188, -2.698]
+HUGE_BOUNDS = ([-2.9945, -1.0, -2.9768], [2.9828, 1.1999, 2.9957], -4.0806, -2.4647)
+
+
+def test_overflowing_covariance_gradient_matches_jax():
+    """The projection's gradient for a decoded Gaussian whose projected
+    covariance overflows float32 is non-finite in the JAX package and in the
+    port (which of its entries differs with the order of the float ops), so
+    the image branch feeds Adam a non-finite gradient in both; a second,
+    ordinary token's gradient agrees to 1e-4 x max|grad|."""
+    from gaussian_transformer_tpu.models.box_sort import GaussianHandler as JaxHandler
+    from gaussian_transformer_tpu.render.project import project_gaussians as jax_project
+    from gaussian_transformer_tpu_torch.models import codec as port_codec
+    from gaussian_transformer_tpu_torch.models.box_sort import GaussianHandler as PortHandler
+    from gaussian_transformer_tpu_torch.render.project import project_gaussians as port_project
+
+    rows = np.stack([HUGE_TOKEN, np.random.RandomState(3).uniform(0.2, 0.8, 26)]).astype(np.float32)
+    lo, hi, s_lo, s_hi = (np.asarray(b, np.float32) for b in HUGE_BOUNDS)
+    jh = JaxHandler(jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(s_lo), jnp.asarray(s_hi))
+    ph = PortHandler(torch.from_numpy(lo), torch.from_numpy(hi), torch.from_numpy(s_lo), torch.from_numpy(s_hi), 10)
+
+    def projected_sum(p):
+        return sum(x.sum() for x in (p.conics, p.means2d, p.rgbs, p.opacities))
+
+    for i in (12, 16, 20, 24):  # ring cameras of 32 that see the huge Gaussian's overflow
+        cam = chip_smoke.camera_from_c2w(chip_smoke.orbit_c2w(2 * math.pi * i / 32), math.radians(50.0), 320, 240,
+                                         torch.device("cpu"))
+        view = dict(image_width=320, image_height=240, tan_fovx=math.tan(cam.fovx / 2),
+                    tan_fovy=math.tan(cam.fovy / 2), active_sh_degree=1)
+
+        def jax_loss(tok):
+            g = jh.denormalize(jax_codec.unflatten_gaussians(tok))
+            return projected_sum(jax_project(
+                g.get_xyz, g.get_scaling, g.get_rotation, g.get_opacity, g.get_features, None,
+                world_view_transform=jnp.asarray(_np(cam.world_view_transform)),
+                full_proj_transform=jnp.asarray(_np(cam.full_proj_transform)),
+                camera_center=jnp.asarray(_np(cam.camera_center)), **view))
+
+        jg = np.asarray(jax.grad(jax_loss)(jnp.asarray(rows)))
+        tok = torch.from_numpy(rows.copy()).requires_grad_()
+        g = ph.denormalize(port_codec.unflatten_gaussians(tok))
+        projected_sum(port_project(g.get_xyz, g.get_scaling, g.get_rotation, g.get_opacity, g.get_features, None,
+                                   world_view_transform=cam.world_view_transform,
+                                   full_proj_transform=cam.full_proj_transform,
+                                   camera_center=cam.camera_center, **view)).backward()
+        pg = tok.grad.numpy()
+        assert not np.isfinite(jg[0]).all(), f"camera {i}: the JAX gradient of the huge token is finite"
+        assert not np.isfinite(pg[0]).all(), f"camera {i}: the port's gradient of the huge token is finite"
+        _close(pg[1], jg[1], REL, f"camera {i}: the ordinary token's gradient", floor=0.0)
+
+
 # ------------------------------------------------------ train step, ckpts ---
 
 LR, EPS = 5e-4, 1e-4
