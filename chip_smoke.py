@@ -105,9 +105,10 @@ stream as planes [16, I_pad], kernels K7 and K8) and the layout probe (K9):
 
 The stacked Gaussian-sequence transformer at full width (STACK 8: token dim
 and d_model 26 * 2^8 = 6656, N 2, h 8, 1,905,446,400 float32 parameters).
-These sections run first, after the device line, so that no torch.profiler
-window of the others precedes their timings (a window leaves the host's
-launches slower for the rest of the process):
+These sections run after the device line and sections 19-22 (which open
+no profiler window), before the others, so that no torch.profiler window
+precedes their timings (a window leaves the host's launches slower for the
+rest of the process):
 
 16. A seeded synthetic scene of 17,618 Gaussians at SH degree 1 (the stacked
     campaign scene's count) written as a trained model dir with a
@@ -146,7 +147,43 @@ launches slower for the rest of the process):
     compositor outputs, K3 and K4 on the four pred and target images at
     SSIM's cotangent. The K1-K4 entries of the kernels line carry the
     launches of the epoch, one open-gate step and this call as
-    ``stacked_launches``. Sections 16-18 print the peak memory of each.
+    ``stacked_launches``. Sections 16-18 print the peak memory of each, as
+    do sections 19-22; the kernels line carries the launches of section 19's
+    runs as ``flat_launches`` and of section 21's as ``autoencoder_launches``.
+
+The flat masked-Gaussian trainer at full width (d_model 1024, N 6, h 8,
+120,851,482 float32 parameters, blockwise attention with 256-key blocks),
+the Gaussian autoencoder and LPIPS. These sections run before the stacked
+ones, so that no profiler window precedes their timings either:
+
+19. A seeded synthetic scene of 24,000 Gaussians at SH degree 1 written as a
+    trained model dir with a Blender-layout dataset of six 960x540 training
+    cameras inside the ground disk looking outward, each of which sees
+    between 5,000 and 15,000 Gaussians (one at least 12,000); the main path:
+    ``cli.train_transformer`` through ``main(argv)`` for one epoch in a work
+    directory, counters zeroed just before and read just after; per step the
+    camera, n_src, n_tgt, the loss and its parts, the renders' overflow, the
+    launches (K1 2, K2 1), the CUDA-event ms and the peak memory; checks the
+    parameter count against the closed form and 120,851,482, finite losses,
+    and ``best_model.npz`` with one array per parameter. Then (19b) one more
+    step with ``GT_LPIPS_WEIGHTS`` at a seeded random alex npz in the
+    converter's layout (the LPIPS term in the loss), and (19c) one
+    ``make_flat_loss`` call on the longest camera's batch, the model standing
+    in as its own teacher-forced prediction, on the card against the same
+    call on CPU copies (the plain versions of K1 and K2).
+20. ``greedy_decode_flat`` of the trained model for 32 tokens from the
+    longest camera's source: ms a token (median of 5 decodes) and the
+    encoder's ms alone.
+21. ``cli.train_autoencoder`` on a 2-camera dataset of section 19's scene
+    with ``--epochs 502 --lr_sweep_start 20 --lr_sweep_stop 21``, as the
+    scalar stub and with ``--conv``: epochs 0-500 the token L1, epoch 501
+    the image loss; counters zeroed just before each run and read after
+    every step (an image step K1 3, K2 1, K3 1, K4 1; a token step K1 1);
+    finite losses, the wall time, the steps' CUDA-event ms; one
+    ``image_loss`` of the conv model on the card against its CPU copy
+    (the plain versions of K1-K4).
+22. LPIPS alex and vgg on seeded random weights at 1920x1080 on the card
+    against the CPU (1e-5 relative), and their ms.
 
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
 before and after its window. The K3, K4, K7 and K8 entries of the kernels
@@ -384,15 +421,20 @@ def synthetic_scene(n: int, seed: int):
     }
 
 
-def orbit_c2w(angle: float, radius: float = 4.2, height: float = 1.3) -> list:
-    """Blender/OpenGL camera-to-world of a camera on a circle, looking at the origin."""
-    eye = np.array([radius * math.sin(angle), height, radius * math.cos(angle)])
-    f = _unit(-eye)
+def look_at_c2w(eye, target) -> list:
+    """Blender/OpenGL camera-to-world of a camera at ``eye`` looking at ``target``."""
+    eye = np.asarray(eye, np.float64)
+    f = _unit(np.asarray(target, np.float64) - eye)
     r = _unit(np.cross(f, [0.0, 1.0, 0.0]))
     u = np.cross(r, f)
     c2w = np.eye(4)
     c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = r, u, -f, eye
     return c2w.tolist()
+
+
+def orbit_c2w(angle: float, radius: float = 4.2, height: float = 1.3) -> list:
+    """Blender/OpenGL camera-to-world of a camera on a circle, looking at the origin."""
+    return look_at_c2w([radius * math.sin(angle), height, radius * math.cos(angle)], [0.0, 0.0, 0.0])
 
 
 def camera_from_c2w(c2w, fovx, width, height, device):
@@ -453,16 +495,17 @@ def surface_points(n: int, seed: int):
     return xyz, rgb.astype(np.uint8)
 
 
-def write_train_dataset(data: Path, scene, points, n_train, n_test, width, height, fovx, device):
-    """Blender-layout dataset of ``scene``: orbit views whose ground truth is
-    the port's render (PNG), and ``points3d.ply``. Returns {split: [c2w]}."""
+def write_train_dataset(data: Path, scene, points, n_train, n_test, width, height, fovx, device, splits=None):
+    """Blender-layout dataset of ``scene``: orbit views (or the c2w lists of
+    ``splits``, {split: [c2w]}) whose ground truth is the port's render
+    (PNG), and ``points3d.ply``. Returns {split: [c2w]}."""
     import torch
 
     from gaussian_transformer_tpu_torch.render import render
     from gaussian_transformer_tpu_torch.scene.ply import store_point_cloud
     from gaussian_transformer_tpu_torch.utils.png import write_png
 
-    splits = {
+    splits = splits or {
         "train": [orbit_c2w(2 * math.pi * i / n_train) for i in range(n_train)],
         "test": [orbit_c2w(2 * math.pi * (i + 0.5) / n_test + 0.2) for i in range(n_test)],
     }
@@ -480,6 +523,59 @@ def write_train_dataset(data: Path, scene, points, n_train, n_test, width, heigh
     store_point_cloud(str(data / "points3d.ply"), points[0], points[1])
     return splits
 
+
+
+def write_lpips_weights(path, net: str, seed: int) -> None:
+    """A seeded random LPIPS network in the layout tools/convert_lpips_weights.py
+    writes (conv<i>.w [out, in, kh, kw] He-normal, conv<i>.b small, lin<i>.w
+    [1, C, 1, 1] in [0, 0.1)): the architecture without the pretrained weights."""
+    from gaussian_transformer_tpu_torch.eval import lpips
+
+    rng = np.random.RandomState(seed)
+    if net == "vgg":
+        convs = [(c, 3) for c in lpips.VGG16_CFG if c != "M"]
+    else:
+        convs = [(c, k) for c, k, _, _ in (item for item in lpips.ALEX_CFG if item != "M")]
+    stages = lpips.VGG16_STAGES if net == "vgg" else lpips.ALEX_STAGES
+    out, cin = {}, 3
+    for i, (cout, k) in enumerate(convs):
+        out[f"conv{i}.w"] = (rng.randn(cout, cin, k, k) * math.sqrt(2.0 / (cin * k * k))).astype(np.float32)
+        out[f"conv{i}.b"] = (rng.randn(cout) * 0.01).astype(np.float32)
+        cin = cout
+    for i, n_convs in enumerate(stages):
+        c = convs[n_convs - 1][0]
+        out[f"lin{i}.w"] = (rng.rand(1, c, 1, 1) * 0.1).astype(np.float32)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(str(path), **out)
+
+
+def kernel_counters() -> dict:
+    """The launch counters of K1-K4 (the stream compositor's and the fused
+    SSIM's wrappers), by kernel."""
+    from gaussian_transformer_tpu_torch.ops import fused_ssim
+    from gaussian_transformer_tpu_torch.render import stream
+
+    return {"K1": stream.STREAM_FWD, "K2": stream.STREAM_BWD, "K3": fused_ssim.SSIM_FWD, "K4": fused_ssim.SSIM_BWD}
+
+
+def zero_counts(counters) -> None:
+    for k in counters.values():
+        k.launches = 0
+
+
+def read_counts(counters) -> dict:
+    return {k: v.launches for k, v in counters.items()}
+
+
+def report_peak(summary, key: str, section: str, smi: str) -> None:
+    """Print the peak device memory since the last reset, keep it in
+    ``summary[key]`` and reset the peak."""
+    import torch
+
+    gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{smi}] peak memory of section {section}: {gib:.2f} GiB (torch.cuda.max_memory_allocated)")
+    summary[key] = gib
+    torch.cuda.reset_peak_memory_stats()
 
 # ---------------------------------------------------------------- timing ----
 
@@ -892,10 +988,8 @@ def train_path(args, device, scene, summary):
           f"{time.time() - t0:.1f} s")
 
     print("== 7. main path: cli.train, then cli.render and cli.metrics on the trained model")
-    counters = {"K1": stream.STREAM_FWD, "K2": stream.STREAM_BWD, "K3": fused_ssim.SSIM_FWD,
-                "K4": fused_ssim.SSIM_BWD}
-    for k in counters.values():
-        k.launches = 0
+    counters = kernel_counters()
+    zero_counts(counters)
     dev_arg = [] if on_card else ["--device", str(device)]
     n = args.iterations
     third = n // 3
@@ -907,7 +1001,7 @@ def train_path(args, device, scene, summary):
         "--checkpoint_iterations", str(n), "--quiet",
     ] + dev_arg)
     t_train = time.time() - t0
-    launches = {k: v.launches for k, v in counters.items()}
+    launches = read_counts(counters)
     hist = res["history"]
     losses = [h["loss"] for h in hist]
     print(f"cli.train {n} steps: {t_train:.1f} s; launches {launches}")
@@ -1645,17 +1739,6 @@ def spread(times) -> str:
     return f"median {np.median(times):.3f} ms (min {min(times):.3f}, max {max(times):.3f}, {len(times)} reps)"
 
 
-def add_stacked_launches(entries, launches) -> None:
-    """Write the stacked path's K1-K4 launches (the CLI's epoch, the
-    open-gate train step and one image-branch call) into those kernels'
-    entries of the kernels line."""
-    names = {"K1": "stream_fwd", "K2": "stream_bwd", "K3": "ssim_fwd", "K4": "ssim_bwd"}
-    for entry in entries:
-        for k, name in names.items():
-            if entry["name"] == name:
-                entry["stacked_launches"] = {path: counts[k] for path, counts in launches.items()}
-
-
 def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYERS, gaussians=STACKED_GAUSSIANS,
                  views=STACKED_VIEWS, width=STACKED_W, height=STACKED_H) -> dict:
     """Sections 16-18: the stacked transformer at full width (STACK 8,
@@ -1690,23 +1773,12 @@ def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYE
     work = Path(args.work) / "stacked"
     shutil.rmtree(work, ignore_errors=True)
     data, model_dir, run_dir = work / "data", work / "model", work / "run"
-    counters = {"K1": stream.STREAM_FWD, "K2": stream.STREAM_BWD, "K3": fused_ssim.SSIM_FWD,
-                "K4": fused_ssim.SSIM_BWD}
+    counters = kernel_counters()
     out = {}
-
-    def zero_counts():
-        for k in counters.values():
-            k.launches = 0
-
-    def read_counts():
-        return {k: v.launches for k, v in counters.items()}
 
     def peak(section):
         if on_card:
-            gib = torch.cuda.max_memory_allocated() / 2**30
-            print(f"[{smi}] peak memory of section {section}: {gib:.2f} GiB (torch.cuda.max_memory_allocated)")
-            summary[f"stacked_peak_gib_{section}"] = gib
-            torch.cuda.reset_peak_memory_stats()
+            report_peak(summary, f"stacked_peak_gib_{section}", section, smi)
 
     print(f"== 16. stacked transformer: model dir, first batch, serving (STACK {stack}, {layers} layers)")
     if on_card:
@@ -1784,14 +1856,14 @@ def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYE
     peak("16")
 
     print("== 17. main path: cli.train_stacked for one epoch")
-    zero_counts()
+    zero_counts(counters)
     dev_arg = [] if on_card else ["--device", str(device)]
     t0 = time.time()
     res = cli_stacked.main(["-s", str(data), "-m", str(model_dir), "--eval", "--epochs", "1", "--stack",
                             str(stack), "--layers", str(layers), "--run_name", str(run_dir),
                             "--quiet"] + dev_arg)
     t_cli = time.time() - t0
-    launches = read_counts()
+    launches = read_counts(counters)
     hist = res["history"]
     n_steps = tscene.size // 4
     print(f"cli.train_stacked: {len(hist)} steps in {t_cli:.1f} s; launches {launches}")
@@ -1832,12 +1904,12 @@ def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYE
         own = stacked.greedy_decode(res["model"], batch.src, batch.src_mask, Lt + 1, stack, key)[:, 1:]
         noise = torch.randn(own.shape, generator=torch.Generator(device).manual_seed(args.seed + 1), device=device)
         trg_open = torch.where(real[..., None], own + TOKEN_NOISE * noise, batch.trg_y)
-    zero_counts()
+    zero_counts(counters)
     if on_card:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
     gate_loss, met = step_fn(batch.src, trg_open, batch.cameras, 5e-4, batch.src_mask, key)
-    gate = {"launches": read_counts(), "loss": float(gate_loss), "chamfer": float(met["chamfer"]),
+    gate = {"launches": read_counts(counters), "loss": float(gate_loss), "chamfer": float(met["chamfer"]),
             "img_loss": float(met["img_loss"]), "overflow": met["overflow"].tolist() if "overflow" in met else None}
     if on_card:
         ev[1].record()
@@ -1893,10 +1965,10 @@ def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYE
     valid = (~fuzzy_token_equal(batch.trg_y[0], stacked.pad_token(stack))).repeat_interleave(2**stack)
     noise = torch.randn(tgt.shape, generator=torch.Generator(device).manual_seed(args.seed), device=device)
     pred = (tgt + TOKEN_NOISE * noise).requires_grad_()
-    zero_counts()
+    zero_counts(counters)
     loss, overflow = stacked.image_loss(pred, tgt, valid, tscene.handler, batch.cameras, RenderConfig())
     loss.backward()
-    img_launches = read_counts()
+    img_launches = read_counts(counters)
     grad = pred.grad
     loss = loss.detach()
     print(f"image loss {float(loss):.6f} over {len(batch.cameras)} cameras, {int(valid.sum())} real Gaussians; "
@@ -1978,9 +2050,7 @@ def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYE
         handler = type(tscene.handler)(*(cpu(t) for t in (tscene.handler.world_min, tscene.handler.world_max,
                                                             tscene.handler.scaling_min, tscene.handler.scaling_max)),
                                        tscene.handler.interval_num)
-        cams = [dataclasses.replace(c, **{f: cpu(getattr(c, f)) for f in
-                                          ("world_view_transform", "full_proj_transform", "camera_center")},
-                                    original_image=None) for c in batch.cameras]
+        cams = [cpu_camera(c) for c in batch.cameras]
         loss_cpu, _ = stacked.image_loss(p_cpu, cpu(tgt), cpu(valid), handler, cams, RenderConfig())
         loss_cpu.backward()
         loss_cpu = loss_cpu.detach()
@@ -2019,6 +2089,485 @@ def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYE
     return out
 
 
+FLAT_PARAMS = 120_851_482  # d_model 1024, N 6, h 8: train_transformer.py's defaults
+# The flat trainer's shape: train_transformer.py's model (d_model 1024, 6
+# layers), key blocks of 256 (every bucket length is a multiple of 256), and
+# a synthetic SH-1 scene whose training cameras see 5,000-15,000 Gaussians.
+FLAT_D, FLAT_LAYERS, FLAT_BLOCK_K = 1024, 6, 256
+FLAT_GAUSSIANS = 24_000
+FLAT_W, FLAT_H = 960, 540
+FLAT_MAX_LEN, FLAT_LONG = 15_000, 12_000
+FLAT_DECODE_TOKENS = 32
+FLAT_LOSS_REL = 1e-5  # the loss on the card vs its CPU copy (plain K1/K2), relative
+FLAT_GRAD_REL = K2_MAX_ERR  # its gradient, of the largest (K2's rule)
+LPIPS_W, LPIPS_H = 1920, 1080
+LPIPS_REL = 1e-5  # LPIPS on the card vs on the CPU, relative
+
+
+def flat_param_count(d_model: int, layers: int) -> int:
+    """The flat model's parameters in closed form: the core (the stacked
+    model's layout at D = d_model) plus two 26 -> D Dense layers and the D ->
+    26 head."""
+    return layers * (18 * d_model * d_model + 28 * d_model) + 7 * d_model * d_model + 11 * d_model \
+        + 2 * 27 * d_model + 26 * d_model + 26
+
+
+def flat_c2ws() -> list:
+    """Six training cameras inside the ground disk, each looking outward and
+    down over a part of the scene from (radius, height) toward the ground
+    at a larger radius, so that between a third and two thirds of the
+    Gaussians lie in front of it."""
+    cams = []
+    for (radius, height, reach), turns in (((1.2, 0.8, 3.0), (0.0, 0.5)), ((1.0, 1.0, 2.6), (0.0, 0.5)),
+                                          ((1.4, 0.9, 3.0), (1.0, 1.5))):
+        for turn in turns:
+            a = math.pi * turn
+            cams.append(look_at_c2w([radius * math.sin(a), height, radius * math.cos(a)],
+                                    [reach * math.sin(a), -1.0, reach * math.cos(a)]))
+    return cams
+
+
+def cpu_camera(cam):
+    """A CPU copy of a camera (its ground truth included)."""
+    moved = {f: getattr(cam, f).detach().cpu() for f in
+             ("world_view_transform", "full_proj_transform", "camera_center", "original_image")
+             if getattr(cam, f) is not None}
+    return dataclasses.replace(cam, **moved)
+
+
+def add_path_launches(entries, key: str, launches) -> None:
+    """Write a path's K1-K4 launches ({run: {"K1": n, ...}}) into those
+    kernels' entries of the kernels line, under ``key``."""
+    names = {"K1": "stream_fwd", "K2": "stream_bwd", "K3": "ssim_fwd", "K4": "ssim_bwd"}
+    for entry in entries:
+        for k, name in names.items():
+            if entry["name"] == name:
+                entry[key] = {run: counts[k] for run, counts in launches.items()}
+
+
+def flat_path(args, device, summary, d_model=FLAT_D, layers=FLAT_LAYERS, gaussians=FLAT_GAUSSIANS,
+              width=FLAT_W, height=FLAT_H, ae_size=None, lpips_size=(LPIPS_W, LPIPS_H),
+              decode_tokens=FLAT_DECODE_TOKENS) -> dict:
+    """Sections 19-22: the flat trainer at full width (d_model 1024, N 6),
+    its decode, the autoencoder (21 on section 19's scene, 21b on sections
+    1-9's, ``ae_size`` = (Gaussians, width, height), default ``args``') and
+    LPIPS (smaller sizes only for a rehearsal on the CPU, which lowers
+    ``cli.train_transformer.MIN_LEN`` to suit). Returns the launches of
+    K1-K4 on its runs, by run."""
+    import copy
+    import gc
+    import shutil
+
+    import torch
+
+    from gaussian_transformer_tpu_torch import kernels
+    from gaussian_transformer_tpu_torch.cli import train_autoencoder as cli_ae
+    from gaussian_transformer_tpu_torch.cli import train_transformer as cli_flat
+    from gaussian_transformer_tpu_torch.convert import scene_from_numpy
+    from gaussian_transformer_tpu_torch.eval import lpips
+    from gaussian_transformer_tpu_torch.models.box_sort import GaussianHandler
+    from gaussian_transformer_tpu_torch.models.codec import flatten_gaussians, unflatten_gaussians
+    from gaussian_transformer_tpu_torch.models.transformer import count_params, jax_order
+    from gaussian_transformer_tpu_torch.render import RenderConfig, render
+    from gaussian_transformer_tpu_torch.scene import Scene
+    from gaussian_transformer_tpu_torch.train import flat
+
+    on_card = device.type == "cuda"
+    smi = smi_line() if on_card else "cpu"
+    dev_arg = [] if on_card else ["--device", str(device)]
+    fovx = math.radians(50.0)
+    work = (Path(args.work) / "flat").resolve()
+    shutil.rmtree(work, ignore_errors=True)
+    data, ae_data, model_dir, run_dir = work / "data", work / "ae_data", work / "model", work / "run"
+    run_dir.mkdir(parents=True)
+    min_len = cli_flat.MIN_LEN
+    tf32 = torch.backends.cudnn.allow_tf32  # what the port leaves as it finds it
+    counters = kernel_counters()
+    out = {}
+    cwd = os.getcwd()
+    env_weights = os.environ.pop("GT_LPIPS_WEIGHTS", None)
+
+    def diff(a, b):
+        return {k: b[k] - a[k] for k in a}
+
+    def peak(section):
+        if on_card:
+            report_peak(summary, f"flat_peak_gib_{section}", section, smi)
+
+    print(f"== 19. flat trainer at full width: cli.train_transformer (d_model {d_model}, {layers} layers, "
+          f"block_k {FLAT_BLOCK_K})")
+    if on_card:
+        kernels.build(kernels.all_sources())  # before any timing (one nvcc per source, in parallel)
+        torch.cuda.reset_peak_memory_stats()
+    random.seed(args.seed)  # Scene shuffles its cameras with Python's random, as the reference does
+    fields = synthetic_scene(gaussians, args.seed + 19)
+    fields["features_rest"] = fields["features_rest"][:, :3]  # SH degree 1, as the flat CLI loads it
+    scene = scene_from_numpy(fields, 1, device)
+    c2ws = flat_c2ws()
+    points = surface_points(2000, args.seed + 19)
+    write_train_dataset(data, scene, points, 0, 0, width, height, fovx, device,
+                        splits={"train": c2ws, "test": [orbit_c2w(0.3)]})
+    write_train_dataset(ae_data, scene, points, 0, 0, width, height, fovx, device,
+                        splits={"train": c2ws[:2], "test": [orbit_c2w(0.3)]})
+    scene.save_ply(str(model_dir / "point_cloud" / "iteration_30000" / "point_cloud.ply"))
+    del scene
+
+    steps = []
+
+    def on_step(rec):
+        rec["counts"] = read_counts(counters)  # cumulative since the zeroing
+        if on_card:
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        steps.append(rec)
+
+    os.chdir(run_dir)
+    try:
+        zero_counts(counters)
+        t0 = time.time()
+        res = cli_flat.main(["-s", str(data), "-m", str(model_dir), "--eval", "--epochs", "1", "--d_model",
+                             str(d_model), "--layers", str(layers), "--max_len", str(FLAT_MAX_LEN),
+                             "--attn_block_k", str(FLAT_BLOCK_K), "--quiet"] + dev_arg,
+                            on_step=on_step)
+        t_cli = time.time() - t0
+        launches = read_counts(counters)
+    finally:
+        os.chdir(cwd)
+    tscene, model, hist = res["tscene"], res["model"], res["history"]
+    counts = tscene.counts
+    n_params = count_params(model)
+    print(f"{gaussians} Gaussians at SH degree 1, {len(counts)} training cameras at {width}x{height}; visible "
+          f"Gaussians per camera {counts}; {tscene.size} within ({min_len}, {FLAT_MAX_LEN - 1})")
+    print(f"model: {n_params} parameters (float32, {4 * n_params / 1e9:.3f} GB; Adamax's two moments "
+          f"{8 * n_params / 1e9:.3f} GB more); lpips(alex) in the loss: {flat.lpips_mod.available('alex')}")
+    check(n_params == flat_param_count(d_model, layers), f"{n_params} parameters == {flat_param_count(d_model, layers)} "
+          "(closed form)")
+    if (d_model, layers) == (FLAT_D, FLAT_LAYERS):
+        check(n_params == FLAT_PARAMS, f"{n_params} parameters == {FLAT_PARAMS}")
+        check(tscene.size >= 4 and max(c for c in counts if min_len < c < FLAT_MAX_LEN - 1) >= FLAT_LONG,
+              f"at least 4 cameras in the window, one seeing >= {FLAT_LONG}")
+    check(len(hist) == tscene.size, f"one step per camera in the window ({tscene.size})")
+    prev = {"K1": len(counts) if on_card else 0, "K2": 0, "K3": 0, "K4": 0}  # the visibility renders
+    for h in hist:
+        h["launches"] = diff(prev, h.pop("counts"))
+        prev = {k: prev[k] + h["launches"][k] for k in prev}
+        print(f"  step {h['step']}: camera {h['cam']}, n_src {h['n_src']}, n_tgt {h['n_tgt']} (src {h['src_len']}, "
+              f"tgt {h['tgt_len']} rows), loss {h['loss']:.6f} = 0.5 x gen {h['gen']:.6f} / base {h['base']:.6f} "
+              f"+ 0.1 x l2 {h['l2']:.6f}; overflow (prediction, truth) {h['overflow']}; lr {h['lr']:.3e}; "
+              f"launches {h['launches']}"
+              + (f"; {h['ms']:.1f} ms, peak {h['peak_gib']:.2f} GiB" if on_card else ""))
+    print(f"cli.train_transformer: {len(hist)} steps in {t_cli:.1f} s; launches {launches}")
+    check(all(math.isfinite(h[k]) for h in hist for k in ("loss", "base", "gen", "l2")),
+          "every step's loss and its parts are finite")
+    if on_card:
+        check(all(h["launches"] == {"K1": 2, "K2": 1, "K3": 0, "K4": 0} for h in hist),
+              "K1 twice (prediction and truth renders) and K2 once a step")
+        step_ms = [h["ms"] for h in hist]
+        print(f"[{smi}] flat train step: {spread(step_ms)} (CUDA events)")
+        summary.update(flat_step_ms=step_ms, flat_step_peak_gib=max(h["peak_gib"] for h in hist))
+    with np.load(run_dir / cli_flat.BEST_MODEL) as saved:
+        check(len(saved.files) == len(jax_order(model)), f"best_model.npz holds one array per parameter "
+              f"({len(saved.files)})")
+    summary.update(flat_params=n_params, flat_counts=counts, flat_history=hist, flat_cli_s=t_cli,
+                   flat_cli_launches=launches)
+    out["flat_cli"] = launches
+
+    longest = max(range(tscene.size), key=lambda i: int(tscene.visible[i].sum()))
+    tscene.set_epoch(0)
+    batch = tscene.make_batch(longest)
+    lp_path = work / "weights_random" / "lpips_alex.npz"
+    write_lpips_weights(lp_path, "alex", args.seed + 20)
+    os.environ["GT_LPIPS_WEIGHTS"] = str(lp_path)
+    lpips._load.cache_clear()
+    try:
+        print(f"== 19b. one more step with LPIPS(alex) (seeded random weights, {lp_path.name}) on camera {longest}")
+        loss_fn = flat.make_flat_loss(model, RenderConfig())
+        check(flat.lpips_mod.available("alex"), "the loss takes the LPIPS term")
+        args_b = [batch[k] for k in ("src", "trg", "trg_y", "src_mask", "trg_mask", "cam")]
+        zero_counts(counters)
+        if on_card:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        res["optimizer"].zero_grad(set_to_none=True)
+        loss, met = loss_fn(*args_b, dropout_key=(42, len(hist)))
+        loss.backward()
+        res["optimizer"].step()
+        lp_launches = read_counts(counters)
+        lp_step = {"loss": float(loss.detach()), **{k: float(met[k].detach()) for k in ("base", "gen", "l2")},
+                   "launches": lp_launches}
+        lp_step["lpips_term"] = lp_step["loss"] - (0.5 * lp_step["gen"] / lp_step["base"] + 0.1 * lp_step["l2"])
+        if on_card:
+            ev[1].record()
+            torch.cuda.synchronize()
+            lp_step["ms"] = ev[0].elapsed_time(ev[1])
+        print(f"loss {lp_step['loss']:.6f} (0.4 x LPIPS {lp_step['lpips_term']:.6f}); launches {lp_launches}"
+              + (f"; [{smi}] {lp_step['ms']:.1f} ms (CUDA events, one step)" if on_card else ""))
+        check(math.isfinite(lp_step["loss"]) and lp_step["lpips_term"] > 0, "a finite loss with an LPIPS term")
+        check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "the parameters stay finite")
+        if on_card:
+            check(lp_launches == {"K1": 2, "K2": 1, "K3": 0, "K4": 0}, "K1 twice and K2 once")
+        summary["flat_lpips_step"] = lp_step
+        out["flat_lpips_step"] = lp_launches
+        del loss, met
+    finally:
+        os.environ.pop("GT_LPIPS_WEIGHTS")
+        lpips._load.cache_clear()
+
+    # make_flat_loss on the card against the same call on CPU copies (the
+    # plain versions of K1 and K2): the model stands in as its own
+    # teacher-forced prediction for this batch, a parameter, so the call's
+    # renders are at the main path's shapes and its gradient is the tokens'.
+    print(f"== 19c. make_flat_loss on camera {longest}'s batch on the card vs on CPU copies (plain K1/K2)")
+    model.eval()
+    with torch.no_grad():
+        pred = model.generator(model(*[batch[k] for k in ("src", "trg", "src_mask", "trg_mask")]))
+
+    class Decoded(torch.nn.Module):
+        def __init__(self, x):
+            super().__init__()
+            self.x = torch.nn.Parameter(x.clone())
+
+        def forward(self, src, tgt, src_mask, tgt_mask, rng=None):
+            return self.x
+
+        def generator(self, x):
+            return x
+
+    results = {}
+    for where in ("card", "cpu") if on_card else ("cpu",):
+        mv = (lambda t: t) if where == "card" else (lambda t: t.detach().cpu())
+        stand_in = Decoded(mv(pred))
+        b = {k: mv(batch[k]) for k in ("src", "trg", "trg_y", "src_mask", "trg_mask")}
+        cam = batch["cam"] if where == "card" else cpu_camera(batch["cam"])
+        if where == "card":
+            zero_counts(counters)
+        loss, met = flat.make_flat_loss(stand_in, RenderConfig(), use_lpips=False)(
+            b["src"], b["trg"], b["trg_y"], b["src_mask"], b["trg_mask"], cam)
+        loss.backward()
+        results[where] = (float(loss.detach()), stand_in.x.grad.detach().cpu(), read_counts(counters))
+    loss_c, grad_c, cmp_launches = results["card" if on_card else "cpu"]
+    if on_card:
+        loss_p, grad_p, _ = results["cpu"]
+        l_err = abs(loss_c - loss_p) / abs(loss_p)
+        g_scale = float(grad_p.abs().max())
+        g_err = float((grad_c - grad_p).abs().max())
+        print(f"loss {loss_c:.7f} on the card (launches {cmp_launches}) vs {loss_p:.7f} on the CPU: rel diff "
+              f"{l_err:.3e} (tolerance {FLAT_LOSS_REL}); token gradient max abs diff {g_err:.3e} = "
+              f"{g_err / g_scale:.3e} of max {g_scale:.3e} (tolerance {FLAT_GRAD_REL})")
+        check(cmp_launches == {"K1": 2, "K2": 1, "K3": 0, "K4": 0}, "the card's call launched K1 twice and K2 once")
+        check(l_err <= FLAT_LOSS_REL and g_err <= FLAT_GRAD_REL * g_scale,
+              "make_flat_loss on the card agrees with its plain versions")
+        summary.update(flat_loss_rel_err=l_err, flat_grad_err=g_err, flat_grad_scale=g_scale)
+    check(math.isfinite(loss_c) and bool(torch.isfinite(grad_c).all()) and float(grad_c.abs().max()) > 0,
+          "a finite loss and a finite, nonzero token gradient")
+    if on_card:
+        # The matmul FLOPs of one loss and backward on the longest camera's
+        # batch (the recomputed key blocks included), against its step time.
+        from torch.utils.flop_counter import FlopCounterMode
+
+        with FlopCounterMode(display=False) as fc:
+            flat.make_flat_loss(model, RenderConfig(), use_lpips=False)(*args_b)[0].backward()
+        model.zero_grad(set_to_none=True)
+        flops = fc.get_total_flops()
+        long_ms = next(h["ms"] for h in hist if h["cam"] == longest)
+        bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+        print(f"[{smi}] one flat loss and backward on camera {longest}'s batch: {flops:.4e} matmul FLOPs "
+              f"(FlopCounterMode) = {bound_ms:.1f} ms at the float32 non-tensor peak ({PEAK_FP32_FLOPS:.3g} FLOP/s), "
+              f"{bound_ms / long_ms:.3f} of that camera's step in the epoch ({long_ms:.1f} ms)")
+        summary.update(flat_step_flops=flops, flat_step_bound_ms=bound_ms, flat_long_step_ms=long_ms)
+    peak("19")
+
+    print(f"== 20. flat decode: greedy_decode_flat of the full-width model, {decode_tokens} tokens from camera "
+          f"{longest}'s source ({batch['src'].shape[1]} rows)")
+    run_decode = lambda: flat.greedy_decode_flat(model, batch["src"], batch["src_mask"], decode_tokens)
+    ys = run_decode()
+    check(ys.shape == (1, decode_tokens, 26) and bool(torch.isfinite(ys).all()),
+          f"a finite [1, {decode_tokens}, 26] decode")
+    if on_card:
+        clk = sm_clock()
+        with torch.no_grad():
+            dec_ms = cuda_ms_each(run_decode, reps=5)
+            enc_ms = cuda_ms_each(lambda: model.encode(batch["src"], batch["src_mask"]), reps=5)
+        med = float(np.median(dec_ms))
+        print(f"[{smi}] greedy_decode_flat: {spread(dec_ms)} = {med / decode_tokens:.3f} ms/token "
+              f"(the encoder alone {spread(enc_ms)})")
+        print_clocks(clk, "20")
+        summary.update(flat_decode_ms=dec_ms, flat_decode_ms_per_token=med / decode_tokens, flat_encode_ms=enc_ms)
+    del model, res, tscene, batch, ys, pred, run_decode
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    peak("20")
+
+    ag, aw, ah = ae_size or (args.gaussians, args.width, args.height)
+    big_data, big_model = work / "ae_big_data", work / "ae_big_model"
+    for section, what, ae_dir, ae_model_dir in (
+            ("21", f"section 19's scene ({gaussians} Gaussians, {width}x{height})", ae_data, model_dir),
+            ("21b", f"sections 1-9's scene ({ag} Gaussians, {aw}x{ah})", big_data, big_model)):
+        print(f"== {section}. autoencoder: cli.train_autoencoder on a 2-camera dataset of {what}, epochs 0-501 "
+              f"(epoch 501 the image loss)")
+        tag = "" if section == "21" else "_big"
+        if section == "21b":
+            # synthetic_scene(args.gaussians, args.seed) is section 2's scene;
+            # its train view and first test view are the cameras.
+            t0 = time.time()
+            fields = synthetic_scene(ag, args.seed)
+            fields["features_rest"] = fields["features_rest"][:, :3]  # SH degree 1, as the CLI loads it
+            scene = scene_from_numpy(fields, 1, device)
+            write_train_dataset(big_data, scene, points, 0, 0, aw, ah, fovx, device,
+                                splits={"train": [orbit_c2w(math.pi / 4), orbit_c2w(0.3)],
+                                        "test": [orbit_c2w(math.pi / 2 + 0.3)]})
+            scene.save_ply(str(big_model / "point_cloud" / "iteration_30000" / "point_cloud.ply"))
+            del scene, fields
+            print(f"dataset and model dir: {time.time() - t0:.1f} s")
+        for conv in (False, True):
+            name = ("conv" if conv else "stub") + tag
+            ae_steps = []
+            os.chdir(run_dir)
+            try:
+                zero_counts(counters)
+                t0 = time.time()
+                ae_res = cli_ae.main(["-s", str(ae_dir), "-m", str(ae_model_dir), "--eval", "--epochs", "502",
+                                      "--lr_sweep_start", "20", "--lr_sweep_stop", "21", "--quiet"]
+                                     + (["--conv"] if conv else []) + dev_arg,
+                                     on_step=lambda rec: ae_steps.append((rec, read_counts(counters))))
+                t_ae = time.time() - t0
+                ae_launches = read_counts(counters)
+            finally:
+                os.chdir(cwd)
+            prev = {k: 0 for k in counters}
+            per_step = []
+            for rec, cum in ae_steps:
+                rec["launches"] = diff(prev, cum)
+                prev = cum
+                per_step.append(rec)
+            img = [r for r in per_step if r["kind"] == "image"]
+            tok = [r for r in per_step if r["kind"] == "token"]
+            print(f"{name}: {len(per_step)} steps ({len(tok)} token, {len(img)} image) in {t_ae:.1f} s; launches "
+                  f"{ae_launches}; image steps: " + "; ".join(
+                      f"loss {r['loss']:.6f}, {r['n_visible']} visible, launches {r['launches']}"
+                      + (f", {r['ms']:.2f} ms" if on_card else "") for r in img))
+            check(len(img) == 2 and len(tok) == 1002, "1002 token steps and 2 image steps")
+            check(all(r["finite"] for r in per_step), "every loss is finite")
+            if on_card:
+                check(all(r["launches"] == {"K1": 3, "K2": 1, "K3": 1, "K4": 1} for r in img),
+                      "an image step launches K1 3 (visibility, input, reconstruction), K2 1, K3 1, K4 1")
+                check(all(r["launches"] == {"K1": 1, "K2": 0, "K3": 0, "K4": 0} for r in tok),
+                      "a token step launches K1 once (visibility)")
+                tok_ms = [r["ms"] for r in tok]
+                print(f"[{smi}] {name} token step {spread(tok_ms)}; image steps {[round(r['ms'], 3) for r in img]} "
+                      "ms (CUDA events)")
+            summary[f"autoencoder_{name}"] = {"s": t_ae, "launches": ae_launches, "image_steps": img,
+                                              "token_step_ms": [r["ms"] for r in tok] if on_card else None}
+            out[f"autoencoder_{name}"] = ae_launches
+        check(torch.backends.cudnn.allow_tf32 == tf32, f"the CLIs leave cuDNN's TF32 flag as they found it ({tf32})")
+
+        # One image_loss on the card against the same call on CPU copies
+        # (plain K1-K4), with the conv autoencoder the run trained, under
+        # the process's own TF32 flag: the model's convolutions hold float32.
+        ae_model = ae_res["models"][20]
+        ns = Namespace(sh_degree=1, source_path=str(ae_dir), model_path=str(ae_model_dir), images="images",
+                       resolution=-1, white_background=False, data_device=str(device), eval=True)
+        sc = Scene(ns, load_iteration=-1, sh_degree=1, device=device)
+        with torch.no_grad():
+            handler = GaussianHandler.create(sc.gaussians)
+            g = handler.denormalize(unflatten_gaussians(handler.box_sort(sc.gaussians)))
+            cam = sc.get_train_cameras()[0]
+            ae_input = flatten_gaussians(g)[render(cam, g)["visibility_filter"]][None]
+        results = {}
+        for where in ("card", "cpu") if on_card else ("cpu",):
+            m = ae_model if where == "card" else copy.deepcopy(ae_model).cpu()
+            m.zero_grad(set_to_none=True)
+            if where == "card":
+                zero_counts(counters)
+            t0 = time.time()
+            loss, pred = cli_ae.image_loss(m, ae_input if where == "card" else ae_input.cpu(),
+                                           cam if where == "card" else cpu_camera(cam), RenderConfig())
+            pred.retain_grad()
+            loss.backward()
+            results[where] = (float(loss.detach()), [p.grad.detach().cpu() for p in m.parameters()],
+                              read_counts(counters), pred.detach().cpu(), pred.grad.detach().cpu(), time.time() - t0)
+        loss_c, grads_c, il_launches, pred_c, _, _ = results["card" if on_card else "cpu"]
+        print(f"image_loss on {ae_input.shape[1]} visible Gaussians; on the CPU (plain K1-K4) "
+              f"{results['cpu'][5]:.1f} s wall")
+        if on_card:
+            loss_p, grads_p, _, pred_p, tgrad_p, _ = results["cpu"]
+            l_err = abs(loss_c - loss_p) / abs(loss_p)
+            g_scale = max(float(x.abs().max()) for x in grads_p)
+            g_err = max(float((a - b).abs().max()) for a, b in zip(grads_c, grads_p))
+            t_scale = float(tgrad_p.abs().max())
+            t_err = float((results["card"][4] - tgrad_p).abs().max())
+            r_err = float((pred_c - pred_p).abs().max())
+            print(f"image_loss (conv) on the card {loss_c:.7f} (launches {il_launches}) vs on the CPU {loss_p:.7f}: "
+                  f"rel diff {l_err:.3e} (tolerance {FLAT_LOSS_REL}); the reconstructed tokens' gradient max abs diff "
+                  f"{t_err:.3e} = {t_err / t_scale:.3e} of max {t_scale:.3e}; parameter gradients max abs diff "
+                  f"{g_err:.3e} = {g_err / g_scale:.3e} of max {g_scale:.3e} (gradients: tolerance {FLAT_GRAD_REL} in "
+                  f"section 21, printed in 21b); the "
+                  f"reconstructed tokens max abs diff {r_err:.3e} of max {float(pred_p.abs().max()):.3e}; cuDNN "
+                  f"TF32 flag: {torch.backends.cudnn.allow_tf32}")
+            check(il_launches == {"K1": 2, "K2": 1, "K3": 1, "K4": 1}, "image_loss launched K1 2, K2 1, K3 1, K4 1")
+            check(l_err <= FLAT_LOSS_REL, "image_loss on the card agrees with its plain versions")
+            if section == "21":
+                check(t_err <= FLAT_GRAD_REL * t_scale and g_err <= FLAT_GRAD_REL * g_scale,
+                      "its token and parameter gradients agree with their plain versions")
+            else:
+                # The trained reconstruction renders within float noise of
+                # its input at many of the 1080p pixels, where L1's sign, and
+                # so the gradient, can differ between the two sides; K2 and
+                # K4 are held to their plain versions at this size in
+                # section 8. The gradients are printed, the ties counted.
+                with torch.no_grad():
+                    in_im = render(cam, unflatten_gaussians(ae_input[0]))["render"]
+                    out_im = render(cam, unflatten_gaussians(pred_c.to(device)[0]))["render"]
+                    ties = int(((out_im - in_im).abs() < 1e-6).sum())
+                print(f"{ties} of {out_im.numel()} pixel channels of the two renders lie within 1e-6 of each other")
+                summary[f"autoencoder{tag}_l1_ties"] = ties
+            summary[f"autoencoder{tag}_image_loss"] = {"rel_err": l_err, "token_grad_err": t_err,
+                                                       "token_grad_scale": t_scale, "grad_err": g_err,
+                                                       "grad_scale": g_scale, "token_err": r_err,
+                                                       "visible": ae_input.shape[1], "cpu_s": results["cpu"][5]}
+        check(math.isfinite(loss_c) and all(bool(torch.isfinite(x).all()) for x in grads_c),
+              "a finite image loss and finite gradients")
+        del ae_res, ae_model, sc, g, ae_input, results
+        gc.collect()
+        peak(section)
+
+    lw, lh = lpips_size
+    print(f"== 22. LPIPS (alex and vgg, seeded random weights) at {lw}x{lh}: the card vs the CPU")
+    r = np.random.RandomState(args.seed + 22)
+    x = r.rand(3, lh, lw).astype(np.float32)
+    y = np.clip(x + r.normal(0, 0.1, x.shape), 0, 1).astype(np.float32)
+    lp = {}
+    try:
+        for net in ("alex", "vgg"):
+            path = work / "weights_random" / f"lpips_{net}.npz"
+            write_lpips_weights(path, net, args.seed + 22)
+            os.environ["GT_LPIPS_WEIGHTS"] = str(path)
+            lpips._load.cache_clear()
+            ref = float(lpips.lpips(torch.from_numpy(x), torch.from_numpy(y), net))
+            rec = {"cpu": ref}
+            if on_card:
+                xc, yc = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+                with torch.no_grad():
+                    got = float(lpips.lpips(xc, yc, net))
+                    clk = sm_clock()
+                    ms = cuda_ms_each(lambda: lpips.lpips(xc, yc, net), reps=5)
+                rec.update(card=got, rel_err=abs(got - ref) / abs(ref), ms=ms)
+                print(f"[{smi}] LPIPS({net}): {got:.7f} on the card vs {ref:.7f} on the CPU, rel diff "
+                      f"{rec['rel_err']:.3e} (tolerance {LPIPS_REL}); {spread(ms)} (CUDA events)")
+                print_clocks(clk, "22")
+                check(rec["rel_err"] <= LPIPS_REL, f"LPIPS({net}) on the card agrees with the CPU")
+            check(math.isfinite(ref) and ref > 0, f"LPIPS({net}) is finite and positive")
+            lp[net] = rec
+    finally:
+        os.environ.pop("GT_LPIPS_WEIGHTS", None)
+        if env_weights is not None:
+            os.environ["GT_LPIPS_WEIGHTS"] = env_weights
+        lpips._load.cache_clear()
+    summary["lpips"] = lp
+    peak("22")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2049,14 +2598,22 @@ def main(argv=None) -> int:
     print(f"nvidia-smi name, power.limit: {smi_line()}")
     t0 = time.time()
     try:
-        # The stacked sections first: no profiler window of the others
+        # The transformer sections first, the flat ones (no profiler window)
+        # before the stacked ones (17 and 16b profile): no profiler window
         # precedes their timings.
-        stacked = {}
+        flat_summary, stacked = {}, {}
+        flat_launches = flat_path(args, device, flat_summary)
+        torch.cuda.empty_cache()
         launches = stacked_path(args, device, stacked)
         torch.cuda.empty_cache()
         summary = run(args, device)
         summary.update(stacked)
-        add_stacked_launches(summary["kernels"], launches)
+        summary.update(flat_summary)
+        add_path_launches(summary["kernels"], "stacked_launches", launches)
+        add_path_launches(summary["kernels"], "flat_launches",
+                          {k: v for k, v in flat_launches.items() if k.startswith("flat")})
+        add_path_launches(summary["kernels"], "autoencoder_launches",
+                          {k: v for k, v in flat_launches.items() if k.startswith("autoencoder")})
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

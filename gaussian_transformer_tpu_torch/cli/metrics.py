@@ -2,9 +2,10 @@
 
 Walks ``<model>/test/<method>/{renders,gt}``, computes per-view SSIM and PSNR,
 and writes ``results.json`` and ``per_view.json`` in the reference's format.
-LPIPS is reported as null: the port has no LPIPS network yet (the reference
-also reports null when its weights are missing). SSIM goes through the fused
-kernel on the card; PSNR is the reference's mean of per-channel PSNRs.
+LPIPS(vgg) comes from ``eval/lpips.py`` when its weights file is present
+(``eval.lpips.available("vgg")``) and is reported as null otherwise, as in
+the reference. SSIM goes through the fused kernel on the card; PSNR is the
+reference's mean of per-channel PSNRs.
 
     python -m gaussian_transformer_tpu_torch.cli.metrics -m <model_dir> [...]
 """
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from gaussian_transformer_tpu_torch.device import resolve_device
+from gaussian_transformer_tpu_torch.eval import lpips as lpips_mod
 from gaussian_transformer_tpu_torch.ops.losses import ssim
 from gaussian_transformer_tpu_torch.utils.image import psnr
 from gaussian_transformer_tpu_torch.utils.png import read_png
@@ -41,7 +43,9 @@ def read_images(renders_dir: Path, gt_dir: Path):
 def evaluate(model_paths, device):
     full_dict = {}
     per_view_dict = {}
-    print("LPIPS is not ported yet — reporting SSIM/PSNR only (lpips = null)")
+    use_lpips = lpips_mod.available("vgg")
+    if not use_lpips:
+        print("LPIPS weights not found — reporting SSIM/PSNR only (lpips = null)")
 
     for scene_dir in model_paths:
         print("Scene:", scene_dir)
@@ -60,15 +64,17 @@ def evaluate(model_paths, device):
                 gt = torch.from_numpy(np.ascontiguousarray(g)).to(device)
                 ssims.append(float(ssim(rt, gt)))
                 psnrs.append(float(torch.mean(psnr(rt, gt))))
-                lpipss.append(None)
+                lpipss.append(float(lpips_mod.lpips(rt, gt, "vgg")) if use_lpips else None)
 
             print("  SSIM : {:>12.7f}".format(np.mean(ssims)))
             print("  PSNR : {:>12.7f}".format(np.mean(psnrs)))
+            if use_lpips:
+                print("  LPIPS: {:>12.7f}".format(np.mean(lpipss)))
 
             full_dict[scene_dir][method] = {
                 "SSIM": float(np.mean(ssims)),
                 "PSNR": float(np.mean(psnrs)),
-                "LPIPS": None,
+                "LPIPS": float(np.mean(lpipss)) if use_lpips else None,
             }
             per_view_dict[scene_dir][method] = {
                 "SSIM": dict(zip(image_names, ssims)),

@@ -269,6 +269,20 @@ def init_model(model: EncoderDecoder, seed: int = 0) -> EncoderDecoder:
     return model
 
 
+# flax's lecun_normal: a normal truncated to +-2 standard deviations, scaled
+# so that the truncated draw has variance 1 / fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(p: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel initialiser on a torch weight ([out, in, ...]:
+    fan_in is everything but the first axis)."""
+    std = math.sqrt(1.0 / p[0].numel()) / _TRUNC_STD
+    torch.nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return p.mul_(std)
+
+
 def _flatten_tree(tree, prefix=()):
     for key, value in tree.items():
         if isinstance(value, dict):

@@ -8,8 +8,17 @@ row becomes a uniform distribution, exactly as the dense path's fill does.
 Dropout on the attention weights applies to the numerator only, scaled by
 1/(1-rate), while the denominator accumulates unmasked: algebraically
 dropout(softmax(scores)) @ V. ``reference_attention`` is the dense O(L^2)
-form. Both are plain ``torch.matmul``/``exp`` code; gradients come from
-autograd.
+form. Both are plain ``torch.matmul``/``exp`` code.
+
+Backward recomputes each key block, as the JAX package's ``jax.checkpoint``
+on its scan body does: a block is one ``_BlockStep`` whose forward keeps
+only its inputs (q, the key/value/mask slices and the incoming (m, l, acc)
+carries), so what autograd holds is O(Lq * (D + block_k)) per block and no
+[Lq, Lk] score, probability or keep-mask tensor survives the forward. The
+block's dropout masks are drawn from a copy of the caller's generator taken
+just before the block, and the caller's generator is left where drawing in
+place would have left it, so outputs, gradients and the masks are those of
+the plain loop (``remat=False``).
 """
 
 from __future__ import annotations
@@ -57,6 +66,58 @@ def _block_update(carry, qkT, v_blk, mask_blk, drop_keep=None, dropout_rate=0.0)
     return m_new, l_new, acc_new
 
 
+def _block_step(q, k_blk, v_blk, mask_blk, carry, scale, dropout_rate, generator):
+    """One key block: its scaled scores, its keep mask (drawn from
+    ``generator`` when given) and the online-softmax update."""
+    qkT = torch.matmul(q, k_blk.transpose(-1, -2)) * scale
+    drop = None
+    if generator is not None:
+        drop = dropout_keep(qkT.shape, dropout_rate, generator, q.device)
+    return _block_update(carry, qkT, v_blk, mask_blk, drop, dropout_rate)
+
+
+def _generator_at(state: torch.Tensor, device) -> torch.Generator:
+    """A new generator on ``device`` in the given state."""
+    g = torch.Generator(device=device)
+    g.set_state(state)
+    return g
+
+
+class _BlockStep(torch.autograd.Function):
+    """``_block_step`` whose backward recomputes the block from its saved
+    inputs (mask_blk None is passed through). ``gen_state`` is the caller's
+    generator state before the block (None: no dropout); the forward and the
+    recomputation both draw from a generator in that state, and the forward
+    moves the caller's ``generator`` to the state after the block's draw."""
+
+    @staticmethod
+    def forward(ctx, q, k_blk, v_blk, mask_blk, m, l, acc, scale, dropout_rate, generator, gen_state):
+        local = None if gen_state is None else _generator_at(gen_state, q.device)
+        out = _block_step(q, k_blk, v_blk, mask_blk, (m, l, acc), scale, dropout_rate, local)
+        if local is not None:
+            generator.set_state(local.get_state())
+        ctx.has_mask = mask_blk is not None
+        ctx.save_for_backward(q, k_blk, v_blk, *([mask_blk] if ctx.has_mask else []), m, l, acc)
+        ctx.args = (scale, dropout_rate, gen_state)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_m, g_l, g_acc):
+        saved = list(ctx.saved_tensors)
+        mask_blk = saved.pop(3) if ctx.has_mask else None
+        scale, dropout_rate, gen_state = ctx.args
+        needs = [ctx.needs_input_grad[i] for i in (0, 1, 2, 4, 5, 6)]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        q, k_blk, v_blk, m, l, acc = inputs
+        local = None if gen_state is None else _generator_at(gen_state, q.device)
+        with torch.enable_grad():
+            out = _block_step(q, k_blk, v_blk, mask_blk, (m, l, acc), scale, dropout_rate, local)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, (g_m, g_l, g_acc), allow_unused=True))
+        q_g, k_g, v_g, m_g, l_g, acc_g = (next(grads) if t.requires_grad else None for t in inputs)
+        return q_g, k_g, v_g, None, m_g, l_g, acc_g, None, None, None, None
+
+
 def blockwise_attention(
     q: torch.Tensor,  # [..., Lq, D]
     k: torch.Tensor,  # [..., Lk, D]
@@ -65,28 +126,32 @@ def blockwise_attention(
     block_k: int = 512,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    remat: bool = True,
 ) -> torch.Tensor:
     """Exact attention with O(Lq * block_k) score memory. Dropout is active
     when ``dropout_rate`` > 0 and a ``generator`` is given; each block's
-    mask is drawn from it in block order."""
+    mask is drawn from it in block order. With ``remat`` (and autograd
+    recording) each block is recomputed in backward instead of keeping its
+    scores; the results are the same either way."""
     *lead, Lq, D = q.shape
     Lk = k.shape[-2]
     scale = 1.0 / math.sqrt(D)
-    use_dropout = dropout_rate > 0.0 and generator is not None
+    gen = generator if dropout_rate > 0.0 and generator is not None else None
     if mask is not None:
         mask = mask.expand(*torch.broadcast_shapes(mask.shape[:-2], tuple(lead)), Lq, Lk)
+    remat = remat and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
 
     m = torch.full((*lead, Lq, 1), -float("inf"), dtype=q.dtype, device=q.device)
     l = torch.zeros((*lead, Lq, 1), dtype=q.dtype, device=q.device)
     acc = torch.zeros((*lead, Lq, D), dtype=q.dtype, device=q.device)
     for start in range(0, Lk, block_k):
         stop = min(start + block_k, Lk)
-        qkT = torch.matmul(q, k[..., start:stop, :].transpose(-1, -2)) * scale
-        mb = None if mask is None else mask[..., start:stop]
-        drop = None
-        if use_dropout:
-            drop = dropout_keep((*lead, Lq, stop - start), dropout_rate, generator, q.device)
-        m, l, acc = _block_update((m, l, acc), qkT, v[..., start:stop, :], mb, drop, dropout_rate)
+        blk = (k[..., start:stop, :], v[..., start:stop, :], None if mask is None else mask[..., start:stop])
+        if remat:
+            state = None if gen is None else gen.get_state()
+            m, l, acc = _BlockStep.apply(q, *blk, m, l, acc, scale, dropout_rate, gen, state)
+        else:
+            m, l, acc = _block_step(q, *blk, (m, l, acc), scale, dropout_rate, gen)
     return acc / torch.clamp(l, min=1e-30)
 
 

@@ -1,4 +1,4 @@
-"""Losses: L1 and windowed SSIM (port of ``gaussian_transformer_tpu/ops/losses.py``).
+"""Losses: L1, L2 and windowed SSIM (port of ``gaussian_transformer_tpu/ops/losses.py``).
 
 11x11 Gaussian window with sigma 1.5, depthwise 'same' zero padding,
 C1 = 0.01^2, C2 = 0.03^2. Images are CHW or BCHW float in [0, 1].
@@ -13,6 +13,10 @@ from gaussian_transformer_tpu_torch.ops.fused_ssim import fused_ssim, windowed_s
 
 def l1_loss(network_output, gt):
     return torch.mean(torch.abs(network_output - gt))
+
+
+def l2_loss(network_output, gt):
+    return torch.mean((network_output - gt) ** 2)
 
 
 def ssim(img1, img2, window_size: int = 11, size_average: bool = True):

@@ -181,6 +181,58 @@ def test_blockwise_attention_no_mask_and_dropout_semantics():
     _close(got, torch.matmul(p * keep / (1 - rate), tv), MODULE_REL)
 
 
+
+@pytest.mark.parametrize("rate", [0.0, 0.3], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_blockwise_recompute_matches_the_plain_loop(rate, masked):
+    """Per-block recompute (``remat``, the default) gives the outputs and
+    the gradients of the plain loop bit for bit, draws the same keep masks,
+    and leaves the generator where the plain loop leaves it."""
+    q, k, v, mask = _qkv_mask(21, lq=9, lk=23, d=8)
+    w = np.random.RandomState(22).randn(*q.shape).astype(np.float32)
+    runs = []
+    for remat in (True, False):
+        tq, tk, tv = (t.requires_grad_() for t in _tensors(q, k, v))
+        g = torch.Generator().manual_seed(7)
+        out = attention.blockwise_attention(tq, tk, tv, torch.from_numpy(mask) if masked else None, block_k=4,
+                                            dropout_rate=rate, generator=g if rate else None, remat=remat)
+        (out * torch.from_numpy(w)).sum().backward()
+        runs.append((out.detach(), tq.grad, tk.grad, tv.grad, torch.rand(4, generator=g)))
+    for what, a, b in zip(("out", "dq", "dk", "dv", "generator after"), *runs):
+        assert torch.equal(a, b), what
+    assert float(runs[0][1].abs().max()) > 0
+
+
+def test_blockwise_recompute_keeps_only_the_carries():
+    """What autograd saves (``saved_tensors_hooks``, unique storages) with
+    per-block recompute: q, k, v and the mask once, and each block's incoming
+    (m, l, acc) carries, O(Lq * (D + 2)) per block, which is within O(Lq *
+    (D + block_k)); no score, probability or keep mask of O(Lq * Lk). The
+    plain loop keeps several [Lq, Lk] float tensors."""
+    lead, Lq, Lk, D, bk = (1, 2), 256, 256, 8, 32
+    r = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(r.randn(*lead, n, D).astype(np.float32)).requires_grad_() for n in (Lq, Lk, Lk))
+    mask = torch.from_numpy(r.rand(1, 1, Lq, Lk) > 0.3)
+    saved = {}
+    for remat in (True, False):
+        storages = {}
+
+        def pack(t):
+            storages[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            attention.blockwise_attention(q, k, v, mask, block_k=bk, dropout_rate=0.2,
+                                          generator=torch.Generator().manual_seed(0), remat=remat)
+        saved[remat] = sum(storages.values())
+    n_blocks, rows = Lk // bk, int(np.prod(lead)) * Lq
+    inputs = sum(t.untyped_storage().nbytes() for t in (q, k, v, mask))
+    bound = inputs + (n_blocks + 1) * rows * (D + 2) * 4  # the carries of each block and the final division's
+    assert saved[True] <= bound, (saved[True], bound)
+    assert rows * (D + 2) * 4 < rows * (D + bk) * 4
+    scores = rows * Lk * 4  # one [Lq, Lk] float32 tensor
+    assert saved[False] > bound + 3 * scores, (saved[False], bound)
+
 # ----------------------------------------------------------------- chamfer ---
 
 
