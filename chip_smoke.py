@@ -179,11 +179,36 @@ ones, so that no profiler window precedes their timings either:
     scalar stub and with ``--conv``: epochs 0-500 the token L1, epoch 501
     the image loss; counters zeroed just before each run and read after
     every step (an image step K1 3, K2 1, K3 1, K4 1; a token step K1 1);
-    finite losses, the wall time, the steps' CUDA-event ms; one
-    ``image_loss`` of the conv model on the card against its CPU copy
-    (the plain versions of K1-K4).
+    finite losses, the wall time, the steps' CUDA-event ms; the conv
+    model's reconstruction on the card against its CPU copy (1e-5 of its
+    largest value), and one ``image_loss`` of the conv model on the card
+    against its CPU copy (the plain versions of K1-K4) with the card's
+    reconstruction fed to both: the renders drop instances past their
+    stream budget, so a float-rounding change of the reconstruction can
+    change which are dropped.
 22. LPIPS alex and vgg on seeded random weights at 1920x1080 on the card
     against the CPU (1e-5 relative), and their ms.
+
+The quality gate's chain (``tools/full_gate.py``), cut to 3,100 iterations,
+with a kill and a resume; it runs last:
+
+23. The gate's COLMAP text dataset at its full shape: a 200,000-Gaussian
+    ground truth (``tools/synthetic.py synthetic_scene``) rendered from 28
+    ring cameras at 1280x720, a 10,000-point seed. ``cli.train --sh_degree 3
+    --densify_grad_threshold 0.0001`` through ``main(argv)`` to iteration
+    1,600 with ``--orbax_every 800``, then again on the same model dir to
+    3,100 with ``--orbax_every 1000 --save_iterations 3000 3100`` (counters
+    zeroed before each run and read after); then ``cli.render`` and
+    ``cli.metrics``. Checks: run 2 prints ``resumed from orbax step 1600``
+    and logs 1601 first; the snapshots at 1600, 2000 and 3000 carry active
+    SH degree 1, 2 and 3 (``meta[2]``) and the newest three are kept; the
+    PLY of iteration 3000, saved after the opacity reset, has every
+    ``sigmoid(opacity) <= 0.01``; the six densify passes grew the alive
+    count past the seed; K2 and K4 ran once per step; every loss is finite;
+    the test PSNR equals its numpy recomputation from the PNGs (1e-3 dB).
+    Prints the passes and the capacity doublings, the overflowed steps, the
+    final size, the test PSNR, the median step by phase and the wall time of
+    each stage; the kernels line carries the launches as ``gate_launches``.
 
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
 before and after its window. The K3, K4, K7 and K8 entries of the kernels
@@ -215,6 +240,22 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+if (ROOT / "gaussian_transformer_tpu_torch" / "__init__.py").exists():  # else main() exits non-zero
+    sys.path.insert(0, str(ROOT))
+    # The seeded scene, the orbit cameras, the card's name line and the
+    # K1-K4 launch counters, under the names this script has always given them.
+    from gaussian_transformer_tpu_torch.tools.card import (  # noqa: F401
+        kernel_counters,
+        read_counts,
+        smi_line,
+        zero_counts,
+    )
+    from gaussian_transformer_tpu_torch.tools.synthetic import (  # noqa: F401
+        camera_from_c2w,
+        look_at_c2w,
+        orbit_c2w,
+        synthetic_scene,
+    )
 # Published H100 SXM peaks (the card's data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -261,14 +302,6 @@ def check(cond, what):
     if not cond:
         raise CheckFailed(what)
     print(f"  ok: {what}")
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def sm_clock() -> str:
@@ -369,87 +402,6 @@ def no_sync_ssim(img, gt) -> None:
 # ---------------------------------------------------------------- scene ----
 
 
-def _unit(v):
-    return v / np.linalg.norm(v, axis=-1, keepdims=True)
-
-
-def synthetic_scene(n: int, seed: int):
-    """Fields of a trained-looking scene in the JAX package's layouts: points
-    on a sphere, a ground disk, a torus and a cylinder; per-axis log-scales
-    from each surface's point spacing; Beta(2, 2) opacities; per-surface
-    base colors in the SH DC band and small SH rest coefficients (degree 3)."""
-    rng = np.random.RandomState(seed)
-    shares = {"sphere": 0.35, "ground": 0.35, "torus": 0.15, "cylinder": 0.15}
-    counts = {k: int(n * v) for k, v in shares.items()}
-    counts["sphere"] += n - sum(counts.values())
-    xyz, spacing, base = [], [], []
-    m = counts["sphere"]  # radius 1 at (0, 0.2, 0)
-    xyz.append(_unit(rng.randn(m, 3)) + [0.0, 0.2, 0.0])
-    spacing.append(np.full(m, math.sqrt(4 * math.pi / m)))
-    base.append(np.tile([0.8, 0.3, 0.2], (m, 1)))
-    m = counts["ground"]  # disk of radius 3 at y = -1
-    r, a = 3.0 * np.sqrt(rng.rand(m)), 2 * np.pi * rng.rand(m)
-    xyz.append(np.stack([r * np.cos(a), np.full(m, -1.0), r * np.sin(a)], 1))
-    spacing.append(np.full(m, math.sqrt(math.pi * 9.0 / m)))
-    base.append(np.tile([0.4, 0.5, 0.3], (m, 1)) + 0.1 * np.sin(3 * r)[:, None])
-    m = counts["torus"]  # R 1.6, r 0.25 around the sphere
-    u, v = 2 * np.pi * rng.rand(m), 2 * np.pi * rng.rand(m)
-    ring = 1.6 + 0.25 * np.cos(v)
-    xyz.append(np.stack([ring * np.cos(u), 0.2 + 0.25 * np.sin(v), ring * np.sin(u)], 1))
-    spacing.append(np.full(m, math.sqrt(4 * math.pi**2 * 1.6 * 0.25 / m)))
-    base.append(np.tile([0.2, 0.3, 0.8], (m, 1)))
-    m = counts["cylinder"]  # radius 0.4, height 1.2, standing on the ground
-    a, h = 2 * np.pi * rng.rand(m), 1.2 * rng.rand(m)
-    xyz.append(np.stack([1.9 + 0.4 * np.cos(a), -1.0 + h, -1.2 + 0.4 * np.sin(a)], 1))
-    spacing.append(np.full(m, math.sqrt(2 * math.pi * 0.4 * 1.2 / m)))
-    base.append(np.tile([0.9, 0.8, 0.3], (m, 1)))
-
-    xyz = np.concatenate(xyz).astype(np.float32)
-    spacing = np.concatenate(spacing)
-    color = np.clip(np.concatenate(base) + 0.08 * rng.randn(n, 3), 0.0, 1.0)
-    scale = spacing[:, None] * rng.uniform(0.5, 1.1, (n, 3))
-    opac = rng.beta(2.0, 2.0, n)
-    c0 = 0.28209479177387814
-    return {
-        "xyz": xyz,
-        "features_dc": ((color - 0.5) / c0).astype(np.float32)[:, None, :],
-        "features_rest": (0.02 * rng.randn(n, 15, 3)).astype(np.float32),
-        "scaling": np.log(scale).astype(np.float32),
-        "rotation": rng.randn(n, 4).astype(np.float32),
-        "opacity": np.log(opac / (1.0 - opac)).astype(np.float32)[:, None],
-        "alive": np.ones(n, bool),
-    }
-
-
-def look_at_c2w(eye, target) -> list:
-    """Blender/OpenGL camera-to-world of a camera at ``eye`` looking at ``target``."""
-    eye = np.asarray(eye, np.float64)
-    f = _unit(np.asarray(target, np.float64) - eye)
-    r = _unit(np.cross(f, [0.0, 1.0, 0.0]))
-    u = np.cross(r, f)
-    c2w = np.eye(4)
-    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = r, u, -f, eye
-    return c2w.tolist()
-
-
-def orbit_c2w(angle: float, radius: float = 4.2, height: float = 1.3) -> list:
-    """Blender/OpenGL camera-to-world of a camera on a circle, looking at the origin."""
-    return look_at_c2w([radius * math.sin(angle), height, radius * math.cos(angle)], [0.0, 0.0, 0.0])
-
-
-def camera_from_c2w(c2w, fovx, width, height, device):
-    """The camera the port's Blender reader builds from this frame."""
-    from gaussian_transformer_tpu_torch.scene.cameras import Camera
-    from gaussian_transformer_tpu_torch.utils.graphics import focal2fov, fov2focal
-
-    c2w = np.array(c2w)
-    c2w[:3, 1:3] *= -1
-    w2c = np.linalg.inv(c2w)
-    return Camera.create(0, np.transpose(w2c[:3, :3]), w2c[:3, 3], fovx,
-                         focal2fov(fov2focal(fovx, width), height), None, None, "view", 0,
-                         width=width, height=height, device=device)
-
-
 def write_model_dir(work: Path, scene, n_views, width, height, fovx, seed, device):
     """Blender-layout dataset + trained model dir; GT = render + N(0, 0.05)."""
     import torch
@@ -547,24 +499,6 @@ def write_lpips_weights(path, net: str, seed: int) -> None:
         out[f"lin{i}.w"] = (rng.rand(1, c, 1, 1) * 0.1).astype(np.float32)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     np.savez(str(path), **out)
-
-
-def kernel_counters() -> dict:
-    """The launch counters of K1-K4 (the stream compositor's and the fused
-    SSIM's wrappers), by kernel."""
-    from gaussian_transformer_tpu_torch.ops import fused_ssim
-    from gaussian_transformer_tpu_torch.render import stream
-
-    return {"K1": stream.STREAM_FWD, "K2": stream.STREAM_BWD, "K3": fused_ssim.SSIM_FWD, "K4": fused_ssim.SSIM_BWD}
-
-
-def zero_counts(counters) -> None:
-    for k in counters.values():
-        k.launches = 0
-
-
-def read_counts(counters) -> dict:
-    return {k: v.launches for k, v in counters.items()}
 
 
 def report_peak(summary, key: str, section: str, smi: str) -> None:
@@ -2100,6 +2034,7 @@ FLAT_MAX_LEN, FLAT_LONG = 15_000, 12_000
 FLAT_DECODE_TOKENS = 32
 FLAT_LOSS_REL = 1e-5  # the loss on the card vs its CPU copy (plain K1/K2), relative
 FLAT_GRAD_REL = K2_MAX_ERR  # its gradient, of the largest (K2's rule)
+AE_RECON_REL = 1e-5  # the conv autoencoder's reconstruction on the card vs its CPU copy, of the largest value
 LPIPS_W, LPIPS_H = 1920, 1080
 LPIPS_REL = 1e-5  # LPIPS on the card vs on the CPU, relative
 
@@ -2464,7 +2399,34 @@ def flat_path(args, device, summary, d_model=FLAT_D, layers=FLAT_LAYERS, gaussia
         # One image_loss on the card against the same call on CPU copies
         # (plain K1-K4), with the conv autoencoder the run trained, under
         # the process's own TF32 flag: the model's convolutions hold float32.
+        # The CPU copy's reconstruction differs from the card's by float
+        # rounding (~1e-6), and the renders, which drop the instances past
+        # their stream budget, are not continuous in it: a radius that moves
+        # by a pixel changes which instances a tile keeps. So the model is
+        # held to its copy on its own, and the CPU call renders the card's
+        # reconstruction, back-propagated through the copy's own graph.
         ae_model = ae_res["models"][20]
+
+        class GivenValues(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, y, given):
+                return given.clone()
+
+            @staticmethod
+            def backward(ctx, g):
+                return g, None
+
+        class GivenOutput(torch.nn.Module):
+            """``model`` whose output takes the values ``given`` (its
+            backward is the model's own)."""
+
+            def __init__(self, model, given):
+                super().__init__()
+                self.model, self.given = model, given
+
+            def forward(self, x):
+                return GivenValues.apply(self.model(x), self.given)
+
         ns = Namespace(sh_degree=1, source_path=str(ae_dir), model_path=str(ae_model_dir), images="images",
                        resolution=-1, white_background=False, data_device=str(device), eval=True)
         sc = Scene(ns, load_iteration=-1, sh_degree=1, device=device)
@@ -2476,6 +2438,17 @@ def flat_path(args, device, summary, d_model=FLAT_D, layers=FLAT_LAYERS, gaussia
         results = {}
         for where in ("card", "cpu") if on_card else ("cpu",):
             m = ae_model if where == "card" else copy.deepcopy(ae_model).cpu()
+            if where == "card":
+                with torch.no_grad():
+                    rec_c = m(ae_input.transpose(1, 2)).cpu()
+                    rec_p = copy.deepcopy(m).cpu()(ae_input.cpu().transpose(1, 2))
+                rec_err, rec_scale = float((rec_c - rec_p).abs().max()), float(rec_p.abs().max())
+                print(f"the conv model's reconstruction on the card vs its CPU copy: max abs diff {rec_err:.3e} "
+                      f"of max {rec_scale:.3e} (tolerance {AE_RECON_REL} of the max)")
+                check(rec_err <= AE_RECON_REL * rec_scale,
+                      "the conv model's reconstruction on the card agrees with its CPU copy")
+            elif on_card:
+                m = GivenOutput(m, results["card"][3].transpose(1, 2))  # what the card's renders took
             m.zero_grad(set_to_none=True)
             if where == "card":
                 zero_counts(counters)
@@ -2490,25 +2463,34 @@ def flat_path(args, device, summary, d_model=FLAT_D, layers=FLAT_LAYERS, gaussia
         print(f"image_loss on {ae_input.shape[1]} visible Gaussians; on the CPU (plain K1-K4) "
               f"{results['cpu'][5]:.1f} s wall")
         if on_card:
-            loss_p, grads_p, _, pred_p, tgrad_p, _ = results["cpu"]
+            loss_p, grads_p, _, _, tgrad_p, _ = results["cpu"]
             l_err = abs(loss_c - loss_p) / abs(loss_p)
             g_scale = max(float(x.abs().max()) for x in grads_p)
             g_err = max(float((a - b).abs().max()) for a, b in zip(grads_c, grads_p))
             t_scale = float(tgrad_p.abs().max())
             t_err = float((results["card"][4] - tgrad_p).abs().max())
-            r_err = float((pred_c - pred_p).abs().max())
             print(f"image_loss (conv) on the card {loss_c:.7f} (launches {il_launches}) vs on the CPU {loss_p:.7f}: "
                   f"rel diff {l_err:.3e} (tolerance {FLAT_LOSS_REL}); the reconstructed tokens' gradient max abs diff "
                   f"{t_err:.3e} = {t_err / t_scale:.3e} of max {t_scale:.3e}; parameter gradients max abs diff "
                   f"{g_err:.3e} = {g_err / g_scale:.3e} of max {g_scale:.3e} (gradients: tolerance {FLAT_GRAD_REL} in "
-                  f"section 21, printed in 21b); the "
-                  f"reconstructed tokens max abs diff {r_err:.3e} of max {float(pred_p.abs().max()):.3e}; cuDNN "
+                  f"section 21, printed in 21b); both rendered the card's reconstruction; cuDNN "
                   f"TF32 flag: {torch.backends.cudnn.allow_tf32}")
             check(il_launches == {"K1": 2, "K2": 1, "K3": 1, "K4": 1}, "image_loss launched K1 2, K2 1, K3 1, K4 1")
             check(l_err <= FLAT_LOSS_REL, "image_loss on the card agrees with its plain versions")
             if section == "21":
                 check(t_err <= FLAT_GRAD_REL * t_scale and g_err <= FLAT_GRAD_REL * g_scale,
                       "its token and parameter gradients agree with their plain versions")
+                # Printed, not checked: the same call on the CPU copy's own
+                # reconstruction, and the instances the card's renders drop.
+                with torch.no_grad():
+                    own = float(cli_ae.image_loss(copy.deepcopy(ae_model).cpu(), ae_input.cpu(), cpu_camera(cam),
+                                                  RenderConfig())[0])
+                    drops = [int(render(cam, unflatten_gaussians(t[0].to(device)))["overflow"])
+                             for t in (ae_input, pred_c)]
+                print(f"image_loss on the CPU copy's own reconstruction {own:.7f}: rel diff "
+                      f"{abs(own - loss_c) / abs(own):.3e} from the card's; the card's renders of the input and of "
+                      f"the reconstruction drop {drops[0]} and {drops[1]} instances past their stream budget")
+                summary[f"autoencoder{tag}_image_loss_own_recon"] = {"loss": own, "dropped": drops}
             else:
                 # The trained reconstruction renders within float noise of
                 # its input at many of the 1080p pixels, where L1's sign, and
@@ -2523,7 +2505,7 @@ def flat_path(args, device, summary, d_model=FLAT_D, layers=FLAT_LAYERS, gaussia
                 summary[f"autoencoder{tag}_l1_ties"] = ties
             summary[f"autoencoder{tag}_image_loss"] = {"rel_err": l_err, "token_grad_err": t_err,
                                                        "token_grad_scale": t_scale, "grad_err": g_err,
-                                                       "grad_scale": g_scale, "token_err": r_err,
+                                                       "grad_scale": g_scale, "recon_err": rec_err,
                                                        "visible": ae_input.shape[1], "cpu_s": results["cpu"][5]}
         check(math.isfinite(loss_c) and all(bool(torch.isfinite(x).all()) for x in grads_c),
               "a finite image loss and finite gradients")
@@ -2566,6 +2548,135 @@ def flat_path(args, device, summary, d_model=FLAT_D, layers=FLAT_LAYERS, gaussia
     summary["lpips"] = lp
     peak("22")
     return out
+
+
+GATE_CAMS, GATE_WIDTH, GATE_HEIGHT = 28, 1280, 720  # the quality gate's dataset (tools/full_gate.py)
+GATE_GT, GATE_SEED_POINTS = 200_000, 10_000
+GATE_RUNS = ((1600, 800), (3100, 1000))  # (iterations, --orbax_every): run 1, then the resumed run 2
+GATE_SH_AT = {1600: 1, 2000: 2, 3000: 3}  # snapshot step -> active SH degree (a bump every 1000)
+GATE_RESET = 3000  # the opacity reset (opacity_reset_interval) whose PLY is checked
+
+
+def gate_path(args, device, summary, cams=GATE_CAMS, width=GATE_WIDTH, height=GATE_HEIGHT,
+              gt_size=GATE_GT, seed_points=GATE_SEED_POINTS) -> dict:
+    """Section 23: the quality gate's chain, cut to 3,100 iterations, with a
+    kill-and-resume. Returns the launches {run: {"K1": n, ...}}."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from gaussian_transformer_tpu_torch.cli import metrics as cli_metrics
+    from gaussian_transformer_tpu_torch.cli import render as cli_render
+    from gaussian_transformer_tpu_torch.cli import train as cli_train
+    from gaussian_transformer_tpu_torch.scene.ply import read_ply_vertex_table
+    from gaussian_transformer_tpu_torch.tools import full_gate
+    from gaussian_transformer_tpu_torch.train import orbax_ckpt
+    from gaussian_transformer_tpu_torch.train.splat import PHASES
+
+    on_card = device.type == "cuda"
+    smi = smi_line() if on_card else "cpu"
+    work = Path(args.work)
+    data, model = work / "gate_scene", work / "gate_model"
+    for d in (data, model):
+        shutil.rmtree(d, ignore_errors=True)
+    dev_arg = [] if on_card else ["--device", str(device)]
+    counters = kernel_counters()
+    t_start, times, launches, hist = time.time(), {}, {}, []
+
+    print(f"== 23. the quality gate's chain, cut: {gt_size} Gaussians of ground truth, {cams} cameras at "
+          f"{width}x{height}, {seed_points} seed points; cli.train to {GATE_RUNS[0][0]}, killed, resumed to "
+          f"{GATE_RUNS[1][0]}; cli.render, cli.metrics")
+    t0 = time.time()
+    full_gate.build_scene_dir(data, cams, width, height, gt_size, seed_points, args.seed, device)
+    times["dataset"] = time.time() - t0
+    # SH degree 3 (the fork's default is 1), so that the bumps at 2000 and 3000 happen.
+    base = ["-s", str(data), "-m", str(model), "--eval", "--sh_degree", "3",
+            "--densify_grad_threshold", "0.0001"] + dev_arg
+    for run, (iters, every) in enumerate(GATE_RUNS, 1):
+        argv = base + ["--iterations", str(iters), "--orbax_every", str(every), "--test_iterations", str(iters)]
+        if run == 2:
+            argv += ["--save_iterations", str(GATE_RESET), str(iters)]
+        zero_counts(counters)
+        out = io.StringIO()
+        t0 = time.time()
+        # Run 2 prints (its resume line is checked); both print to a buffer.
+        with contextlib.redirect_stdout(out):
+            res = cli_train.main(argv + (["--quiet"] if run == 1 else []))
+        times[f"train run {run}"] = time.time() - t0
+        launches[f"gate_run{run}"] = read_counts(counters)
+        steps = [h["iteration"] for h in res["history"]]
+        print(f"cli.train run {run}: iterations {steps[0]}-{steps[-1]}, {times[f'train run {run}']:.1f} s, "
+              f"launches {launches[f'gate_run{run}']}")
+        n = len(steps)
+        if on_card:
+            check(launches[f"gate_run{run}"]["K2"] == n and launches[f"gate_run{run}"]["K4"] == n,
+                  f"run {run}: K2 and K4 launched once per step ({n})")
+        check(all(math.isfinite(h["loss"]) for h in res["history"]), f"run {run}: every loss is finite")
+        mgr = orbax_ckpt.make_manager(str(model))
+        if run == 1:
+            check(steps == list(range(1, iters + 1)), f"run 1 trains iterations 1-{iters}")
+            check(mgr.all_steps() == [every, iters], f"run 1's snapshots: {mgr.all_steps()} == {[every, iters]}")
+        else:
+            first = GATE_RUNS[0][0]
+            check(f"resumed from orbax step {first}" in out.getvalue(), f"run 2 prints 'resumed from orbax step {first}'")
+            check(steps[0] == first + 1 and steps == list(range(first + 1, iters + 1)),
+                  f"run 2's first logged iteration is {first + 1} (got {steps[0]})")
+        for step, deg in GATE_SH_AT.items():
+            if step in mgr.all_steps() and (run == 1) == (step <= GATE_RUNS[0][0]):
+                meta = orbax_ckpt.restore_raw(mgr, step)["meta"].tolist()
+                check(int(meta[0]) == step and int(meta[2]) == deg,
+                      f"snapshot {step}: meta {meta}, active SH degree {deg}")
+        hist += res["history"]
+    check(orbax_ckpt.make_manager(str(model)).all_steps() == [2000, 3000, 3100],
+          "the newest three snapshots are kept: 2000, 3000, 3100")
+
+    ply = read_ply_vertex_table(str(model / "point_cloud" / f"iteration_{GATE_RESET}" / "point_cloud.ply"))
+    opac = 1.0 / (1.0 + np.exp(-ply["opacity"].astype(np.float64)))
+    check(float(opac.max()) <= 0.01 * (1 + 1e-5),
+          f"the PLY of iteration {GATE_RESET} (after the opacity reset): max sigmoid(opacity) "
+          f"{float(opac.max()):.9f} <= 0.01 ({opac.size} Gaussians)")
+    dens = [(h["iteration"], h["densify"]) for h in hist if "densify" in h]
+    alive = [d["n_alive"] for _, d in dens]
+    doublings = [(i, d["capacity"]) for i, d in dens if "capacity" in d]
+    print(f"densify passes (iteration, alive): {[(i, d['n_alive']) for i, d in dens]}; "
+          f"capacity doublings (iteration, capacity): {doublings}")
+    check(len(dens) == 6 and max(alive) > seed_points,
+          f"6 densify passes grew the alive count from {seed_points} seed points (to {max(alive)} at most)")
+
+    zero_counts(counters)
+    t0 = time.time()
+    stats = cli_render.main(["-m", str(model), "--skip_train", "--quiet"] + dev_arg)
+    times["render"] = time.time() - t0
+    launches["gate_render"] = read_counts(counters)
+    zero_counts(counters)
+    t0 = time.time()
+    method = f"ours_{GATE_RUNS[1][0]}"
+    scores = cli_metrics.main(["-m", str(model)] + dev_arg)[str(model)][method]
+    times["metrics"] = time.time() - t0
+    launches["gate_metrics"] = read_counts(counters)
+    ref_psnr = numpy_psnr(model, method)
+    check(abs(scores["PSNR"] - ref_psnr) <= 1e-3,
+          f"test PSNR {scores['PSNR']:.6f} dB == numpy recomputation {ref_psnr:.6f} dB (1e-3 dB)")
+    n_final = full_gate.ply_vertex_count(model / "point_cloud" / f"iteration_{GATE_RUNS[1][0]}" / "point_cloud.ply")
+    overflowed = sum(1 for h in hist if h["overflow"])
+    print(f"[{smi}] gate chain: {overflowed} of {len(hist)} steps overflowed, {sum(1 for v in stats if v['overflow'])} "
+          f"of {len(stats)} rendered test views; final size {n_final}; test PSNR {scores['PSNR']:.4f} dB, "
+          f"SSIM {scores['SSIM']:.5f}")
+    med = {}
+    if on_card:
+        timed = [h["phase_ms"] for h in hist if "densify" not in h]
+        med = {k: float(np.median([p[k] for p in timed])) for k in PHASES}
+        med["step"] = float(np.median([sum(p.values()) for p in timed]))
+        print(f"[{smi}] median train step of the chain {med['step']:.3f} ms: "
+              + ", ".join(f"{k} {med[k]:.3f} ms" for k in PHASES))
+    times["section"] = time.time() - t_start
+    print(f"[{smi}] section 23 wall times (s): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    summary.update(gate_times_s=times, gate_overflowed_steps=overflowed, gate_n_final=n_final,
+                   gate_psnr=scores["PSNR"], gate_ssim=scores["SSIM"], gate_phase_ms=med,
+                   gate_densify=[{"iteration": i, **d} for i, d in dens], gate_launches=launches)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2614,6 +2725,8 @@ def main(argv=None) -> int:
                           {k: v for k, v in flat_launches.items() if k.startswith("flat")})
         add_path_launches(summary["kernels"], "autoencoder_launches",
                           {k: v for k, v in flat_launches.items() if k.startswith("autoencoder")})
+        torch.cuda.empty_cache()
+        add_path_launches(summary["kernels"], "gate_launches", gate_path(args, device, summary))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -4,10 +4,14 @@ Same flags, defaults and outputs as the reference: ``cfg_args``,
 ``input.ply`` and ``cameras.json`` (first run), ``point_cloud/iteration_N/
 point_cloud.ply`` at each ``--save_iterations`` (and the last iteration) and
 full-state ``chkpnt<N>.npz`` at each ``--checkpoint_iterations``; resume
-with ``--start_checkpoint``. Runs on the CUDA card unless ``--device cpu`` is
-given. Progress is printed as plain lines (``--quiet`` silences them); the
-viewer (``--ip``/``--port`` are accepted and unused), the Orbax layer and
-TensorBoard logging are not ported.
+with ``--start_checkpoint``. ``--orbax_every N`` snapshots the full state
+every N iterations under ``<model>/orbax/<iteration>/`` (the newest three,
+``train/orbax_ckpt.py``) and a rerun with the same model dir resumes from
+the newest. TensorBoard scalars (the reference's) go to the model dir when
+``torch.utils.tensorboard`` imports. Runs on the CUDA card unless
+``--device cpu`` is given. Progress is printed as plain lines (``--quiet``
+silences them); the viewer is not ported (``--ip``/``--port`` are accepted
+and unused).
 
     python -m gaussian_transformer_tpu_torch.cli.train -s <data> -m <model> [--iterations N]
 """
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 from argparse import ArgumentParser
 
 from gaussian_transformer_tpu_torch.config import (
@@ -54,6 +59,9 @@ def main(argv=None):
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
     parser.add_argument("--start_checkpoint", type=str, default=None)
+    # Snapshots (atomic, bounded history, written in the background) and
+    # auto-resume from the newest; 0 disables.
+    parser.add_argument("--orbax_every", type=int, default=0)
     parser.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     args.save_iterations.append(args.iterations)
@@ -74,10 +82,24 @@ def main(argv=None):
 
         scene = Scene(dataset, sh_degree=dataset.sh_degree, device=device)
         history, evals, render_cfgs = [], {}, []
+        tb_writer = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        def log_fn(iteration, metrics, loss, overflow, phase_ms, densify, gaussians, render_cfg,
+            tb_writer = SummaryWriter(dataset.model_path)
+        except ImportError:
+            print("Tensorboard not available: not logging progress")
+        last_t = [time.time()]
+
+        def log_fn(iteration, metrics, loss, l1, overflow, phase_ms, densify, gaussians, render_cfg,
                    bg, testing):
             record = {"iteration": iteration, "loss": loss, "overflow": overflow}
+            if tb_writer:
+                now = time.time()
+                tb_writer.add_scalar("train_loss_patches/l1_loss", l1, iteration)
+                tb_writer.add_scalar("train_loss_patches/total_loss", loss, iteration)
+                tb_writer.add_scalar("iter_time", (now - last_t[0]) * 1000.0, iteration)
+                last_t[0] = now
             if not render_cfgs or render_cfgs[-1][1] != render_cfg:
                 render_cfgs.append((iteration, render_cfg))
             if phase_ms is not None:
@@ -92,9 +114,14 @@ def main(argv=None):
                 splits = (("test", scene.get_test_cameras()), ("train", scene.get_train_cameras()[:5]))
                 for name, cams in splits:
                     if cams:
-                        p, l1 = evaluate_psnr(gaussians, cams, render_cfg, bg)
-                        evals[iteration][name] = (p, l1)
-                        print(f"\n[ITER {iteration}] Evaluating {name}: L1 {l1} PSNR {p}")
+                        p, view_l1 = evaluate_psnr(gaussians, cams, render_cfg, bg)
+                        evals[iteration][name] = (p, view_l1)
+                        print(f"\n[ITER {iteration}] Evaluating {name}: L1 {view_l1} PSNR {p}")
+                        if tb_writer:
+                            tb_writer.add_scalar(f"{name}/loss_viewpoint - l1_loss", view_l1, iteration)
+                            tb_writer.add_scalar(f"{name}/loss_viewpoint - psnr", p, iteration)
+                if tb_writer:
+                    tb_writer.add_scalar("total_points", gaussians.num_alive, iteration)
 
         gaussians = training(
             scene,
@@ -106,7 +133,11 @@ def main(argv=None):
             checkpoint_iterations=set(args.checkpoint_iterations),
             start_checkpoint=args.start_checkpoint,
             log_fn=log_fn,
+            orbax_dir=dataset.model_path if args.orbax_every else None,
+            orbax_every=args.orbax_every,
         )
+        if tb_writer:
+            tb_writer.close()
         print("\nTraining complete.")
         return {"model_path": dataset.model_path, "n_alive": gaussians.num_alive,
                 "history": history, "render_cfgs": render_cfgs, "evals": evals}

@@ -8,13 +8,16 @@ attention unless ``--attn_block_k``) with Adam(eps=1e-4) and a
 ReduceLROnPlateau from lr 5e-4 fed ``loss / ntokens`` each epoch.
 Checkpoints go to ``<run_name>/checkpoint_<epoch>`` every
 ``--checkpoint_every`` epochs and on a RuntimeError/FloatingPointError
-(crash save); a run resumes from its newest checkpoint. Runs on the CUDA
-card unless ``--device cpu`` is given. TensorBoard scalars go to
+(crash save); a run resumes from its newest checkpoint. With ``--orbax``
+the periodic saves are snapshots instead (``<run_name>/orbax/<epoch>/``,
+``train/orbax_ckpt.py``: the model's and the optimizer's state dicts,
+written in the background, the newest three kept), a run resumes from the
+newest snapshot first, and the crash save stays a checkpoint. Runs on the
+CUDA card unless ``--device cpu`` is given. TensorBoard scalars go to
 ``logs/<run_name>/base`` (``<run_name>/base`` for an absolute run name) when
 ``torch.utils.tensorboard`` imports; ``--ip``/``--port`` are accepted and
-unused (no viewer). ``--dp``, ``--fsdp`` and ``--orbax`` raise
-``NotImplementedError`` (the parallel tier and Orbax snapshots are on the
-port's roadmap).
+unused (no viewer). ``--dp`` and ``--fsdp`` raise ``NotImplementedError``
+(the parallel tier is on the port's roadmap).
 
     python -m gaussian_transformer_tpu_torch.cli.train_stacked -s <data> -m <model> [--epochs N]
 """
@@ -33,6 +36,7 @@ from gaussian_transformer_tpu_torch.config import ModelParams, OptimizationParam
 from gaussian_transformer_tpu_torch.device import resolve_device
 from gaussian_transformer_tpu_torch.render import RenderConfig
 from gaussian_transformer_tpu_torch.scene import Scene
+from gaussian_transformer_tpu_torch.train import orbax_ckpt
 from gaussian_transformer_tpu_torch.train.stacked import (
     ReduceLROnPlateau,
     TrainingScene,
@@ -66,7 +70,8 @@ def _parse(argv):
     parser.add_argument("--checkpoint_every", type=int, default=50)
     parser.add_argument("--dp", type=int, default=0, help="not ported (ROADMAP Queue 1: the parallel tier)")
     parser.add_argument("--fsdp", type=int, default=0, help="not ported (ROADMAP Queue 1: the parallel tier)")
-    parser.add_argument("--orbax", action="store_true", help="not ported (ROADMAP Queue 1: Orbax snapshots)")
+    parser.add_argument("--orbax", action="store_true",
+                        help="snapshots under <run_name>/orbax/ in place of the periodic checkpoints")
     parser.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     return lp, parser.parse_args(sys.argv[1:] if argv is None else argv)
 
@@ -80,8 +85,6 @@ def main(argv=None):
     lp, args = _parse(argv)
     if args.dp or args.fsdp:
         raise NotImplementedError("--dp/--fsdp: the parallel tier is on the port's roadmap (ROADMAP Queue 1)")
-    if args.orbax:
-        raise NotImplementedError("--orbax: Orbax snapshots are on the port's roadmap (ROADMAP Queue 1)")
     device = resolve_device(args.device)
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
@@ -100,7 +103,16 @@ def main(argv=None):
         "runs/" + datetime.datetime.fromtimestamp(time.time()).strftime("%a_%d_%b_%I_%M%p")
     )
     first_epoch = 0
-    if os.path.exists(run_name):
+    orbax_mgr = None
+    if args.orbax:
+        orbax_mgr = orbax_ckpt.make_manager(run_name)
+        snap = orbax_ckpt.restore(orbax_mgr, {"params": None, "opt_state": None})
+        if snap is not None:
+            model.load_state_dict(snap["params"])
+            optimizer.load_state_dict(snap["opt_state"])
+            first_epoch = orbax_mgr.latest_step() + 1
+            print(f"resumed from orbax epoch {first_epoch - 1}")
+    if first_epoch == 0 and os.path.exists(run_name):
         max_iter = search_for_max_iteration(run_name)
         if max_iter is not None:
             print(f"loading Model iter {max_iter}")
@@ -156,11 +168,17 @@ def main(argv=None):
                 tb_writer.add_scalar("lr", scheduler.lr, epoch)
                 tb_writer.add_scalar("dropout", tscene.dropout, epoch)
             if epoch % args.checkpoint_every == 0 and epoch > first_epoch:
-                save_checkpoint(run_name, epoch, model, optimizer)
+                if orbax_mgr is not None:
+                    orbax_ckpt.save(orbax_mgr, epoch, {"params": model.state_dict(),
+                                                       "opt_state": optimizer.state_dict()})
+                else:
+                    save_checkpoint(run_name, epoch, model, optimizer)
         except (RuntimeError, FloatingPointError) as e:
             # Crash save: keep what was trained, and go on with the next epoch.
             print(e)
             save_checkpoint(run_name, epoch, model, optimizer)
+    if orbax_mgr is not None:
+        orbax_mgr.wait_until_finished()
     if tb_writer:
         tb_writer.close()
     print("\nTraining complete.")

@@ -45,3 +45,8 @@ def mean_sq_dist_to_3nn(points: torch.Tensor, block: int = BLOCK) -> torch.Tenso
             d2 = torch.nn.functional.pad(d2, (0, 3 - n), value=float("inf"))
         out[lo:lo + block] = torch.topk(d2, 3, dim=1, largest=False).values.mean(dim=1)
     return out
+
+
+# Reference-spelling alias (the reference's call sites name it distCUDA2).
+def dist_to_3nn_sq(points):
+    return mean_sq_dist_to_3nn(points)

@@ -113,6 +113,18 @@ def compute_cov2d_cols(tx_raw, ty_raw, tz, Sigma, focal_x, focal_y, tan_fovx, ta
     return cov_xx, cov_xy, cov_yy
 
 
+def compute_cov2d(mean_view, cov3d, focal_x, focal_y, tan_fovx, tan_fovy, view_rot):
+    """Matrix-form wrapper of ``compute_cov2d_cols``: [C, 3] packed (xx, xy,
+    yy) from [C, 3] camera-space means and [C, 3, 3] covariances."""
+    Sigma = (cov3d[:, 0, 0], cov3d[:, 0, 1], cov3d[:, 0, 2],
+             cov3d[:, 1, 1], cov3d[:, 1, 2], cov3d[:, 2, 2])
+    cov_xx, cov_xy, cov_yy = compute_cov2d_cols(
+        mean_view[:, 0], mean_view[:, 1], mean_view[:, 2], Sigma,
+        focal_x, focal_y, tan_fovx, tan_fovy, view_rot,
+    )
+    return torch.stack([cov_xx, cov_xy, cov_yy], dim=-1)
+
+
 def project_gaussians(
     xyz: torch.Tensor,
     scales: torch.Tensor,

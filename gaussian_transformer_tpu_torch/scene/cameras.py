@@ -86,6 +86,25 @@ class Camera:
             original_image=as_t(image) if image is not None else None,
         )
 
+    # Reference-attribute aliases.
+    @property
+    def FoVx(self):
+        return self.fovx
+
+    @property
+    def FoVy(self):
+        return self.fovy
+
+    @property
+    def R(self) -> np.ndarray:
+        """The rotation the reference stores (the transposed world-to-camera
+        rotation), recovered from the view matrix."""
+        return self.world_view_transform[:3, :3].detach().cpu().numpy()
+
+    @property
+    def T(self) -> np.ndarray:
+        return self.world_view_transform[3, :3].detach().cpu().numpy()
+
 
 @dataclasses.dataclass
 class MiniCam:
@@ -118,3 +137,11 @@ class MiniCam:
             full_proj_transform=as_t(full_proj_transform),
             camera_center=as_t(view_inv[3, :3]),
         )
+
+    @property
+    def FoVx(self):
+        return self.fovx
+
+    @property
+    def FoVy(self):
+        return self.fovy

@@ -68,6 +68,27 @@ def qvec2rotmat(qvec):
     )
 
 
+def rotmat2qvec(R):
+    """3x3 rotation -> COLMAP (w,x,y,z) quaternion (colmap_loader.py:57-66)."""
+    Rxx, Ryx, Rzx, Rxy, Ryy, Rzy, Rxz, Ryz, Rzz = np.asarray(R).flat
+    K = (
+        np.array(
+            [
+                [Rxx - Ryy - Rzz, 0, 0, 0],
+                [Ryx + Rxy, Ryy - Rxx - Rzz, 0, 0],
+                [Rzx + Rxz, Rzy + Ryz, Rzz - Rxx - Ryy, 0],
+                [Ryz - Rzy, Rzx - Rxz, Rxy - Ryx, Rxx + Ryy + Rzz],
+            ]
+        )
+        / 3.0
+    )
+    eigvals, eigvecs = np.linalg.eigh(K)
+    qvec = eigvecs[[3, 0, 1, 2], np.argmax(eigvals)]
+    if qvec[0] < 0:
+        qvec *= -1
+    return qvec
+
+
 def _read_next_bytes(fid, num_bytes, format_char_sequence, endian="<"):
     data = fid.read(num_bytes)
     return struct.unpack(endian + format_char_sequence, data)

@@ -25,6 +25,7 @@ from gaussian_transformer_tpu_torch.device import resolve_device
 from gaussian_transformer_tpu_torch.ops.knn import mean_sq_dist_to_3nn
 from gaussian_transformer_tpu_torch.scene.ply import read_ply_vertex_table, write_ply_vertex_table
 from gaussian_transformer_tpu_torch.utils.general import inverse_sigmoid
+from gaussian_transformer_tpu_torch.utils.graphics import build_covariance_3d, strip_symmetric
 from gaussian_transformer_tpu_torch.utils.sh import rgb_to_sh
 
 FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
@@ -140,6 +141,10 @@ class GaussianScene(nn.Module):
     def get_opacity(self):
         # Dead slots contribute zero opacity so they never render.
         return torch.sigmoid(self.opacity) * self.alive[:, None].to(self.opacity.dtype)
+
+    def get_covariance(self, scaling_modifier: float = 1.0):
+        """Packed symmetric 3D covariance [C, 6] (xx, xy, xz, yy, yz, zz)."""
+        return strip_symmetric(build_covariance_3d(self.get_scaling, self.get_rotation, scaling_modifier))
 
     @torch.no_grad()
     def set_fields(self, fields: Dict[str, np.ndarray], n: Optional[int] = None) -> "GaussianScene":

@@ -7,13 +7,16 @@ differentiates it w.r.t. the scene's leaves and an explicit zero screen-space
 offset (the densification's screen gradient), applies Adam and accumulates
 the densification statistics. ``training`` is the reference's loop around it:
 random cameras, the SH degree bump every 1000 iterations, the densify /
-prune / opacity-reset window, capacity growth by compaction, PLY saves and
+prune / opacity-reset window, capacity growth by compaction, PLY saves,
 full-state ``chkpnt<N>.npz`` checkpoints whose keys are the JAX package's, so
-a JAX checkpoint resumes here. Not ported: the viewer pump, the Orbax layer
-and TensorBoard logging.
+a JAX checkpoint resumes here, and snapshots (``train/orbax_ckpt.py``) every
+``orbax_every`` iterations with auto-resume from the latest; their tree is
+the JAX package's Orbax tree (``orbax_payload``), so a JAX snapshot read as
+numpy restores through ``orbax_restore_state``. Not ported: the viewer pump.
 
 Host reads per step: the stream length (``render.stream.used_stream``) and
-one read of (loss, overflow) after the step.
+one read of (loss, overflow) after the step; a snapshot step also copies the
+state to the host.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from gaussian_transformer_tpu_torch.scene.densify import (
     densify_and_prune,
     reset_opacity,
 )
+from gaussian_transformer_tpu_torch.train import orbax_ckpt
 from gaussian_transformer_tpu_torch.train.optim import (
     PARAM_LEAVES,
     AdamState,
@@ -158,6 +162,40 @@ def restore(payload: dict, device=None):
     return scene, adam, stats, int(payload["iteration"]), float(payload["spatial_lr_scale"])
 
 
+def orbax_payload(gaussians, adam: AdamState, stats: DensifyStats, iteration, spatial_lr_scale) -> dict:
+    """``capture`` as the JAX package's snapshot tree: ``param/<leaf>``,
+    ``alive``, ``adam/{mu,nu,counts}/<leaf>``, ``stats/{accum,denom,
+    max_radii2d}`` and ``meta`` = float32 [iteration, spatial_lr_scale,
+    active_sh_degree, max_sh_degree]."""
+    return {
+        "param": {k: getattr(gaussians, k).detach() for k in PARAM_LEAVES},
+        "alive": gaussians.alive,
+        "adam": {"mu": dict(adam.mu), "nu": dict(adam.nu), "counts": dict(adam.counts)},
+        "stats": {"accum": stats.xyz_gradient_accum, "denom": stats.denom, "max_radii2d": stats.max_radii2d},
+        "meta": torch.tensor([iteration, spatial_lr_scale, gaussians.active_sh_degree, gaussians.max_sh_degree],
+                             dtype=torch.float32),
+    }
+
+
+def orbax_restore_state(tree: dict, device=None):
+    """Inverse of ``orbax_payload`` (tensors or numpy arrays, so a JAX
+    snapshot too); shapes come from the snapshot, so a resume works across
+    capacity growth. Returns (scene, adam, stats, iteration, spatial_lr_scale)."""
+    host = lambda v: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    meta = host(tree["meta"])
+    fields = {k: host(v) for k, v in tree["param"].items()}
+    fields["alive"] = host(tree["alive"])
+    scene = scene_from_numpy(fields, int(meta[2]), device)
+    if scene.max_sh_degree != int(meta[3]):
+        raise ValueError(f"snapshot says SH degree {int(meta[3])}, its features say {scene.max_sh_degree}")
+    dev = scene.xyz.device
+    adam = adam_from_numpy(*({k: host(v) for k, v in tree["adam"][m].items()} for m in ("mu", "nu", "counts")),
+                           dev)
+    st = tree["stats"]
+    stats = stats_from_numpy(host(st["accum"]), host(st["denom"]), host(st["max_radii2d"]), dev)
+    return scene, adam, stats, int(meta[0]), float(meta[1])
+
+
 def training(
     scene_obj,
     opt: OptConfig,
@@ -171,6 +209,8 @@ def training(
     seed: int = 0,
     log_fn=None,
     capacity_headroom: float = 4.0,
+    orbax_dir: Optional[str] = None,
+    orbax_every: int = 0,
 ):
     """The reference's training loop against a Scene object (``gaussians``,
     ``cameras_extent``, ``model_path``, ``get_train_cameras``, ``save``).
@@ -179,11 +219,14 @@ def training(
     densification has free slots; when a densify pass drops points or leaves
     it more than 90% full, it is compacted to twice the capacity and the
     render budgets are re-tuned. ``log_fn(iteration=..., metrics=...,
-    loss=..., overflow=..., phase_ms=..., densify=..., gaussians=...,
+    loss=..., l1=..., overflow=..., phase_ms=..., densify=..., gaussians=...,
     render_cfg=..., bg=..., testing=...)`` is called after every step;
     ``phase_ms`` holds the step's device times by phase on the card (None on
     the CPU) and ``densify`` the report of a densify pass run at that step.
-    Returns the trained scene."""
+    With ``orbax_dir``, the run resumes from the newest snapshot under it
+    (unless ``start_checkpoint`` is given), snapshots every ``orbax_every``
+    iterations and at the last one, and waits for the writes before it
+    returns. Returns the trained scene."""
     gaussians = scene_obj.gaussians
     dev = gaussians.xyz.device
     n0 = gaussians.num_alive
@@ -196,6 +239,14 @@ def training(
     if start_checkpoint:
         payload = dict(np.load(start_checkpoint, allow_pickle=False))
         gaussians, adam, stats, first_iter, spatial_lr_scale = restore(payload, dev)
+    orbax_mgr = None
+    if orbax_dir:
+        orbax_mgr = orbax_ckpt.make_manager(orbax_dir)
+        if start_checkpoint is None:
+            snap = orbax_ckpt.restore_raw(orbax_mgr)
+            if snap is not None:
+                gaussians, adam, stats, first_iter, spatial_lr_scale = orbax_restore_state(snap, dev)
+                print(f"resumed from orbax step {first_iter} ({orbax_dir})")
 
     bg = torch.tensor([1.0, 1.0, 1.0] if white_background else [0.0, 0.0, 0.0], device=dev)
     gen = torch.Generator(device=dev)
@@ -224,7 +275,8 @@ def training(
             mark=timer,
         )
         # The step's one host read.
-        loss_f, overflow = torch.stack([metrics["loss"], metrics["overflow"].to(torch.float32)]).tolist()
+        loss_f, overflow, l1_f = torch.stack(
+            [metrics["loss"], metrics["overflow"].to(torch.float32), metrics["l1"]]).tolist()
         phase_ms = timer.phase_ms() if timer is not None else None
 
         report = None
@@ -251,7 +303,7 @@ def training(
                 gaussians, adam = reset_opacity(gaussians, adam)
 
         if log_fn is not None:
-            log_fn(iteration=iteration, metrics=metrics, loss=loss_f, overflow=int(overflow),
+            log_fn(iteration=iteration, metrics=metrics, loss=loss_f, l1=l1_f, overflow=int(overflow),
                    phase_ms=phase_ms, densify=report, gaussians=gaussians,
                    render_cfg=render_cfg, bg=bg, testing=(iteration in testing_iterations))
         if iteration in saving_iterations:
@@ -263,6 +315,13 @@ def training(
                 os.path.join(scene_obj.model_path, f"chkpnt{iteration}.npz"),
                 **capture(gaussians, adam, stats, iteration, spatial_lr_scale),
             )
+        if orbax_mgr is not None and orbax_every and iteration % orbax_every == 0:
+            orbax_ckpt.save(orbax_mgr, iteration, orbax_payload(gaussians, adam, stats, iteration, spatial_lr_scale))
+    if orbax_mgr is not None:
+        if orbax_mgr.latest_step() != opt.iterations:
+            orbax_ckpt.save(orbax_mgr, opt.iterations,
+                            orbax_payload(gaussians, adam, stats, opt.iterations, spatial_lr_scale))
+        orbax_mgr.wait_until_finished()
     scene_obj.gaussians = gaussians
     return gaussians
 

@@ -5,7 +5,7 @@ TRANSPOSED (row-vector convention, ``p_cam = [p_world, 1] @ world_view``), the
 projection is the z in [0, zfar/(zfar-znear)] variant, and quaternions are
 (w, x, y, z). The host-side builders stay numpy so both packages produce
 bit-identical camera matrices; ``build_rotation`` (densification's split
-sampling) works on tensors.
+sampling) and the covariance functions work on tensors.
 """
 
 from __future__ import annotations
@@ -82,3 +82,20 @@ def build_rotation(q: torch.Tensor) -> torch.Tensor:
     row1 = torch.stack([2 * (x * y + r * z), 1 - 2 * (x * x + z * z), 2 * (y * z - r * x)], dim=-1)
     row2 = torch.stack([2 * (x * z - r * y), 2 * (y * z + r * x), 1 - 2 * (x * x + y * y)], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def build_scaling_rotation(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """L = R(q) diag(s) [..., 3, 3], so that the covariance is L L^T."""
+    return build_rotation(q) * s[..., None, :]
+
+
+def build_covariance_3d(scaling: torch.Tensor, rotation: torch.Tensor, scaling_modifier: float = 1.0) -> torch.Tensor:
+    """The full 3D covariance [..., 3, 3] from activated scales and a quaternion."""
+    L = build_scaling_rotation(scaling_modifier * scaling, rotation)
+    return L @ L.transpose(-1, -2)
+
+
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] symmetric -> its upper triangle [..., 6] (xx, xy, xz, yy, yz, zz)."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], dim=-1)

@@ -1,6 +1,7 @@
-"""Real spherical harmonics up to degree 3, plus the RGB<->SH DC conversions
-(port of ``gaussian_transformer_tpu/utils/sh.py``; same polynomials, same
-operation order)."""
+"""Real spherical harmonics up to degree 3 (the basis to degree 4), plus the
+RGB<->SH DC conversions
+(port of ``gaussian_transformer_tpu/utils/sh.py``; same polynomials,
+same operation order)."""
 
 from __future__ import annotations
 
@@ -21,6 +22,17 @@ C3 = (
     -0.4570457994644658,
     1.445305721320277,
     -0.5900435899266435,
+)
+C4 = (
+    2.5033429417967046,
+    -1.7701307697799304,
+    0.9461746957575601,
+    -0.6690465435572892,
+    0.10578554691520431,
+    -0.6690465435572892,
+    0.47308734787878004,
+    -1.7701307697799304,
+    0.6258357354491761,
 )
 
 
@@ -71,3 +83,43 @@ def rgb_to_sh(rgb):
 def sh_to_rgb(sh):
     """SH DC coefficient -> color."""
     return sh * C0 + 0.5
+
+
+def sh_basis(deg: int, dirs):
+    """The SH basis at unit directions [..., 3] -> [..., (deg+1)**2], so that
+    ``eval_sh(deg, sh, dirs) == (sh * sh_basis(deg, dirs)[..., None, :]).sum(-1)``."""
+    import torch
+
+    if not 0 <= deg <= 4:
+        raise ValueError(f"SH degree {deg} is not supported (0..4)")
+    comps = [C0 * torch.ones_like(dirs[..., :1])]
+    if deg > 0:
+        x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
+        comps += [-C1 * y, C1 * z, -C1 * x]
+        if deg > 1:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            comps += [C2[0] * xy, C2[1] * yz, C2[2] * (2.0 * zz - xx - yy), C2[3] * xz, C2[4] * (xx - yy)]
+            if deg > 2:
+                comps += [
+                    C3[0] * y * (3 * xx - yy),
+                    C3[1] * xy * z,
+                    C3[2] * y * (4 * zz - xx - yy),
+                    C3[3] * z * (2 * zz - 3 * xx - 3 * yy),
+                    C3[4] * x * (4 * zz - xx - yy),
+                    C3[5] * z * (xx - yy),
+                    C3[6] * x * (xx - 3 * yy),
+                ]
+                if deg > 3:
+                    comps += [
+                        C4[0] * xy * (xx - yy),
+                        C4[1] * yz * (3 * xx - yy),
+                        C4[2] * xy * (7 * zz - 1),
+                        C4[3] * yz * (7 * zz - 3),
+                        C4[4] * (zz * (35 * zz - 30) + 3),
+                        C4[5] * xz * (7 * zz - 3),
+                        C4[6] * (xx - yy) * (7 * zz - 1),
+                        C4[7] * xz * (xx - 3 * yy),
+                        C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy)),
+                    ]
+    return torch.cat(comps, dim=-1)

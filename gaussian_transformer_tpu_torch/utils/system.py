@@ -5,6 +5,10 @@ from __future__ import annotations
 import os
 
 
+def mkdir_p(folder_path: str) -> None:
+    os.makedirs(folder_path, exist_ok=True)
+
+
 def search_for_max_iteration(folder: str):
     """Largest numeric suffix among 'name_<int>' entries; None when the folder
     has no such entries."""

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of ``gaussian_transformer_tpu_torch``
-(nor ``chip_smoke.py``) imports JAX, Flax, Pillow or anything of the JAX
+(nor ``chip_smoke.py``) imports JAX, Flax, Orbax, Pillow or anything of the JAX
 package (its ``attic/`` and ``tools/`` included), and importing the whole port
 loads none of them."""
 
@@ -13,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "gaussian_transformer_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "gaussian_transformer_tpu", "attic", "tools")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "PIL", "gaussian_transformer_tpu", "attic", "tools")
 
 
 def _imported_modules(path: Path):

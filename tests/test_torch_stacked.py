@@ -461,7 +461,7 @@ def test_cli_trains_checkpoints_and_resumes(model_dir, tmp_path, capsys, monkeyp
     assert int(state["step"]) == 6
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--fsdp", "2"], ["--orbax"]])
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--fsdp", "2"]])
 def test_cli_parallel_flags_raise(model_dir, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["-s", str(model_dir / "data"), "-m", str(model_dir / "model"), "--device", "cpu", *flag])

@@ -9,6 +9,7 @@ held against the JAX ``Scene`` on the same dataset."""
 import dataclasses
 import json
 import math
+import sys
 
 import numpy as np
 import pytest
@@ -42,7 +43,8 @@ def _argv(data, model, iterations, *extra):
             "--quiet", "--device", "cpu", *extra]
 
 
-def test_cli_train_loss_falls_writes_the_tree_and_resumes(dataset, tmp_path):
+def test_cli_train_loss_falls_writes_the_tree_and_resumes(dataset, tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)  # TensorBoard is optional
     model = tmp_path / "model"
     res = cli_train.main(_argv(dataset, model, 30, "--checkpoint_iterations", "20"))
     hist = res["history"]
