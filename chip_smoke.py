@@ -189,6 +189,33 @@ ones, so that no profiler window precedes their timings either:
 22. LPIPS alex and vgg on seeded random weights at 1920x1080 on the card
     against the CPU (1e-5 relative), and their ms.
 
+The stacked campaign's recipe at full width (``tools/stacked_campaign.py``:
+STACK 8, d_model 6656, N 2, bf16 ``dtype`` and ``param_dtype``, Adafactor,
+bucket 96). It runs after sections 19-22 and before 16-18, so that no
+profiler window precedes its timings and no float32 model is alive:
+
+24. ``tools.stacked_campaign.main`` for one epoch (8 steps at batch 4 over
+    the 32 ring cameras of the synthetic 17,618-Gaussian scene), counters
+    zeroed just before and read just after; checks 1,905,446,400
+    parameters, each parameter's dtype against the flax tree's (bf16 but
+    the LayerNorms and the generator), finite losses, K1 once per camera's
+    visibility render and 8 times per image-branch step; each step's
+    CUDA-event ms, the median, the peak memory; the ``checkpoint_step8``
+    the run saved read back into a fresh model bit for bit (parameters and
+    Adafactor state); one more step's matmul FLOPs against the bf16 dense
+    peak and the float32 peak. 24b: one open-gate bf16 step (its target the
+    model's own decode plus N(0, 0.01)), counters zeroed just before and
+    read just after (K1 8, K2 4, K3 1, K4 1), its time, and that step's
+    image loss and token gradient on the card against the same call on CPU
+    copies of the same decoded rows (the plain K1-K4). 24c: the bf16 cached
+    decode teacher-forced against the bf16 scan decode's rows (2e-2 of the
+    largest: bf16 rounding; beside it the share of a K projection's outputs
+    that differ between one row at a time and all rows at once; a planted
+    fault, K/V written one position late, must exceed it), the K/V
+    caches' dtype, and its ms a token
+    (20 decodes) beside its weight-bytes bound. The kernels line carries
+    the launches as ``campaign_launches``.
+
 The quality gate's chain (``tools/full_gate.py``), cut to 3,100 iterations,
 with a kill and a resume; it runs last:
 
@@ -1630,6 +1657,10 @@ STACKED_W, STACKED_H = 320, 240
 SERVING_REPS = 20  # cached decodes timed one by one, before and after a profiler window
 TOKEN_NOISE = 0.01  # N(0, sigma) on the targets of the open-gate step and of section 18
 DECODE_REL = 1e-4  # teacher-forced cached decode vs the decoder's rows, of max |row|
+# The same in bf16: one bf16 rounding is 2^-8 = 3.9e-3 relative, and a
+# product over the one row of a decode step rounds otherwise than over the
+# sequence (tests/test_torch_bf16.py holds the CPU to the same bound).
+DECODE_REL_BF16 = 2e-2
 IMAGE_LOSS_REL = 1e-5  # image loss on the card vs its CPU copy (plain K1-K4), relative
 IMAGE_GRAD_REL = K2_MAX_ERR  # its token gradient, of the largest (K2's rule)
 
@@ -2020,6 +2051,255 @@ def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYE
         summary.update(stacked_cached_busy_ms=busy_ms, stacked_cached_wall_ms=wall_ms,
                        stacked_cached_kernels=n_kernels, stacked_cached_after_profiler_ms=after_ms)
         del model
+    return out
+
+
+CAMPAIGN_STEPS = 8  # one epoch of the campaign's loop: 32 ring cameras at batch 4
+PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (the card's data sheet, at 700 W)
+
+
+def campaign_dtype_rule(name: str, param_dtype):
+    """The flax tree's dtype of a parameter: LayerNorm scales and shifts and
+    the generator head float32, everything else ``param_dtype``."""
+    import torch
+
+    if name.endswith((".a_2", ".b_2")) or name.startswith("generator_proj."):
+        return torch.float32
+    return param_dtype
+
+
+def campaign_path(args, device, summary, smoke=False, gaussians=None) -> dict:
+    """Section 24: the stacked campaign's recipe (``tools/stacked_campaign.py``)
+    at full width (STACK 8, d_model 6656, N 2, bf16 parameters, Adafactor,
+    bucket 96); ``smoke`` (the tool's ``--smoke`` sizes, float32
+    parameters) and ``gaussians`` only for a rehearsal on the CPU. Returns
+    the launches of K1-K4 on its paths (the campaign's epoch and one
+    open-gate step), by kernel."""
+    import gc
+    import shutil
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from gaussian_transformer_tpu_torch import kernels
+    from gaussian_transformer_tpu_torch.models.codec import fuzzy_token_equal, unstack_tokens
+    from gaussian_transformer_tpu_torch.models.decode_cache import (
+        decode_step,
+        greedy_decode_cached,
+        init_decode_state,
+    )
+    from gaussian_transformer_tpu_torch.models.transformer import count_params, subsequent_mask
+    from gaussian_transformer_tpu_torch.render import RenderConfig
+    from gaussian_transformer_tpu_torch.tools import stacked_campaign as campaign
+    from gaussian_transformer_tpu_torch.train import stacked
+    from gaussian_transformer_tpu_torch.train.adafactor import Adafactor
+
+    on_card = device.type == "cuda"
+    smi = smi_line() if on_card else "cpu"
+    work = Path(args.work) / "campaign"
+    shutil.rmtree(work, ignore_errors=True)
+    counters = kernel_counters()
+    out = {}
+
+    print(f"== 24. the stacked campaign's recipe: tools.stacked_campaign for one epoch ({CAMPAIGN_STEPS} steps, "
+          f"batch 4{', --smoke' if smoke else ', bucket 96, bf16 parameters'}, Adafactor)")
+    if on_card:
+        kernels.build(kernels.all_sources())
+        torch.cuda.reset_peak_memory_stats()
+    argv = ["--steps", str(CAMPAIGN_STEPS), "--out", str(work), "--ckpt_every", str(10 * CAMPAIGN_STEPS)]
+    argv += (["--smoke"] if smoke else []) + ([] if on_card else ["--device", str(device)])
+    zero_counts(counters)
+    t0 = time.time()
+    res = campaign.main(argv, campaign.GAUSSIANS if gaussians is None else gaussians)
+    t_run = time.time() - t0
+    launches = read_counts(counters)
+    model, opt, tscene, hist = res["model"], res["optimizer"], res["tscene"], res["history"]
+    stack = res["meta"]["stack"]
+    n_params = count_params(model)
+    print(f"tools.stacked_campaign: {len(hist)} steps in {t_run:.1f} s; launches {launches}; model {n_params} "
+          f"parameters, dtype {model.dtype}, param_dtype {model.param_dtype}")
+    print("by step: " + "; ".join(f"loss {h['loss']:.4f} chamfer {h['chamfer']:.4f} img {h['img_loss']:.4f} "
+                                  f"src {h['src_len']} trg {h['trg_len']}" for h in hist))
+    check(n_params == stacked_param_count(stack, 2), f"{n_params} parameters == {stacked_param_count(stack, 2)}")
+    if not smoke:
+        check(n_params == STACKED_PARAMS, f"{n_params} parameters == {STACKED_PARAMS} (the campaign's meta.json)")
+        check(model.dtype == model.param_dtype == torch.bfloat16, "the campaign's model is bf16 in dtype and "
+                                                                  "param_dtype")
+    wrong = [(n, p.dtype) for n, p in model.named_parameters() if p.dtype != campaign_dtype_rule(n, model.param_dtype)]
+    n_f32 = sum(p.numel() for p in model.parameters() if p.dtype == torch.float32)
+    print(f"parameter dtypes: {n_params - n_f32} in {model.param_dtype}, {n_f32} in float32 (LayerNorms, generator)")
+    check(not wrong, f"every parameter's dtype is the flax tree's (wrong: {wrong[:4]})")
+    check(len(hist) == CAMPAIGN_STEPS and all(math.isfinite(h["loss"]) and math.isfinite(h["chamfer"]) for h in hist),
+          f"{CAMPAIGN_STEPS} steps, every loss and chamfer finite")
+    img_steps = sum(h["img_loss"] != 0.0 for h in hist)
+    if on_card:
+        check(launches["K1"] == tscene.size + 2 * 4 * img_steps,
+              f"K1 launched once per camera's visibility render ({tscene.size}) and 8 times per image-branch step "
+              f"({img_steps})")
+        step_ms = [h["cuda_ms"] for h in hist]
+        med = float(np.median(step_ms))
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[{smi}] campaign steps (CUDA events): {[round(x, 2) for x in step_ms]}; median {med:.2f} ms, median "
+              f"of steps 2-{len(hist)} {np.median(step_ms[1:]):.2f} ms; peak memory {peak_gib:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated)")
+        summary.update(campaign_step_ms=step_ms, campaign_step_median_ms=med, campaign_peak_gib=peak_gib)
+    summary.update(campaign_s=t_run, campaign_history=hist, campaign_launches=launches, campaign_image_steps=img_steps)
+    out["campaign_epoch"] = launches
+
+    # The checkpoint the run saved at its end, read back into a fresh model.
+    tag = f"step{res['global_step']}"
+    ckpt = work / f"checkpoint_{tag}"
+    size = sum(f.stat().st_size for f in ckpt.iterdir())
+    fresh = stacked.make_stacked_model(stack, 2, 0, seed=1, device=device, dtype=model.dtype,
+                                       param_dtype=model.param_dtype)
+    fresh_opt = Adafactor(fresh.parameters())
+    t0 = time.time()
+    stacked.load_checkpoint(str(work), tag, fresh, fresh_opt)
+    t_load = time.time() - t0
+    same_p = all(torch.equal(a, b) for a, b in zip(model.parameters(), fresh.parameters()))
+    same_s = all(opt.state[a]["step"] == fresh_opt.state[b]["step"]
+                 and all(torch.equal(opt.state[a][k], fresh_opt.state[b][k]) for k in ("v_row", "v_col", "v"))
+                 for a, b in zip(model.parameters(), fresh.parameters()))
+    print(f"checkpoint_{tag}: {size / 1e9:.3f} GB on disk, read back in {t_load:.1f} s; parameters equal bit for bit: "
+          f"{same_p}; Adafactor state (count, v_row, v_col, v) equal: {same_s}")
+    check(same_p and same_s, "the checkpoint reloads bit for bit")
+    summary.update(campaign_ckpt_bytes=size, campaign_ckpt_load_s=t_load)
+    del fresh, fresh_opt
+    gc.collect()
+
+    tscene.set_epoch(0)
+    batch = next(b for b in tscene.batches() if b is not None)
+    Lt = batch.trg_y.shape[1]
+    step_fn = stacked.make_train_step(model, tscene.handler, RenderConfig(), opt, stack)
+    if on_card:
+        with FlopCounterMode(display=False) as fc:
+            step_fn(batch.src, batch.trg_y, batch.cameras, 5e-4, batch.src_mask, (42, 10**6))
+        flops = fc.get_total_flops()
+        bf16_ms, fp32_ms = flops / PEAK_BF16_FLOPS * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+        print(f"[{smi}] one campaign step (src {batch.src.shape[1]}, trg {Lt}): {flops:.4e} matmul FLOPs "
+              f"(FlopCounterMode, checkpoint recomputation included) = {bf16_ms:.2f} ms at the bf16 dense peak "
+              f"({PEAK_BF16_FLOPS:.3g} FLOP/s), {bf16_ms / med:.3f} of the median step; {fp32_ms:.1f} ms at the "
+              f"float32 peak ({PEAK_FP32_FLOPS:.3g}), {fp32_ms / med:.3f} of it")
+        summary.update(campaign_step_flops=flops, campaign_flop_share_bf16=bf16_ms / med,
+                       campaign_flop_share_fp32=fp32_ms / med)
+
+    print(f"== 24b. an open-gate bf16 step: the target is the model's own decode plus N(0, {TOKEN_NOISE})")
+    key = (42, 10**6 + 1)
+    real = ~fuzzy_token_equal(batch.trg_y, stacked.pad_token(stack))  # [1, Lt]
+    with torch.no_grad():
+        own = stacked.greedy_decode(model, batch.src, batch.src_mask, Lt + 1, stack, key)[:, 1:]
+        noise = torch.randn(own.shape, generator=torch.Generator(device).manual_seed(args.seed + 1), device=device)
+        trg_open = torch.where(real[..., None], own + TOKEN_NOISE * noise, batch.trg_y)
+    zero_counts(counters)
+    if on_card:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    gate_loss, met = step_fn(batch.src, trg_open, batch.cameras, 5e-4, batch.src_mask, key)
+    gate = {"launches": read_counts(counters), "loss": float(gate_loss), "chamfer": float(met["chamfer"]),
+            "img_loss": float(met["img_loss"]), "overflow": met["overflow"].tolist() if "overflow" in met else None}
+    if on_card:
+        ev[1].record()
+        torch.cuda.synchronize()
+        gate["ms"] = ev[0].elapsed_time(ev[1])
+    gate["params_finite"] = all(bool(torch.isfinite(q).all()) for q in model.parameters())
+    print(f"loss {gate['loss']:.6f}, chamfer {gate['chamfer']:.6f}, image loss {gate['img_loss']:.6f}; launches "
+          f"{gate['launches']}; overflow (pred, target) {gate['overflow']}; parameters finite after the step: "
+          f"{gate['params_finite']}" + (f"; {gate['ms']:.2f} ms (CUDA events)" if on_card else ""))
+    check(gate["chamfer"] < 3.0 and gate["img_loss"] > 0 and math.isfinite(gate["loss"]),
+          "the chamfer gate opened, with a finite loss")
+    if on_card:
+        check(gate["launches"] == {"K1": 8, "K2": 4, "K3": 1, "K4": 1},
+              "K1 per pred and target render (8), K2 per pred render (4), K3 and K4 once")
+    summary["campaign_open_gate"] = gate
+    out["open_gate_step"] = gate["launches"]
+
+    # That step's image loss on the card (K1-K4) and on CPU copies (the plain
+    # versions), both fed the step's decoded rows: the decode before the
+    # step, under the step's key and parameters.
+    tgt = unstack_tokens(trg_open[0], stack)
+    valid = real[0].repeat_interleave(2**stack)
+    pred = unstack_tokens(own[0], stack).clone().requires_grad_()
+    loss_card, _ = stacked.image_loss(pred, tgt, valid, tscene.handler, batch.cameras, RenderConfig())
+    loss_card.backward()
+    cpu = lambda t: t.detach().cpu()
+    p_cpu = cpu(pred).requires_grad_()
+    h = tscene.handler
+    handler = type(h)(*(cpu(t) for t in (h.world_min, h.world_max, h.scaling_min, h.scaling_max)), h.interval_num)
+    loss_cpu, _ = stacked.image_loss(p_cpu, cpu(tgt), cpu(valid), handler, [cpu_camera(c) for c in batch.cameras],
+                                     RenderConfig())
+    loss_cpu.backward()
+    loss_card, loss_cpu = loss_card.detach(), loss_cpu.detach()
+    l_err = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    g_scale = float(p_cpu.grad.abs().max())
+    g_err = float((cpu(pred.grad) - p_cpu.grad).abs().max())
+    print(f"the step's image loss on the card (K1-K4) vs on the CPU (plain versions), one input: {float(loss_card):.7f} "
+          f"vs {float(loss_cpu):.7f}, rel diff {l_err:.3e} (tolerance {IMAGE_LOSS_REL}); token gradient max abs diff "
+          f"{g_err:.3e} = {g_err / g_scale:.3e} of max {g_scale:.3e} (tolerance {IMAGE_GRAD_REL}); the step's own "
+          f"image loss {gate['img_loss']:.7f}")
+    check(l_err <= IMAGE_LOSS_REL and g_err <= IMAGE_GRAD_REL * g_scale,
+          "the open-gate step's image loss agrees with its plain versions")
+    summary.update(campaign_image_loss_rel_err=l_err, campaign_image_grad_err=g_err, campaign_image_grad_scale=g_scale)
+    del own, noise, trg_open, gate_loss, met, pred, p_cpu, loss_card, loss_cpu, step_fn
+
+    print("== 24c. the bf16 cached decode against the bf16 scan decode")
+    model.eval()
+    start = stacked.start_token(stack)
+    with torch.no_grad():
+        ys = stacked.greedy_decode(model, batch.src, batch.src_mask, Lt + 1, stack)
+        rows = model.generator(model.decode(model.encode(batch.src, batch.src_mask), batch.src_mask, ys,
+                                            subsequent_mask(Lt + 1, device)))
+        state = init_decode_state(model, batch.src, batch.src_mask, Lt + 1)
+        tf_err = max(float((decode_step(model, state, ys[:, i:i + 1], i) - rows[:, i]).abs().max())
+                     for i in range(Lt + 1))
+        scale = float(rows.abs().max())
+        # A planted fault the check must refuse: each token's K/V written one
+        # position late, so attention also reads the empty slot 0.
+        late = init_decode_state(model, batch.src, batch.src_mask, Lt + 2)
+        fault_err = max(float((decode_step(model, late, ys[:, i:i + 1], i + 1) - rows[:, i]).abs().max())
+                        for i in range(Lt + 1))
+        del late
+        caches = {k: str(v.dtype) for k, v in state["layers"][0].items()}
+        # How far a product's row count alone moves its bf16 outputs: the
+        # first decoder layer's K projection of the scan's rows, one row at
+        # a time (as decode_step runs it) against all rows at once.
+        layer0 = model.decoder.layers()[0]
+        y = layer0.sub0.norm(model.tgt_embed(ys))
+        full_k = layer0.self_attn.k(y)
+        one_k = torch.cat([layer0.self_attn.k(y[:, i:i + 1]) for i in range(Lt + 1)], 1)
+        k_share = float((full_k != one_k).float().mean())
+    tol = DECODE_REL if model.dtype == torch.float32 else DECODE_REL_BF16
+    print(f"teacher-forced decode_step vs the scan decode's rows: max abs diff {tf_err:.3e} = {tf_err / scale:.3e} of "
+          f"max |row| {scale:.3e} (tolerance {tol}); the first decoder layer's K projection row by row vs of all "
+          f"{Lt + 1} rows at once: {k_share:.4f} of its outputs differ; caches {caches}; a planted fault (K/V "
+          f"written one position late): {fault_err:.3e} = {fault_err / scale:.3e} of max |row|")
+    check(all(v == str(model.dtype) for v in caches.values()), "the K/V caches are held in the compute dtype")
+    check(math.isfinite(tf_err) and tf_err <= tol * scale,
+          f"the {model.dtype} cached decode matches the scan decode, teacher-forced")
+    check(fault_err > tol * scale, "the check refuses a cache written one position late")
+    summary.update(campaign_teacher_forced_err=tf_err, campaign_row_scale=scale, campaign_k_row_share=k_share,
+                   campaign_late_cache_err=fault_err)
+    if on_card:
+        step_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                         if n.startswith(("decoder.", "tgt_embed.", "generator_proj."))
+                         and ".src_attn.k." not in n and ".src_attn.v." not in n)
+        token_bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+        run_cached = lambda: greedy_decode_cached(model, batch.src, batch.src_mask, Lt + 1, start)
+        clk = sm_clock()
+        with torch.no_grad():
+            cached_ms = cuda_ms_each(run_cached, SERVING_REPS)
+        med_dec = float(np.median(cached_ms))
+        print(f"[{smi}] bf16 serving: greedy_decode_cached of {Lt} tokens (encoder included), {spread(cached_ms)} "
+              f"= {med_dec / Lt:.3f} ms/token; bound by the decode step's {step_bytes / 1e9:.3f} GB of weights: "
+              f"{token_bound_ms:.3f} ms/token")
+        print_clocks(clk, "24c")
+        summary.update(campaign_cached_ms=cached_ms, campaign_cached_ms_per_token=med_dec / Lt,
+                       campaign_token_bound_ms=token_bound_ms)
+        peak_all = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[{smi}] peak memory of section 24: {peak_all:.2f} GiB (torch.cuda.max_memory_allocated)")
+        summary["campaign_section_peak_gib"] = peak_all
+    del model, opt, res, ys, rows, state
+    gc.collect()
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -2709,11 +2989,13 @@ def main(argv=None) -> int:
     print(f"nvidia-smi name, power.limit: {smi_line()}")
     t0 = time.time()
     try:
-        # The transformer sections first, the flat ones (no profiler window)
-        # before the stacked ones (17 and 16b profile): no profiler window
-        # precedes their timings.
+        # The transformer sections first, the flat ones and the campaign's
+        # (no profiler window) before the stacked ones (17 and 16b profile):
+        # no profiler window precedes their timings.
         flat_summary, stacked = {}, {}
         flat_launches = flat_path(args, device, flat_summary)
+        torch.cuda.empty_cache()
+        campaign_launches = campaign_path(args, device, stacked)
         torch.cuda.empty_cache()
         launches = stacked_path(args, device, stacked)
         torch.cuda.empty_cache()
@@ -2721,6 +3003,7 @@ def main(argv=None) -> int:
         summary.update(stacked)
         summary.update(flat_summary)
         add_path_launches(summary["kernels"], "stacked_launches", launches)
+        add_path_launches(summary["kernels"], "campaign_launches", campaign_launches)
         add_path_launches(summary["kernels"], "flat_launches",
                           {k: v for k, v in flat_launches.items() if k.startswith("flat")})
         add_path_launches(summary["kernels"], "autoencoder_launches",

@@ -7,6 +7,10 @@ because it backpropagates through the decode. Inference takes the O(L^2)
 path here: cross-attention K/V are computed once from the encoder memory,
 and each layer's self-attention K/V cache grows by one token a step. It runs
 under ``torch.no_grad()`` and is not differentiable, as in the JAX package.
+
+The model's modules do the work, so a bf16 model decodes as its scan decode
+does: the K/V caches are held in the compute dtype, the attention scores
+and softmax in float32.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from gaussian_transformer_tpu_torch.ops.attention import reference_attention
 @torch.no_grad()
 def init_decode_state(model: EncoderDecoder, src, src_mask, max_len: int) -> Dict:
     """Encode once; precompute the cross-attention K/V and empty self-attention
-    caches of ``max_len`` positions ([B, h, max_len, d_k] each)."""
+    caches of ``max_len`` positions ([B, h, max_len, d_k] each, in the
+    model's compute dtype)."""
     memory = model.encode(src, src_mask)
     B, h = src.shape[0], model.h
     d_k = model.d_model // h
@@ -31,8 +36,8 @@ def init_decode_state(model: EncoderDecoder, src, src_mask, max_len: int) -> Dic
         layers.append({
             "cross_k": split_heads(layer.src_attn.k(memory), h),
             "cross_v": split_heads(layer.src_attn.v(memory), h),
-            "self_k": memory.new_zeros(B, h, max_len, d_k),
-            "self_v": memory.new_zeros(B, h, max_len, d_k),
+            "self_k": memory.new_zeros(B, h, max_len, d_k, dtype=model.dtype),
+            "self_v": memory.new_zeros(B, h, max_len, d_k, dtype=model.dtype),
         })
     cross_mask = None
     if src_mask is not None:

@@ -22,9 +22,20 @@ rename ``kernel`` <-> ``weight``, and ``jax_order`` lists the parameters in
 Dropout is active exactly when a ``torch.Generator`` is passed as ``rng``;
 every mask is drawn from it, in call order, so a computation run twice
 with generators seeded alike draws the same masks (what a checkpointed
-decode step's recomputation needs). Not ported: float32 is the only
-``dtype``/``param_dtype`` (others raise), and the sequence-parallel ring
-attention.
+decode step's recomputation needs).
+
+``dtype`` and ``param_dtype`` (float32 or bfloat16 each; anything else
+raises) follow the flax modules tensor by tensor, with explicit casts (no
+autocast, whose per-op lists are not flax's per-module dtypes):
+  * every ``Dense`` holds its weight and bias in ``param_dtype`` and casts
+    its input and both to ``dtype`` for the product;
+  * ``TorchLayerNorm``'s a_2/b_2 stay float32, so the norm of a bf16
+    residual is float32, as is the generator head;
+  * the embeddings' output makes the residual stream ``dtype``;
+  * the dense path's scores and softmax are float32 (flax's
+    ``preferred_element_type``), the probabilities cast to v's dtype.
+
+Not ported: the sequence-parallel ring attention.
 """
 
 from __future__ import annotations
@@ -39,6 +50,15 @@ from torch import nn
 
 from gaussian_transformer_tpu_torch.device import resolve_device
 from gaussian_transformer_tpu_torch.ops.attention import MASK_FILL, blockwise_attention, dropout
+
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_dtypes(dtype, param_dtype) -> None:
+    for what, dt in (("dtype", dtype), ("param_dtype", param_dtype)):
+        if dt not in DTYPES:
+            raise NotImplementedError(f"{what}={dt}: the ported dtypes are float32 and bfloat16")
 
 
 def subsequent_mask(size: int, device=None) -> torch.Tensor:
@@ -62,15 +82,31 @@ class TorchLayerNorm(nn.Module):
         return self.a_2 * (x - mean) / (torch.sqrt(var) + self.eps) + self.b_2
 
 
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype, param_dtype)``: weight and bias held in
+    ``param_dtype``; the input, weight and bias cast to ``dtype`` for the
+    product (no-ops where the dtypes already agree)."""
+
+    def __init__(self, in_features: int, out_features: int, device=None, dtype=torch.float32,
+                 param_dtype=torch.float32):
+        super().__init__(in_features, out_features, device=device, dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
 class FeedForward(nn.Module):
     """Position-wise FFN with SwiGLU: w_1 [d_model -> d_ff], silu(a) * b on
     its halves, dropout, w_2 [d_ff / 2 -> d_model]."""
 
-    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.1, device=None):
+    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.1, device=None, dtype=torch.float32,
+                 param_dtype=torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.w_1 = nn.Linear(d_model, d_ff, device=device)
-        self.w_2 = nn.Linear(d_ff // 2, d_model, device=device)
+        self.w_1 = Dense(d_model, d_ff, device, dtype, param_dtype)
+        self.w_2 = Dense(d_ff // 2, d_model, device, dtype, param_dtype)
 
     def forward(self, x, rng: Optional[torch.Generator] = None):
         a, b = self.w_1(x).chunk(2, dim=-1)
@@ -91,13 +127,14 @@ class MultiHeadedAttention(nn.Module):
     """h-head scaled dot-product attention; ``block_k > 0`` runs the
     O(L)-memory blockwise path (same outputs, same dropout semantics)."""
 
-    def __init__(self, h: int, d_model: int, dropout: float = 0.1, block_k: int = 0, device=None):
+    def __init__(self, h: int, d_model: int, dropout: float = 0.1, block_k: int = 0, device=None,
+                 dtype=torch.float32, param_dtype=torch.float32):
         super().__init__()
         if d_model % h:
             raise ValueError(f"d_model {d_model} is not a multiple of h {h}")
         self.h, self.dropout, self.block_k = h, dropout, block_k
         for name in ("q", "k", "v", "out"):
-            self.add_module(name, nn.Linear(d_model, d_model, device=device))
+            self.add_module(name, Dense(d_model, d_model, device, dtype, param_dtype))
 
     def forward(self, query, key, value, mask=None, rng: Optional[torch.Generator] = None):
         q = split_heads(self.q(query), self.h)
@@ -110,11 +147,12 @@ class MultiHeadedAttention(nn.Module):
                                     dropout_rate=self.dropout if rng is not None else 0.0,
                                     generator=rng)
         else:
-            scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+            # Scores and softmax in float32 whatever the dtype.
+            scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
             if mask is not None:
                 scores = torch.where(mask, scores, torch.full_like(scores, MASK_FILL))
             p_attn = dropout(torch.softmax(scores, dim=-1), self.dropout, rng)
-            x = torch.matmul(p_attn, v)
+            x = torch.matmul(p_attn.to(v.dtype), v)
         return self.out(merge_heads(x))
 
 
@@ -131,10 +169,11 @@ class SublayerConnection(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model: int, h: int, dropout: float = 0.1, block_k: int = 0, device=None):
+    def __init__(self, d_model: int, h: int, dropout: float = 0.1, block_k: int = 0, device=None,
+                 dtype=torch.float32, param_dtype=torch.float32):
         super().__init__()
-        self.self_attn = MultiHeadedAttention(h, d_model, dropout, block_k, device)
-        self.feed_forward = FeedForward(d_model, 2 * d_model, dropout, device)
+        self.self_attn = MultiHeadedAttention(h, d_model, dropout, block_k, device, dtype, param_dtype)
+        self.feed_forward = FeedForward(d_model, 2 * d_model, dropout, device, dtype, param_dtype)
         self.sub0 = SublayerConnection(d_model, dropout, device)
         self.sub1 = SublayerConnection(d_model, dropout, device)
 
@@ -144,11 +183,12 @@ class EncoderLayer(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model: int, h: int, dropout: float = 0.1, block_k: int = 0, device=None):
+    def __init__(self, d_model: int, h: int, dropout: float = 0.1, block_k: int = 0, device=None,
+                 dtype=torch.float32, param_dtype=torch.float32):
         super().__init__()
-        self.self_attn = MultiHeadedAttention(h, d_model, dropout, block_k, device)
-        self.src_attn = MultiHeadedAttention(h, d_model, dropout, block_k, device)
-        self.feed_forward = FeedForward(d_model, 2 * d_model, dropout, device)
+        self.self_attn = MultiHeadedAttention(h, d_model, dropout, block_k, device, dtype, param_dtype)
+        self.src_attn = MultiHeadedAttention(h, d_model, dropout, block_k, device, dtype, param_dtype)
+        self.feed_forward = FeedForward(d_model, 2 * d_model, dropout, device, dtype, param_dtype)
         self.sub0 = SublayerConnection(d_model, dropout, device)
         self.sub1 = SublayerConnection(d_model, dropout, device)
         self.sub2 = SublayerConnection(d_model, dropout, device)
@@ -162,11 +202,11 @@ class DecoderLayer(nn.Module):
 class _Stack(nn.Module):
     """N layers named layer0..layer{N-1}, then a final norm."""
 
-    def __init__(self, layer_cls, d_model, h, N, dropout, block_k, device):
+    def __init__(self, layer_cls, d_model, h, N, dropout, block_k, device, dtype, param_dtype):
         super().__init__()
         self.N = N
         for i in range(N):
-            self.add_module(f"layer{i}", layer_cls(d_model, h, dropout, block_k, device))
+            self.add_module(f"layer{i}", layer_cls(d_model, h, dropout, block_k, device, dtype, param_dtype))
         self.norm = TorchLayerNorm(d_model, device=device)
 
     def layers(self) -> List[nn.Module]:
@@ -174,8 +214,9 @@ class _Stack(nn.Module):
 
 
 class Encoder(_Stack):
-    def __init__(self, d_model, h, N, dropout=0.1, block_k=0, device=None):
-        super().__init__(EncoderLayer, d_model, h, N, dropout, block_k, device)
+    def __init__(self, d_model, h, N, dropout=0.1, block_k=0, device=None, dtype=torch.float32,
+                 param_dtype=torch.float32):
+        super().__init__(EncoderLayer, d_model, h, N, dropout, block_k, device, dtype, param_dtype)
 
     def forward(self, x, mask, rng=None):
         for layer in self.layers():
@@ -184,8 +225,9 @@ class Encoder(_Stack):
 
 
 class Decoder(_Stack):
-    def __init__(self, d_model, h, N, dropout=0.1, block_k=0, device=None):
-        super().__init__(DecoderLayer, d_model, h, N, dropout, block_k, device)
+    def __init__(self, d_model, h, N, dropout=0.1, block_k=0, device=None, dtype=torch.float32,
+                 param_dtype=torch.float32):
+        super().__init__(DecoderLayer, d_model, h, N, dropout, block_k, device, dtype, param_dtype)
 
     def forward(self, x, memory, src_mask, tgt_mask, rng=None):
         for layer in self.layers():
@@ -201,17 +243,17 @@ class EncoderDecoder(nn.Module):
                  dropout: float = 0.1, block_k: int = 0, dtype=torch.float32,
                  param_dtype=torch.float32, device=None):
         super().__init__()
-        if dtype != torch.float32 or param_dtype != torch.float32:
-            raise NotImplementedError(
-                f"dtype={dtype}, param_dtype={param_dtype}: only float32 is ported "
-                "(bf16 is on the port's roadmap)")
+        check_dtypes(dtype, param_dtype)
         device = resolve_device(device)
         self.src_g_len, self.tgt_g_len = src_g_len, tgt_g_len
         self.N, self.d_model, self.h, self.block_k = N, d_model, h, block_k
-        self.encoder = Encoder(d_model, h, N, dropout, block_k, device)
-        self.decoder = Decoder(d_model, h, N, dropout, block_k, device)
-        self.src_embed = FeedForward(d_model, 2 * d_model, dropout, device)
-        self.tgt_embed = FeedForward(d_model, 2 * d_model, dropout, device)
+        self.dtype, self.param_dtype = dtype, param_dtype
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.encoder = Encoder(d_model, h, N, dropout, block_k, **kw)
+        self.decoder = Decoder(d_model, h, N, dropout, block_k, **kw)
+        self.src_embed = FeedForward(d_model, 2 * d_model, dropout, **kw)
+        self.tgt_embed = FeedForward(d_model, 2 * d_model, dropout, **kw)
+        # The regression head stays float32.
         self.generator_proj = nn.Linear(d_model, tgt_g_len, device=device)
 
     def encode(self, src, src_mask, rng=None):
@@ -253,7 +295,7 @@ def jax_order(model: nn.Module) -> List[str]:
 def init_model(model: EncoderDecoder, seed: int = 0) -> EncoderDecoder:
     """Xavier-uniform weight matrices, zero biases, LayerNorm ones/zeros,
     drawn in ``jax_order`` from a ``torch.Generator`` on the model's device
-    seeded with ``seed``."""
+    seeded with ``seed`` (in float32, then rounded to a bf16 weight)."""
     params = dict(model.named_parameters())
     gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
     for name in jax_order(model):
@@ -261,7 +303,10 @@ def init_model(model: EncoderDecoder, seed: int = 0) -> EncoderDecoder:
         if p.ndim == 2:
             fan_out, fan_in = p.shape
             a = math.sqrt(6.0 / (fan_in + fan_out))
-            p.uniform_(-a, a, generator=gen)
+            if p.dtype == torch.float32:
+                p.uniform_(-a, a, generator=gen)
+            else:
+                p.copy_(torch.empty(p.shape, device=p.device).uniform_(-a, a, generator=gen))
         elif name.endswith("a_2"):
             p.fill_(1.0)
         else:
@@ -291,25 +336,55 @@ def _flatten_tree(tree, prefix=()):
             yield prefix + (key,), value
 
 
+def is_bf16(arr: np.ndarray) -> bool:
+    """Whether a numpy leaf is ml_dtypes' bfloat16 (the JAX package's bf16
+    leaves as ``np.asarray`` gives them)."""
+    return arr.dtype.name == "bfloat16"
+
+
+def numpy_to_tensor(arr, dtype=torch.float32) -> torch.Tensor:
+    """A numpy leaf as a tensor of ``dtype``. A bfloat16 tensor comes from a
+    bf16 leaf or from its uint16 bit pattern, the JAX package's npz view
+    (numpy has no bfloat16), bit for bit; anything else goes through
+    float32."""
+    arr = np.asarray(arr)
+    if dtype == torch.bfloat16:
+        if not (is_bf16(arr) or arr.dtype == np.uint16):
+            raise TypeError(f"a bfloat16 tensor needs a bf16 or uint16 leaf, got {arr.dtype}")
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, dtype=np.float32))
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; a bfloat16 one as its uint16 bit pattern."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """A state_dict from the JAX package's flax params (nested dicts of numpy
     arrays, with or without the outer ``{"params": ...}``): dense kernels
-    [in, out] become ``Linear.weight`` [out, in]."""
+    [in, out] become ``Linear.weight`` [out, in]; bf16 leaves stay bf16,
+    bit for bit, and every other leaf becomes float32."""
     tree = tree.get("params", tree)
     out = {}
     for path, value in _flatten_tree(tree):
-        arr = np.asarray(value, dtype=np.float32)
+        arr = np.asarray(value)
+        t = numpy_to_tensor(arr, torch.bfloat16 if is_bf16(arr) else torch.float32)
         *scope, leaf = path
         if leaf == "kernel":
-            out[".".join(scope + ["weight"])] = torch.from_numpy(np.ascontiguousarray(arr.T))
+            out[".".join(scope + ["weight"])] = t.T.contiguous()
         else:
-            out[".".join(path)] = torch.from_numpy(arr.copy())
+            out[".".join(path)] = t
     return out
 
 
 def tensor_to_jax(name: str, t: torch.Tensor) -> np.ndarray:
-    """One parameter (or a moment of it) in the flax layout."""
-    arr = t.detach().cpu().numpy()
+    """One parameter (or a moment of it) in the flax layout; a bf16 one as
+    its uint16 bit pattern (``numpy_to_tensor`` reads it back)."""
+    arr = tensor_to_numpy(t)
     return np.ascontiguousarray(arr.T) if name.endswith("weight") else arr
 
 

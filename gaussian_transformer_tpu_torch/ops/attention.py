@@ -10,6 +10,11 @@ Dropout on the attention weights applies to the numerator only, scaled by
 dropout(softmax(scores)) @ V. ``reference_attention`` is the dense O(L^2)
 form. Both are plain ``torch.matmul``/``exp`` code.
 
+In bf16, as in the JAX package, the blockwise path keeps its running max,
+sum and accumulator in q's dtype and scales the scores by 1/sqrt(D)
+computed in that dtype; the dense form takes its scores and softmax in
+float32 and casts the probabilities to v's dtype (the model's dense path).
+
 Backward recomputes each key block, as the JAX package's ``jax.checkpoint``
 on its scan body does: a block is one ``_BlockStep`` whose forward keeps
 only its inputs (q, the key/value/mask slices and the incoming (m, l, acc)
@@ -135,7 +140,7 @@ def blockwise_attention(
     scores; the results are the same either way."""
     *lead, Lq, D = q.shape
     Lk = k.shape[-2]
-    scale = 1.0 / math.sqrt(D)
+    scale = float(1.0 / torch.tensor(float(D), dtype=q.dtype).sqrt())
     gen = generator if dropout_rate > 0.0 and generator is not None else None
     if mask is not None:
         mask = mask.expand(*torch.broadcast_shapes(mask.shape[:-2], tuple(lead)), Lq, Lk)
@@ -156,9 +161,10 @@ def blockwise_attention(
 
 
 def reference_attention(q, k, v, mask=None):
-    """The reference's O(L^2) attention, for tests and short sequences."""
+    """The reference's O(L^2) attention, for tests and short sequences:
+    scores and softmax in float32, the probabilities cast to v's dtype."""
     D = q.shape[-1]
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(D)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(D)
     if mask is not None:
         scores = torch.where(mask, scores, torch.full_like(scores, MASK_FILL))
-    return torch.matmul(torch.softmax(scores, dim=-1), v)
+    return torch.matmul(torch.softmax(scores, dim=-1).to(v.dtype), v)

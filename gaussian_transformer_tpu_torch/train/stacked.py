@@ -7,7 +7,9 @@ STACK times into fat tokens and carves an epoch-scheduled contiguous window
 as the target. The loss runs a full greedy decode (gradients flow through
 every step), then Chamfer, plus the L1/SSIM image loss of renders of the
 decoded and target Gaussians when Chamfer < 3. Adam(eps=1e-4) with the lr
-of a ``ReduceLROnPlateau`` set each step.
+of a ``ReduceLROnPlateau`` set each step, or (the stacked campaign's
+recipe) bf16 parameters and ``train/adafactor.py Adafactor`` at its own
+rate 1.0, its update scaled by that lr.
 
 Batches are padded to ``bucket`` multiples with PAD tokens (masks carry
 correctness), as in the JAX package, and the host-side batching draws from
@@ -47,12 +49,15 @@ from gaussian_transformer_tpu_torch.models.transformer import (
     init_model,
     jax_order,
     make_model,
+    numpy_to_tensor,
     subsequent_mask,
     tensor_to_jax,
+    tensor_to_numpy,
 )
 from gaussian_transformer_tpu_torch.ops.chamfer import chamfer_distance
 from gaussian_transformer_tpu_torch.ops.losses import l1_loss, ssim
 from gaussian_transformer_tpu_torch.render import RenderConfig, render
+from gaussian_transformer_tpu_torch.train.adafactor import Adafactor
 
 STACK = 8
 
@@ -81,11 +86,13 @@ def dropout_schedule(epoch: int) -> float:
 
 
 def make_stacked_model(stack: int = STACK, layers: int = 2, block_k: int = 0, seed: int = 0,
-                       device=None) -> EncoderDecoder:
+                       device=None, dtype=torch.float32, param_dtype=torch.float32) -> EncoderDecoder:
     """The stacked CLI's model: token dim = d_model = 26 * 2^stack, h 8,
-    dropout 0.1, Xavier-uniform from ``seed``."""
+    dropout 0.1, Xavier-uniform from ``seed``; the campaign's is bf16 in
+    ``dtype`` and ``param_dtype``."""
     D = stacked_token_dim(stack)
-    model = make_model(stack, D, D, N=layers, d_model=D, block_k=block_k, device=device)
+    model = make_model(stack, D, D, N=layers, d_model=D, block_k=block_k, dtype=dtype,
+                       param_dtype=param_dtype, device=device)
     return init_model(model, seed)
 
 
@@ -341,7 +348,9 @@ def make_optimizer(model: EncoderDecoder, lr: float = 5e-4) -> torch.optim.Adam:
 def make_train_step(model: EncoderDecoder, handler: GaussianHandler, render_cfg: RenderConfig,
                     optimizer: torch.optim.Optimizer, stack: int = STACK):
     """Returns step(src, trg_y, cams, lr, src_mask=None, dropout_key=None) ->
-    (loss, metrics): one loss, its backward and one Adam update at ``lr``."""
+    (loss, metrics): one loss, its backward and one update at ``lr`` (the
+    JAX step's ``updates * lr``: Adam's rule at ``lr``, ``Adafactor``'s
+    update scaled by it)."""
     loss_fn = make_loss_fn(model, handler, render_cfg, stack)
 
     def step(src, trg_y, cams, lr: float, src_mask=None, dropout_key=None):
@@ -358,7 +367,9 @@ def make_train_step(model: EncoderDecoder, handler: GaussianHandler, render_cfg:
 
 # Checkpoints keep the JAX package's npz layout: model.npz is the flax params
 # flattened in jax.tree_util order (arr_0, arr_1, ...; dense kernels [in,
-# out]); optim.npz is optax adam's (count, mu..., nu...) in the same order.
+# out]; bf16 leaves as their uint16 bit patterns); optim.npz is optax's state
+# in its flatten order: adam's (count, mu..., nu...), adafactor's (count,
+# v_row..., v_col..., v...), each leaf in the parameters' order.
 
 
 def save_checkpoint(run_dir: str, epoch, model: EncoderDecoder, optimizer: torch.optim.Optimizer) -> None:
@@ -367,38 +378,49 @@ def save_checkpoint(run_dir: str, epoch, model: EncoderDecoder, optimizer: torch
     names = jax_order(model)
     params = dict(model.named_parameters())
     np.savez(os.path.join(d, "model.npz"), *[tensor_to_jax(n, params[n]) for n in names])
-    count, mus, nus = 0, [], []
-    for n in names:
-        p = params[n]
-        state = optimizer.state.get(p, {})
-        if state:
-            count = int(state["step"])
-        mus.append(tensor_to_jax(n, state["exp_avg"]) if state else np.zeros_like(tensor_to_jax(n, p)))
-        nus.append(tensor_to_jax(n, state["exp_avg_sq"]) if state else np.zeros_like(tensor_to_jax(n, p)))
-    np.savez(os.path.join(d, "optim.npz"), np.asarray(count, np.int32), *mus, *nus)
+    states = [optimizer.state.get(params[n], {}) for n in names]
+    count = next((int(st["step"]) for st in states if st), 0)
+    if isinstance(optimizer, Adafactor):
+        # The state is already in the flax layout (train/adafactor.py).
+        states = [st or Adafactor.init_state(params[n]) for n, st in zip(names, states)]
+        leaves = [tensor_to_numpy(st[k]) for k in ("v_row", "v_col", "v") for st in states]
+    else:
+        def moment(n, st, key):
+            return tensor_to_jax(n, st[key]) if st else np.zeros_like(tensor_to_jax(n, params[n]))
+
+        leaves = [moment(n, st, key) for key in ("exp_avg", "exp_avg_sq") for n, st in zip(names, states)]
+    np.savez(os.path.join(d, "optim.npz"), np.asarray(count, np.int32), *leaves)
 
 
 @torch.no_grad()
 def load_checkpoint(run_dir: str, epoch, model: EncoderDecoder, optimizer: torch.optim.Optimizer) -> None:
     """Load a checkpoint written by either package into ``model`` and
-    ``optimizer`` in place."""
+    ``optimizer`` (Adam or Adafactor, as it was saved) in place."""
     d = os.path.join(run_dir, f"checkpoint_{epoch}")
     names = jax_order(model)
     params = dict(model.named_parameters())
 
+    def leaf(arr, like):
+        return numpy_to_tensor(arr, like.dtype).to(like.device)
+
     def from_jax(name, arr):
-        t = torch.from_numpy(np.asarray(arr, np.float32))
-        return (t.T if name.endswith("weight") else t).to(params[name].device)
+        p = params[name]
+        return leaf(arr.T if name.endswith("weight") else arr, p).contiguous()
 
     with np.load(os.path.join(d, "model.npz")) as m:
         for i, n in enumerate(names):
             params[n].copy_(from_jax(n, m[f"arr_{i}"]))
+    P = len(names)
     with np.load(os.path.join(d, "optim.npz")) as o:
         count = int(o["arr_0"])
-        P = len(names)
         for i, n in enumerate(names):
-            optimizer.state[params[n]] = {
-                "step": torch.tensor(float(count)),
-                "exp_avg": from_jax(n, o[f"arr_{1 + i}"]).contiguous(),
-                "exp_avg_sq": from_jax(n, o[f"arr_{1 + P + i}"]).contiguous(),
-            }
+            p = params[n]
+            if isinstance(optimizer, Adafactor):
+                optimizer.state[p] = {"step": count, **{k: leaf(o[f"arr_{1 + j * P + i}"], p)
+                                                        for j, k in enumerate(("v_row", "v_col", "v"))}}
+            else:
+                optimizer.state[p] = {
+                    "step": torch.tensor(float(count)),
+                    "exp_avg": from_jax(n, o[f"arr_{1 + i}"]),
+                    "exp_avg_sq": from_jax(n, o[f"arr_{1 + P + i}"]),
+                }

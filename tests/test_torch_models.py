@@ -366,8 +366,11 @@ def test_init_model_is_xavier_and_seeded():
 
 
 def test_bf16_raises():
-    with pytest.raises(NotImplementedError):
-        tf.make_model(2, D, D, d_model=D, dtype=torch.bfloat16, device="cpu")
+    """bf16 is ported (tests/test_torch_bf16.py); any other dtype raises."""
+    tf.make_model(2, D, D, d_model=D, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cpu")
+    for kw in ({"dtype": torch.float16}, {"param_dtype": torch.float16}, {"dtype": torch.float64}):
+        with pytest.raises(NotImplementedError):
+            tf.make_model(2, D, D, d_model=D, device="cpu", **kw)
 
 
 # ----------------------------------------------------------- cached decode ---

@@ -13,6 +13,13 @@ torch.set_num_threads(1)
 SCENE_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity", "alive")
 
 
+def bf16_ulp(x):
+    """One bf16 ulp of each value of a float32 array (of the smallest
+    subnormal at 0)."""
+    x = np.abs(np.asarray(x, np.float32))
+    return np.where(x > 0, 2.0 ** (np.floor(np.log2(np.maximum(x, 1e-38))) - 7), 2.0 ** -133)
+
+
 def torch_scene(jax_scene, device="cpu"):
     fields = {k: np.asarray(getattr(jax_scene, k)) for k in SCENE_FIELDS}
     return scene_from_numpy(fields, jax_scene.active_sh_degree, device)
