@@ -237,6 +237,44 @@ with a kill and a resume; it runs last:
     final size, the test PSNR, the median step by phase and the wall time of
     each stage; the kernels line carries the launches as ``gate_launches``.
 
+The bf16 property stream (``RenderConfig(precision="bf16")``: the stream's
+rows shifted into their tile's frame and rounded to bf16, kernels K1.bf16
+``stream_fwd_bf16`` and K2.bf16 ``stream_bwd_bf16``) and the non-Pallas
+compositor (``use_pallas=False``, ``render/composite.py``); they run after
+section 15:
+
+25. Serving: the test views of the 1M scene through ``render()`` in bf16,
+    counters zeroed just before and read just after; checks K1.bf16 ran
+    once per view and the float32 K1 not at all, no overflow, and view 0
+    against the float32 render at PSNR > 40 dB (the JAX package's bf16
+    rule; the max abs diff printed beside its atol 0.03). K1.bf16 against
+    its plain version on the same bf16 rows (K1's rule) and its largest
+    difference from K1 on the float32 rows (printed); K1.bf16 and K1 timed
+    in turns, plain K1.bf16, the renders in turns, the rows' rounding, the
+    bound (``utils/roofline.py``, 32 B a row).
+26. Training: a ``Scene`` of section 6's dataset trained by
+    ``training()`` in bf16 for 60 steps; checks K2.bf16 ran once per step,
+    K1.bf16 once per step and probe render, the float32 K1/K2 never, the
+    loss finite and falling, and prints the overflow and
+    ``device_memory_stats()``. On section 8's inputs: K2.bf16 against its
+    plain version on the loss's true cotangents (K2's rule); the trainer's
+    loss's gradients in bf16 against float32 (printed beside the JAX
+    package's 0.12 / 97% rule); K2.bf16 and K2 timed in turns, plain
+    K2.bf16, and ``utils/roofline.step_report`` of the float32 step
+    (section 9's median) and the bf16 step, each stage with its measured
+    time where one is taken.
+26b. ``use_pallas=False``: test view 0 of the 1M scene at section 10's
+    ``max_per_tile`` against K5's render (K1's rule), its time and peak
+    memory; the trainer's loss's gradients on section 12's inputs against
+    those through K5/K6 (K2's rule), the backward's time and peak memory.
+27. Last of all (a profiler window slows the host's launches for the rest
+    of the process): ``utils/profiling.trace`` around one bf16 render;
+    checks one Chrome trace was written and names the ``stream_fwd_bf16``
+    kernel; prints ``device_memory_stats()``.
+
+The kernels line carries K1.bf16 and K2.bf16 (``stream_fwd_bf16``,
+``stream_bwd_bf16``) with their launches in sections 25 and 26.
+
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
 before and after its window. The K3, K4, K7 and K8 entries of the kernels
 line carry the registers, spills and static shared memory ``nvcc -Xptxas
@@ -258,6 +296,7 @@ import json
 import math
 import os
 import random
+import shutil
 import subprocess
 import sys
 import time
@@ -283,23 +322,20 @@ if (ROOT / "gaussian_transformer_tpu_torch" / "__init__.py").exists():  # else m
         orbit_c2w,
         synthetic_scene,
     )
-# Published H100 SXM peaks (the card's data sheet, dense, at 700 W).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-# Operation counts used for the bounds (fp32, outside the tensor cores). The
-# compositors' walk costs every walked (row, pixel) pair WALK_OPS_PER_PAIR;
-# a pair that contributes (not skipped, not the terminating row) costs the
-# kernel's *_OPS_PER_LIVE more.
-WALK_OPS_PER_PAIR = 14  # power (10), exp, opacity product, alpha cap, skip test
-K1_OPS_PER_LIVE = 6  # T update (2), w, 3 FMAs
-K3_OPS_PER_PIXEL = 3 + 2 * (5 * 11 * 2) + 17  # products, two 11-tap passes x 5 fields, map
-# K1's (6), then w, <rgb, gC> and the prefix (8), w gC (3), g_alpha (7),
-# g_power and its 5 weighted copies (8), and the 9 sums over the tile's
-# pixels (9 adds per pair).
-K2_OPS_PER_LIVE = K1_OPS_PER_LIVE + 8 + 3 + 7 + 8 + 9
-# Products (3), fields by two 11-tap passes (220), partials (30), scale (4),
-# four maps filtered back (176), combine (8).
-K4_OPS_PER_PIXEL = 3 + 2 * (5 * 11 * 2) + 30 + 4 + 2 * (4 * 11 * 2) + 8
+    # The card's peaks and the kernels' operation counts: the bounds are
+    # defined in one place, utils/roofline.py.
+    from gaussian_transformer_tpu_torch.utils import roofline
+    from gaussian_transformer_tpu_torch.utils.roofline import (  # noqa: F401
+        K1_OPS_PER_LIVE,
+        K2_OPS_PER_LIVE,
+        K3_OPS_PER_PIXEL,
+        K4_OPS_PER_PIXEL,
+        K6_OPS_PER_LIVE,
+        PEAK_BF16_FLOPS,
+        PEAK_BYTES_PER_S,
+        PEAK_FP32_FLOPS,
+        WALK_OPS_PER_PAIR,
+    )
 K1_ATOL = 2e-5
 K1_MAX_ERR = 1e-3
 K1_MAX_SHARE = 1e-4
@@ -312,10 +348,14 @@ K2_ATOL = 2e-4
 K2_MAX_SHARE = 1e-4
 K4_MAX_ERR = 1e-4  # relative to the largest gradient
 K9_RTOL = 1e-6  # f32 block sums of positive data against the float64 plain version
-# K6: K5's (6), then w, <rgb, gC> and the prefix (8), w gC (3), g_alpha (7),
-# g_power (1), dx and dy (2), the five geometric terms (16), and the 9 sums
-# over the tile's pixels (9 adds per pair).
-K6_OPS_PER_LIVE = K1_OPS_PER_LIVE + 8 + 3 + 7 + 1 + 2 + 16 + 9
+# The JAX package's bf16 rules (tests/test_stream.py TestBF16Stream): the
+# image's PSNR against the float32 render (gated), its atol and the
+# gradients' rule (printed: set at 192 and 96 Gaussians).
+BF16_MIN_PSNR = 40.0
+BF16_IMAGE_ATOL = 0.03
+BF16_GRAD_MAX = 0.12
+BF16_GRAD_TIGHT = 0.97
+LEAF_NAMES = ("xyz", "opacity", "scaling", "features_dc", "offset")
 # The training table's max_per_tile: the largest probed count plus 25%.
 TABLE_TRAIN_HEADROOM = 1.25
 SH_C0 = 0.28209479177387814
@@ -882,14 +922,17 @@ def run(args, device) -> dict:
     kernels_line["kernels"] += table_path(args, device, scene, fovx, splits["test"], summary)
     kernels_line["kernels"] += transposed_path(args, device, scene, fovx, splits["test"], train_cfg, summary)
     kernels_line["kernels"] += probe_path(args, device, summary)
+    kernels_line["kernels"] += bf16_path(args, device, scene, fovx, splits["test"], train_cfg, summary)
+    nopallas_path(args, device, scene, fovx, splits["test"], summary)
     summary.update(kernels_line)
     return summary
 
 
 def bound(nbytes, ops):
-    """(least ms, "bytes" or "operations") on the published H100 peaks."""
-    b_ms, o_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+    """(least ms, "bytes" or "operations") on the published H100 peaks
+    (``utils/roofline.py``)."""
+    r = roofline.StageRoofline(nbytes, ops)
+    return r.roofline_ms, r.bound
 
 
 def rows_per_tile(rows) -> dict:
@@ -1295,6 +1338,7 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
     check(last < first, f"table path: mean loss of the last 10 steps {last:.5f} < first 10 {first:.5f}")
     tcfg = hist[0]["render_cfg"]
     print(f"trainer's table budgets: max_per_tile {tcfg.max_per_tile}, max_instances {tcfg.max_instances}")
+    summary.update(table_train_cfg=dataclasses.asdict(tcfg))
     summary.update(table_k_train=k_train, table_train_peaks=train_peaks, table_train_s=t_train,
                    table_train_losses=losses, table_train_launches=launches,
                    table_train_overflow=[h["overflow"] for h in hist])
@@ -1370,6 +1414,409 @@ def table_path(args, device, scene, fovx, test_c2ws, summary) -> list:
          "tolerance": {"max_abs_of_max": K2_MAX_ERR, "atol_of_max": K2_ATOL, "max_share_beyond": K2_MAX_SHARE},
          "share_beyond_atol": k6_share, "max_per_tile": Kp, "rows_per_tile": k6_rows})
     return entries
+
+
+def psnr_db(a, b) -> float:
+    """Mean over channels of the PSNR of ``a`` against ``b`` (images in [0, 1])."""
+    import torch
+
+    mse = ((a - b) ** 2).mean(dim=(1, 2))
+    return float((20.0 * torch.log10(1.0 / torch.sqrt(mse))).mean())
+
+
+def leaf_grads(cam, gaussians, cfg, gt, device):
+    """The trainer's loss on one view through ``render(cfg)``, and its
+    gradients w.r.t. xyz, opacity, scaling, features_dc and the screen-space
+    offset (one backward)."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.ops.losses import l1_loss, ssim
+    from gaussian_transformer_tpu_torch.render import render
+
+    offset = torch.zeros(gaussians.capacity, 2, device=device, requires_grad=True)
+    img = render(cam, gaussians, cfg, bg_color=torch.zeros(3, device=device), screenspace_offset=offset)["render"]
+    loss = 0.8 * l1_loss(img, gt) + 0.2 * (1.0 - ssim(img, gt))
+    leaves = [gaussians.xyz, gaussians.opacity, gaussians.scaling, gaussians.features_dc, offset]
+    return dict(zip(LEAF_NAMES, torch.autograd.grad(loss, leaves)))
+
+
+def grad_rule(a, b) -> dict:
+    """The largest difference of ``b`` from ``a`` relative to the largest of
+    ``a``, the share within 5% of it, and the share beyond K2's 2e-4 of it."""
+    scale = float(a.abs().max())
+    err = (b - a).abs()
+    return {"max_of_max": float(err.max()) / scale, "within_5pct": float((err <= 0.05 * scale).float().mean()),
+            "beyond_atol": float((err > K2_ATOL * scale).float().mean()), "scale": scale}
+
+
+def bf16_path(args, device, scene, fovx, test_c2ws, train_cfg, summary) -> list:
+    """Sections 25 and 26: the bf16 property stream (K1/K2's bf16 entry
+    points) serving the 1M scene and training section 6's dataset. Returns
+    the K1.bf16 and K2.bf16 entries of the kernels line (none off the card)."""
+    import random
+
+    import torch
+
+    from gaussian_transformer_tpu_torch.config import OptConfig
+    from gaussian_transformer_tpu_torch.ops import fused_ssim
+    from gaussian_transformer_tpu_torch.ops.losses import l1_loss
+    from gaussian_transformer_tpu_torch.render import RenderConfig, prepare_stream, project_view, render, stream
+    from gaussian_transformer_tpu_torch.scene import Scene
+    from gaussian_transformer_tpu_torch.scene.gaussians import GaussianScene
+    from gaussian_transformer_tpu_torch.scene.ply import fetch_point_cloud
+    from gaussian_transformer_tpu_torch.train.splat import PHASES, training
+    from gaussian_transformer_tpu_torch.utils.png import read_png
+    from gaussian_transformer_tpu_torch.utils.profiling import device_memory_stats
+
+    on_card = device.type == "cuda"
+    W, H = args.width, args.height
+    work = Path(args.work)
+    k1b, k2b = stream.STREAM_FWD_BF16, stream.STREAM_BWD_BF16
+    bf = RenderConfig(precision="bf16")
+    counters = kernel_counters()
+    smi = smi_line(device)
+
+    print("== 25. bf16 serving: the test views through render(RenderConfig(precision='bf16'))")
+    t_sec = time.time()
+    cams = [camera_from_c2w(c2w, fovx, W, H, device) for c2w in test_c2ws]
+    zero_counts(counters)
+    k1b.launches = k2b.launches = 0
+    t0 = time.time()
+    with torch.no_grad():
+        outs = [render(cam, scene, bf) for cam in cams]
+        overflow = [int(o["overflow"]) for o in outs]
+    t_serve = time.time() - t0
+    k1b_serve, k1_serve = k1b.launches, read_counts(counters)["K1"]
+    print(f"{len(cams)} bf16 renders: {t_serve:.2f} s; K1.bf16 launches {k1b_serve}, K1 (float32) launches "
+          f"{k1_serve}; overflow by view {overflow}")
+    if on_card:
+        check(k1b_serve == len(cams) and k1_serve == 0,
+              f"K1.bf16 launched once per rendered view ({len(cams)}) and the float32 K1 not at all")
+    check(all(v == 0 for v in overflow), "overflow == 0 on every bf16 view")
+    with torch.no_grad():
+        ref = render(cams[0], scene)
+        a, b = torch.clamp(ref["render"], 0, 1), torch.clamp(outs[0]["render"], 0, 1)
+        psnr = psnr_db(b, a)
+        img_diff = float((b - a).abs().max())
+    print(f"bf16 vs float32 render of test view 0: PSNR {psnr:.2f} dB (rule > {BF16_MIN_PSNR} dB), max abs diff "
+          f"{img_diff:.4f} (printed beside the JAX package's atol {BF16_IMAGE_ATOL}, set at 192 Gaussians, 80x48)")
+    check(psnr > BF16_MIN_PSNR, f"the bf16 render is within {BF16_MIN_PSNR} dB PSNR of the float32 render")
+    del outs, ref, a, b
+    with torch.no_grad():
+        s = prepare_stream(cams[0], scene)
+        props, ct, counts = s.props(), s.chunk_tile, s.binned.tile_counts
+        gw, gh = s.grid_w, s.grid_h
+        rows = stream.kernel_props(props, ct, gw, "bf16")
+        color, t_fin = stream.composite_stream_tiles(props, ct, counts, gw, gh, "bf16")
+        p_color, p_t, (pairs, live) = stream.composite_stream_tiles_plain(rows, ct, gw, gh, count_work=True)
+        cov = s.binned.covered
+        err = torch.cat([(color - p_color)[cov].flatten(), (t_fin - p_t)[cov].flatten()]).abs()
+        k1b_err, k1b_share = float(err.max()), float((err > K1_ATOL).float().mean())
+        f_color, f_t = stream.composite_stream_tiles(props, ct, counts, gw, gh)
+        vs_fp32 = float(torch.cat([(color - f_color)[cov].flatten(), (t_fin - f_t)[cov].flatten()]).abs().max())
+        real_rows = int(counts.sum())
+    print(f"K1.bf16: {rows.shape[0]} stream rows of {rows.shape[1]} bf16, {real_rows} real, {pairs} walked "
+          f"(row, pixel) pairs, {live} contributing")
+    print(f"K1.bf16 vs plain on the same bf16 rows: max abs diff {k1b_err:.3e} (tolerance {K1_MAX_ERR}), share "
+          f"beyond {K1_ATOL}: {k1b_share:.3e} (tolerance {K1_MAX_SHARE}); vs K1 on the float32 rows: max abs diff "
+          f"{vs_fp32:.3e} (printed)")
+    check(k1b_err <= K1_MAX_ERR and k1b_share <= K1_MAX_SHARE, "K1.bf16 agrees with its plain version")
+    k1b_sum = checksum(color, t_fin)
+    print(f"K1.bf16 checksum of (color, final T) on test view 0: {k1b_sum}")
+    del p_color, p_t, f_color, f_t, err
+    summary.update(bf16_psnr=psnr, bf16_image_max_diff=img_diff, bf16_k1_vs_fp32=vs_fp32, bf16_k1_pairs=pairs,
+                   bf16_k1_live_pairs=live, bf16_k1_checksum=k1b_sum, bf16_serve_s=t_serve)
+    entries = []
+    if on_card:
+        clk = sm_clock()
+        with torch.no_grad():
+            k1b_ms, k1_ms = interleaved_ms([lambda: stream._launch_stream_fwd(rows, ct, counts, gw, gh, "bf16"),
+                                            lambda: stream._launch_stream_fwd(props, ct, counts, gw, gh)],
+                                           rounds=5, reps=10)
+            k1b_plain_ms = cuda_ms(lambda: stream.composite_stream_tiles_plain(rows, ct, gw, gh), reps=2)
+            rbf_ms, r32_ms = interleaved_ms([lambda: render(cams[0], scene, bf), lambda: render(cams[0], scene)],
+                                            rounds=3, reps=2)
+            cast_ms = cuda_ms(lambda: stream.kernel_props(props, ct, gw, "bf16"), reps=10)
+        r1b = roofline.fwd_kernel(pairs, live, real_rows, gw * gh, "bf16")
+        print(f"[{smi}] K1.bf16 {k1b_ms:.4f} ms, K1 {k1_ms:.4f} ms in turns on the same stream "
+              f"(K1.bf16 / K1 = {k1b_ms / k1_ms:.3f}); plain K1.bf16 {k1b_plain_ms:.2f} ms; bound "
+              f"{r1b.roofline_ms:.4f} ms ({r1b.bound}: {r1b.nbytes} B at 32 B a row = {r1b.t_bytes_ms:.4f} ms, "
+              f"{r1b.ops} fp32 ops = {r1b.t_ops_ms:.4f} ms)")
+        print(f"[{smi}] render of test view 0: bf16 {rbf_ms:.3f} ms, float32 {r32_ms:.3f} ms in turns; the rows' "
+              f"shift and rounding (kernel_props) {cast_ms:.3f} ms")
+        print_clocks(clk, "25")
+        summary.update(bf16_render_ms=rbf_ms, bf16_fp32_render_ms=r32_ms, bf16_cast_ms=cast_ms,
+                       bf16_k1_fp32_ms=k1_ms)
+        entries.append(
+            {"name": "stream_fwd_bf16", "route": "cuda",
+             "source": "gaussian_transformer_tpu_torch/csrc/stream_fwd.cu",
+             "replaces": "gaussian_transformer_tpu/render/stream.py:266",
+             "launches": k1b_serve, "max_abs_err": k1b_err, "ms": k1b_ms, "plain_ms": k1b_plain_ms,
+             "bound_ms": r1b.roofline_ms, "bound_by": r1b.bound, "library_ms": None,
+             "tolerance": {"atol": K1_ATOL, "max_share_beyond": K1_MAX_SHARE, "max_abs": K1_MAX_ERR},
+             "share_beyond_atol": k1b_share, "checksum": k1b_sum, "fp32_ms_in_turns": k1_ms,
+             "max_abs_diff_vs_fp32_rows": vs_fp32})
+    del s, props, rows, ct, counts, color, t_fin
+    print(f"section 25 wall time {time.time() - t_sec:.1f} s")
+
+    print("== 26. bf16 train step: train/splat.py training(RenderConfig(precision='bf16')) on the section-6 dataset")
+    t_sec = time.time()
+    data, model = work / "train_data", work / "bf16_model"
+    shutil.rmtree(model, ignore_errors=True)
+    random.seed(args.seed)
+    scene_obj = Scene(Namespace(model_path=str(model), source_path=str(data), images="images", eval=True,
+                                white_background=False, resolution=1, data_device=str(device)),
+                      shuffle=False, sh_degree=3, device=device)
+    n = args.iterations
+    third = n // 3
+    opt = OptConfig(iterations=n, densify_from_iter=third, densification_interval=third, densify_until_iter=n)
+    hist = []
+
+    def log_fn(iteration, loss, overflow, phase_ms, densify, render_cfg, **_):
+        hist.append({"iteration": iteration, "loss": loss, "overflow": overflow, "phase_ms": phase_ms,
+                     "densify": densify, "render_cfg": render_cfg})
+
+    cap0 = max(256, int(scene_obj.gaussians.num_alive * 4.0))  # training()'s default headroom
+    zero_counts(counters)
+    k1b.launches = k2b.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    training(scene_obj, opt, bf, seed=args.seed, log_fn=log_fn)
+    t_train = time.time() - t0
+    launches = {"K1.bf16": k1b.launches, "K2.bf16": k2b.launches, **read_counts(counters)}
+    mem = device_memory_stats()
+    losses = [h["loss"] for h in hist]
+    caps = [cap0] + [h["densify"]["capacity"] for h in hist if h["densify"] and "capacity" in h["densify"]]
+    probes = sum(c >= 50_000 for c in caps)
+    print(f"training() {n} bf16 steps: {t_train:.1f} s; launches {launches}, probe renders {probes}; "
+          f"device_memory_stats {mem}")
+    print(f"loss by step: {[round(v, 5) for v in losses]}")
+    print(f"overflow by step: {[h['overflow'] for h in hist]}")
+    if on_card:
+        check(launches["K2.bf16"] == n and launches["K1.bf16"] == n + probes and launches["K1"] == 0
+              and launches["K2"] == 0 and launches["K4"] == n,
+              f"K2.bf16 launched once per step ({n}), K1.bf16 once per step and probe render ({n} + {probes}), "
+              f"the float32 K1/K2 never")
+    check(len(losses) == n and all(math.isfinite(v) for v in losses), "every bf16 loss is finite")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last < first, f"bf16: mean loss of the last 10 steps {last:.5f} < first 10 {first:.5f}")
+    summary.update(bf16_train_s=t_train, bf16_train_losses=losses, bf16_train_launches=launches,
+                   bf16_train_overflow=[h["overflow"] for h in hist], bf16_train_memory=mem)
+    del scene_obj
+
+    print("== 26, K2.bf16 on train view 0, first step's state, the trainer's budgets (section 8's inputs)")
+    g0 = GaussianScene.from_pcd(fetch_point_cloud(str(data / "points3d.ply")), 1,
+                                capacity=4 * args.train_points, device=device)
+    cam = camera_from_c2w(orbit_c2w(0.0), fovx, W, H, device)
+    gt = torch.as_tensor(read_png(str(data / "train" / "r_0.png"))[..., :3].transpose(2, 0, 1) / 255.0,
+                         dtype=torch.float32, device=device)
+    bg = torch.zeros(3, device=device)
+    with torch.no_grad():
+        s = prepare_stream(cam, g0, train_cfg)
+        props, ct, counts = s.props(), s.chunk_tile, s.binned.tile_counts
+        gw, gh = s.grid_w, s.grid_h
+        rows = stream.kernel_props(props, ct, gw, "bf16")
+        color, final_t = stream.composite_stream_tiles(props, ct, counts, gw, gh, "bf16")
+        color32, final_t32 = stream.composite_stream_tiles(props, ct, counts, gw, gh)
+    cots = []
+    for c_, t_ in ((color, final_t), (color32, final_t32)):
+        c, t = c_.clone().requires_grad_(), t_.clone().requires_grad_()
+        img = stream.tiles_to_image(c, t, s.binned.covered, bg, grid_w=gw, grid_h=gh)[0][:, :H, :W]
+        loss = 0.8 * l1_loss(img, gt) + 0.2 * (1.0 - fused_ssim.ssim_plain(img, gt))
+        cots.append(torch.autograd.grad(loss, [c, t]))
+    k2b_in = (rows, ct, gw, gh, color, final_t, *cots[0])
+    k2_in = (props, ct, gw, gh, color32, final_t32, *cots[1])
+    with torch.no_grad():
+        d_plain = stream.composite_stream_tiles_bwd_plain(*k2b_in)
+        pairs, live = stream.composite_stream_tiles_plain(rows, ct, gw, gh, count_work=True)[2]
+        real_rows = int(counts.sum())
+        k2b_err = k2b_share = None
+        if on_card:
+            d_k2b = stream._launch_stream_bwd(*k2b_in, "bf16")
+            scale = float(d_plain.abs().max())
+            err = (d_k2b - d_plain)[:, :stream.GRAD_F].abs()
+            k2b_err, k2b_share = float(err.max()), float((err > K2_ATOL * scale).float().mean())
+            print(f"K2.bf16: chunk {props.shape[0] // ct.shape[0]}, {props.shape[0]} stream rows; max |plain| "
+                  f"{scale:.3e}")
+            print(f"K2.bf16 vs plain on the same bf16 rows: max abs diff {k2b_err:.3e} = {k2b_err / scale:.3e} of "
+                  f"max |plain| (tolerance {K2_MAX_ERR}), share beyond {K2_ATOL} of max: {k2b_share:.3e} "
+                  f"(tolerance {K2_MAX_SHARE})")
+            check(k2b_err <= K2_MAX_ERR * scale and k2b_share <= K2_MAX_SHARE
+                  and bool(torch.all(d_k2b[:, stream.GRAD_F:] == 0)), "K2.bf16 agrees with its plain version")
+            del d_k2b, err
+    del d_plain
+    g32 = leaf_grads(cam, g0, train_cfg, gt, device)
+    g16 = leaf_grads(cam, g0, train_cfg.replace(precision="bf16"), gt, device)
+    rules = {k: grad_rule(g32[k], g16[k]) for k in LEAF_NAMES}
+    print("bf16 vs float32 gradients of the trainer's loss on train view 0 (printed beside the JAX package's bf16 "
+          f"rule, {BF16_GRAD_MAX} of the largest and > {BF16_GRAD_TIGHT} within 5%): "
+          + "; ".join(f"{k} {v['max_of_max']:.4f} of the largest, {v['within_5pct']:.4f} within 5%"
+                      for k, v in rules.items()))
+    summary.update(bf16_grad_rules=rules, bf16_k2_pairs=pairs, bf16_k2_live_pairs=live)
+    del g32, g16
+
+    if on_card:
+        clk = sm_clock()
+        steady = [h for h in hist if h["iteration"] > 10 and not h["densify"]]
+        med = {k: float(np.median([h["phase_ms"][k] for h in steady])) for k in PHASES}
+        step_ms = float(np.median([sum(h["phase_ms"].values()) for h in steady]))
+        with torch.no_grad():
+            k2b_ms, k2_ms = interleaved_ms([lambda: stream._launch_stream_bwd(*k2b_in, "bf16"),
+                                            lambda: stream._launch_stream_bwd(*k2_in)], rounds=5, reps=4)
+            k1b_train_ms, k1_train_ms = interleaved_ms(
+                [lambda: stream._launch_stream_fwd(rows, ct, counts, gw, gh, "bf16"),
+                 lambda: stream._launch_stream_fwd(props, ct, counts, gw, gh)], rounds=5, reps=10)
+            k2b_plain_ms = cuda_ms(lambda: stream.composite_stream_tiles_bwd_plain(*k2b_in), reps=2)
+            stages = {"project": cuda_ms(lambda: project_view(cam, g0, 1.0, None), reps=5),
+                      "project+bin": cuda_ms(lambda: prepare_stream(cam, g0, train_cfg), reps=5),
+                      "gather": cuda_ms(lambda: s.props(), reps=5)}
+        r2b = roofline.bwd_kernel(pairs, live, real_rows, rows.shape[0], gw * gh, "bf16")
+        print(f"[{smi}] median bf16 train step {step_ms:.3f} ms over {len(steady)} steps (steps 11-{n} without the "
+              f"densify step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()))
+        print(f"[{smi}] K2.bf16 {k2b_ms:.4f} ms, K2 {k2_ms:.4f} ms in turns (K2.bf16 / K2 = {k2b_ms / k2_ms:.3f}); "
+              f"plain K2.bf16 {k2b_plain_ms:.2f} ms; bound {r2b.roofline_ms:.4f} ms ({r2b.bound}: {r2b.nbytes} B = "
+              f"{r2b.t_bytes_ms:.4f} ms, {r2b.ops} fp32 ops = {r2b.t_ops_ms:.4f} ms; {pairs} walked, {live} "
+              f"contributing)")
+        print(f"[{smi}] on train view 0: K1.bf16 {k1b_train_ms:.4f} ms, K1 {k1_train_ms:.4f} ms in turns")
+        base = {"n_gaussians": g0.capacity, "n_instances": train_cfg.max_instances, "i_pad": props.shape[0],
+                "real_rows": real_rows, "n_tiles": gw * gh, "height": H, "width": W, "sh_degree": 1}
+        measured = {"project": stages["project"], "bin": stages["project+bin"] - stages["project"],
+                    "gather": stages["gather"]}
+        reports = {
+            "fp32": roofline.step_report(
+                dict(base, walked=summary["train_pairs"], contributing=summary["train_live_pairs"]),
+                dict(measured, fwd_kernel=k1_train_ms, bwd_kernel=k2_ms, total=summary["train_step_ms"])),
+            "bf16": roofline.step_report(
+                dict(base, walked=pairs, contributing=live, precision="bf16"),
+                dict(measured, fwd_kernel=k1b_train_ms, bwd_kernel=k2b_ms, total=step_ms)),
+        }
+        for prec, rep in reports.items():
+            print(f"[{smi}] roofline of the {prec} train step (utils/roofline.step_report; float32 step: section 9's "
+                  f"cli.train median, bf16: this section's): " + json.dumps(rep))
+        print_clocks(clk, "26")
+        summary.update(bf16_train_step_ms=step_ms, bf16_train_phase_ms=med, bf16_step_roofline=reports,
+                       bf16_stage_ms=stages)
+        entries.append(
+            {"name": "stream_bwd_bf16", "route": "cuda",
+             "source": "gaussian_transformer_tpu_torch/csrc/stream_bwd.cu",
+             "replaces": "gaussian_transformer_tpu/render/stream.py:411",
+             "launches": launches["K2.bf16"], "max_abs_err": k2b_err, "ms": k2b_ms, "plain_ms": k2b_plain_ms,
+             "bound_ms": r2b.roofline_ms, "bound_by": r2b.bound, "library_ms": None,
+             "tolerance": {"max_abs_of_max": K2_MAX_ERR, "atol_of_max": K2_ATOL, "max_share_beyond": K2_MAX_SHARE},
+             "share_beyond_atol": k2b_share, "fp32_ms_in_turns": k2_ms, "stream_rows": props.shape[0],
+             "grad_rule_vs_fp32": rules})
+        # The forward entry's launches: the serving views and the training run's.
+        entries[0]["launches_train"] = launches["K1.bf16"]
+    print(f"section 26 wall time {time.time() - t_sec:.1f} s")
+    return entries
+
+
+def nopallas_path(args, device, scene, fovx, test_c2ws, summary) -> None:
+    """Section 26b: ``RenderConfig(use_pallas=False)`` (render/composite.py,
+    tensor ops) against the table kernels K5/K6 on the same lists."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.render import RenderConfig, render
+    from gaussian_transformer_tpu_torch.scene.gaussians import GaussianScene
+    from gaussian_transformer_tpu_torch.scene.ply import fetch_point_cloud
+    from gaussian_transformer_tpu_torch.utils.png import read_png
+
+    on_card = device.type == "cuda"
+    W, H = args.width, args.height
+    data = Path(args.work) / "train_data"
+    smi = smi_line(device)
+    print("== 26b. use_pallas=False: render/composite.py against the table kernels (K5, K6)")
+    t_sec = time.time()
+    k_serve = summary["table_k_serve"]
+    cam0 = camera_from_c2w(test_c2ws[0], fovx, W, H, device)
+    cfg = RenderConfig(use_pallas=False, max_per_tile=k_serve)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.time()
+        a = render(cam0, scene, cfg)
+        if on_card:
+            torch.cuda.synchronize()
+        fwd_s = time.time() - t0
+        fwd_peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+        b = render(cam0, scene, cfg.replace(use_pallas=True, use_stream=False))
+        err = torch.cat([(a["render"] - b["render"]).flatten(), (a["final_T"] - b["final_T"]).flatten()]).abs()
+        img_err, img_share = float(err.max()), float((err > K1_ATOL).float().mean())
+    print(f"test view 0 of the {args.gaussians}-Gaussian scene, max_per_tile {k_serve}: composite.py vs K5: max abs "
+          f"diff {img_err:.3e} "
+          f"(tolerance {K1_MAX_ERR}), share beyond {K1_ATOL}: {img_share:.3e} (tolerance {K1_MAX_SHARE}); "
+          f"{fwd_s:.2f} s, peak {fwd_peak:.2f} GiB")
+    check(img_err <= K1_MAX_ERR and img_share <= K1_MAX_SHARE, "the use_pallas=False render agrees with K5's")
+    del a, b, err
+    tcfg = RenderConfig(**summary["table_train_cfg"])
+    g0 = GaussianScene.from_pcd(fetch_point_cloud(str(data / "points3d.ply")), 1,
+                                capacity=4 * args.train_points, device=device)
+    cam = camera_from_c2w(orbit_c2w(0.0), fovx, W, H, device)
+    gt = torch.as_tensor(read_png(str(data / "train" / "r_0.png"))[..., :3].transpose(2, 0, 1) / 255.0,
+                         dtype=torch.float32, device=device)
+    g_k6 = leaf_grads(cam, g0, tcfg, gt, device)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    g_xla = leaf_grads(cam, g0, tcfg.replace(use_pallas=False), gt, device)
+    if on_card:
+        torch.cuda.synchronize()
+    bwd_s = time.time() - t0
+    bwd_peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    rules = {k: grad_rule(g_k6[k], g_xla[k]) for k in LEAF_NAMES}
+    print(f"train view 0, first step's state, the table trainer's budgets (max_per_tile {tcfg.max_per_tile}): "
+          f"gradients of the trainer's loss, composite.py vs K5/K6: "
+          + "; ".join(f"{k} {v['max_of_max']:.3e} of the largest, {v['beyond_atol']:.3e} beyond {K2_ATOL}"
+                      for k, v in rules.items())
+          + f" (tolerance {K2_MAX_ERR} of the largest, share beyond {K2_ATOL} {K2_MAX_SHARE}); forward and backward "
+          f"{bwd_s:.2f} s, peak {bwd_peak:.2f} GiB")
+    check(all(v["max_of_max"] <= K2_MAX_ERR and v["beyond_atol"] <= K2_MAX_SHARE for v in rules.values()),
+          "the use_pallas=False gradients agree with K5/K6's")
+    if on_card:
+        with torch.no_grad():
+            ms = cuda_ms(lambda: render(cam0, scene, cfg), reps=2)
+        print(f"[{smi}] use_pallas=False render of test view 0: {ms:.1f} ms")
+        summary.update(nopallas_render_ms=ms)
+    summary.update(nopallas_img_err=img_err, nopallas_grad_rules=rules, nopallas_fwd_peak_gib=fwd_peak,
+                   nopallas_bwd_peak_gib=bwd_peak, nopallas_bwd_s=bwd_s)
+    print(f"section 26b wall time {time.time() - t_sec:.1f} s")
+
+
+def trace_path(args, device, summary) -> None:
+    """Section 27, last of all (a profiler window slows the host's launches
+    for the rest of the process): ``utils/profiling.trace`` around one bf16
+    render of section 2's scene."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.convert import scene_from_numpy
+    from gaussian_transformer_tpu_torch.render import RenderConfig, render
+    from gaussian_transformer_tpu_torch.utils.profiling import annotate, device_memory_stats, trace
+
+    print("== 27. utils/profiling.trace around one bf16 render of test view 0")
+    t_sec = time.time()
+    scene = scene_from_numpy(synthetic_scene(args.gaussians, args.seed), active_sh_degree=3, device=device)
+    cam = camera_from_c2w(orbit_c2w(0.3), math.radians(50.0), args.width, args.height, device)
+    logdir = Path(args.work) / "trace"
+    shutil.rmtree(logdir, ignore_errors=True)
+    with torch.no_grad():
+        render(cam, scene, RenderConfig(precision="bf16"))
+        with trace(str(logdir)):
+            with annotate("bf16_render"):
+                render(cam, scene, RenderConfig(precision="bf16"))
+    files = sorted(logdir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"one Chrome trace written into {logdir} ({[f.name for f in files]})")
+    text = files[0].read_text()
+    names_kernel = "Bf16RowStager" in text  # stream_fwd_bf16's kernel: stream_fwd_kernel<Bf16RowStager>
+    print(f"trace {files[0].name}: {len(text)} bytes; names the bf16 span: {'bf16_render' in text}; names the "
+          f"stream_fwd_bf16 kernel (stream_fwd_kernel<stream_common::Bf16RowStager>): {names_kernel}")
+    if device.type == "cuda":
+        check(names_kernel, "the trace names the stream_fwd_bf16 kernel")
+    mem = device_memory_stats()
+    print(f"device_memory_stats(): {mem}")
+    summary.update(trace_bytes=len(text), trace_memory=mem)
+    print(f"section 27 wall time {time.time() - t_sec:.1f} s")
 
 
 def transposed_path(args, device, scene, fovx, test_c2ws, cfg, summary) -> list:
@@ -2055,7 +2502,6 @@ def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYE
 
 
 CAMPAIGN_STEPS = 8  # one epoch of the campaign's loop: 32 ring cameras at batch 4
-PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (the card's data sheet, at 700 W)
 
 
 def campaign_dtype_rule(name: str, param_dtype):
@@ -3010,6 +3456,7 @@ def main(argv=None) -> int:
                           {k: v for k, v in flat_launches.items() if k.startswith("autoencoder")})
         torch.cuda.empty_cache()
         add_path_launches(summary["kernels"], "gate_launches", gate_path(args, device, summary))
+        trace_path(args, device, summary)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

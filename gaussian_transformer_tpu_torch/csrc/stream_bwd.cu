@@ -47,6 +47,15 @@
 // bound by operations, and the walk, which K1 also pays, is the largest
 // share of them.
 
+// precision="bf16" (stream_bwd_bf16) replaces the same TPU kernel in its
+// local_coords mode (stream.py:840): it replays the bf16 tile-local rows
+// that the forward read and saved (stream.py:812-819), each widened to
+// float32 as it is staged (stream_common.cuh load_bf16_row), with the tile
+// origin 0; the replay, the reduction and the float32 gradient rows are the
+// float32 path's. The gradient of the tile-local mean is that of the screen
+// mean (the shift is a translation). Its rows are 32 bytes instead of 64;
+// like the float32 replay it is bound by operations.
+
 #include <cuda_runtime.h>
 
 #include "stream_common.cuh"
@@ -55,8 +64,12 @@ namespace {
 
 using namespace stream_common;
 
+// kBf16: the rows are bf16 [I_pad, 16], tile-local (precision="bf16"),
+// widened to float32 as they are staged; else float32 rows in screen
+// coordinates, shifted by the tile's origin where they are read.
+template <bool kBf16>
 __global__ void __launch_bounds__(kPixels, 3) stream_bwd_kernel(
-    const float4* __restrict__ props, const float* __restrict__ tiledata,
+    const void* __restrict__ props_v, const float* __restrict__ tiledata,
     const int* __restrict__ chunk_start, const int* __restrict__ chunk_end, int chunk,
     int grid_w, int n_tiles, float4* __restrict__ dprops) {
   extern __shared__ float4 smem[];
@@ -73,8 +86,8 @@ __global__ void __launch_bounds__(kPixels, 3) stream_bwd_kernel(
   if (t < n_tiles) {
     const float px = (float)(p % kTile);
     const float py = (float)(p / kTile);
-    const float ox = (float)((t % grid_w) * kTile);
-    const float oy = (float)((t / grid_w) * kTile);
+    const float ox = kBf16 ? 0.0f : (float)((t % grid_w) * kTile);
+    const float oy = kBf16 ? 0.0f : (float)((t / grid_w) * kTile);
     // The tile's residual/cotangent rows: C_total 0:3, T_final 3, gC 4:7, gT 7.
     const float* td = tiledata + (size_t)t * 8 * kPixels + p;
     const float gc0 = td[4 * kPixels], gc1 = td[5 * kPixels], gc2 = td[6 * kPixels];
@@ -86,8 +99,20 @@ __global__ void __launch_bounds__(kPixels, 3) stream_bwd_kernel(
     int done = 0;
     for (; base < r1; base += kReplayRows) {
       const int n = (int)min((long long)kReplayRows, r1 - base);
-      const float4* src = props + base * kRowV;
-      for (int i = p; i < n * kRowV; i += kPixels) sm.rows[i] = src[i];
+      if constexpr (kBf16) {
+        const uint4* src = static_cast<const uint4*>(props_v) + base * kRowBf16V;
+        if (p < n) {
+          float4 v0, v1;
+          float opac;
+          load_bf16_row(src + p * kRowBf16V, v0, v1, opac);
+          sm.rows[p * kRowV] = v0;
+          sm.rows[p * kRowV + 1] = v1;
+          sm.rows[p * kRowV + 2] = make_float4(opac, 0.0f, 0.0f, 0.0f);
+        }
+      } else {
+        const float4* src = static_cast<const float4*>(props_v) + base * kRowV;
+        for (int i = p; i < n * kRowV; i += kPixels) sm.rows[i] = src[i];
+      }
       __syncthreads();  // the batch's rows (and gC) are staged
       for (int k = 0; k < n; ++k) {
         float gp = 0.0f, w = 0.0f;
@@ -165,20 +190,33 @@ __global__ void __launch_bounds__(kPixels, 3) stream_bwd_kernel(
   for (long long i = base * kRowV + p; i < r1 * kRowV; i += kPixels) dprops[i] = zero4;
 }
 
-bool smem_opted_in = false;
+template <bool kBf16>
+int launch(const void* props, const void* tiledata, const void* chunk_start, const void* chunk_end,
+           int chunk, int grid_w, int n_tiles, void* dprops, void* stream) {
+  static bool smem_opted_in = false;
+  const cudaError_t err = replay_smem_opt_in(stream_bwd_kernel<kBf16>, smem_opted_in);
+  if (err != cudaSuccess) return (int)err;
+  // n_tiles + 1 blocks: block n_tiles zeroes the trash chunks.
+  stream_bwd_kernel<kBf16><<<n_tiles + 1, kPixels, kReplaySmemBytes, (cudaStream_t)stream>>>(
+      props, (const float*)tiledata, (const int*)chunk_start, (const int*)chunk_end, chunk, grid_w,
+      n_tiles, (float4*)dprops);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" int stream_bwd(const void* props, const void* tiledata, const void* chunk_start,
                           const void* chunk_end, int chunk, int grid_w, int n_tiles,
                           void* dprops, void* stream) {
-  const cudaError_t err = replay_smem_opt_in(stream_bwd_kernel, smem_opted_in);
-  if (err != cudaSuccess) return (int)err;
-  // n_tiles + 1 blocks: block n_tiles zeroes the trash chunks.
-  stream_bwd_kernel<<<n_tiles + 1, kPixels, kReplaySmemBytes, (cudaStream_t)stream>>>(
-      (const float4*)props, (const float*)tiledata, (const int*)chunk_start,
-      (const int*)chunk_end, chunk, grid_w, n_tiles, (float4*)dprops);
-  return (int)cudaGetLastError();
+  return launch<false>(props, tiledata, chunk_start, chunk_end, chunk, grid_w, n_tiles, dprops, stream);
+}
+
+// precision="bf16": the same replay on the bf16 tile-local rows the forward
+// read (the autograd node saves them), float32 gradient rows out.
+extern "C" int stream_bwd_bf16(const void* props, const void* tiledata, const void* chunk_start,
+                               const void* chunk_end, int chunk, int grid_w, int n_tiles,
+                               void* dprops, void* stream) {
+  return launch<true>(props, tiledata, chunk_start, chunk_end, chunk, grid_w, n_tiles, dprops, stream);
 }
 
 extern "C" const char* gt_cuda_error_string(int code) {

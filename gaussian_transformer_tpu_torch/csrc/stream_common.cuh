@@ -10,6 +10,7 @@
 // operation order.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace stream_common {
@@ -175,11 +176,60 @@ __device__ __forceinline__ void walk_batch(const FwdBatch& b, int n, float px, f
 // parameters: so K1 and K5 compile to the machine code they had before K7
 // shared the walk (a stager object renumbered their registers). The row
 // layout's (K1, K5): rows of 16 floats from src, means shifted by (ox, oy).
+// kRowVecs is a row's stride in Src elements; kTileLocal says the rows'
+// means are already in the tile's frame (the caller passes origin 0).
 struct RowStager {
   using Src = const float4*;
+  static constexpr int kRowVecs = kRowV;
+  static constexpr bool kTileLocal = false;
   static __device__ __forceinline__ void stage(FwdBatch& b, const float4* __restrict__ src, int base, int n,
                                                int tid, float ox, float oy) {
     stage_batch(b, src + (size_t)base * kRowV, n, tid, ox, oy);
+  }
+};
+
+// The bf16 row layout (K1 and K2 at precision="bf16"): a row is the 16
+// columns as bf16, 32 bytes, two uint4, with means already tile-local (the
+// wrapper shifted them in float32 before rounding, stream.py kernel_props).
+// A row is widened to float32 exactly (__bfloat162float) at staging, so
+// everything after staging is the float32 code path.
+constexpr int kRowBf16V = 2;  // uint4 per bf16 row
+
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(w & 0xffffu)));
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(w >> 16)));
+}
+
+// Row r of a bf16 stream as float32: v0 = (x, y, a, b), v1 = (c, r, g, b),
+// and the opacity (column 8). Two 16-byte loads.
+__device__ __forceinline__ void load_bf16_row(const uint4* __restrict__ row, float4& v0, float4& v1,
+                                              float& opac) {
+  const uint4 lo = __ldg(row), hi = __ldg(row + 1);
+  v0 = make_float4(bf16_lo(lo.x), bf16_hi(lo.x), bf16_lo(lo.y), bf16_hi(lo.y));
+  v1 = make_float4(bf16_lo(lo.z), bf16_hi(lo.z), bf16_lo(lo.w), bf16_hi(lo.w));
+  opac = bf16_lo(hi.x);
+}
+
+// The bf16 layout's stager (K1 at precision="bf16"): thread k widens row k
+// and writes its raw slots and its head. The origin is 0 and fl(x - 0) = x,
+// so the head holds x and y as widened; zero rows (sentinels, shifted to
+// x = -ox with opacity 0) get the skip floor +inf, as in the float32 walk.
+struct Bf16RowStager {
+  using Src = const uint4*;
+  static constexpr int kRowVecs = kRowBf16V;
+  static constexpr bool kTileLocal = true;
+  static __device__ __forceinline__ void stage(FwdBatch& b, const uint4* __restrict__ src, int base, int n,
+                                               int tid, float, float) {
+    if (tid < n) {
+      float4 v0, v1;
+      float opac;
+      load_bf16_row(src + (size_t)(base + tid) * kRowBf16V, v0, v1, opac);
+      b.raw[2 * tid] = v0;
+      b.raw[2 * tid + 1] = v1;
+      b.head[tid] = make_float4(v0.x, v0.y, skip_floor(opac), opac);
+    }
   }
 };
 

@@ -32,7 +32,15 @@
 // The per-pair arithmetic is stream_common.cuh's, shared with the backward
 // (stream_bwd.cu), which replays this walk bit for bit.
 //
-// Property row layout (16 floats): x, y, conic a, b, c, r, g, b, opacity, pad.
+// precision="bf16" (stream_fwd_bf16) replaces the same TPU kernel in its
+// local_coords mode (stream.py:783, rows from _kernel_props :751): the rows
+// arrive as bf16, already in the tile's frame, and Bf16RowStager widens them
+// to float32 at staging; the walk and its accumulators are the float32
+// path's. It halves the row bytes (32 instead of 64), but the kernel is
+// bound by operations, so the bytes are not what limits it.
+//
+// Property row layout (16 floats, or 16 bf16): x, y, conic a, b, c, r, g, b,
+// opacity, pad.
 
 #include <cuda_runtime.h>
 
@@ -42,30 +50,48 @@ namespace {
 
 using namespace stream_common;
 
+// One block per tile; Stager is the row layout: RowStager (float32 rows,
+// means shifted by the tile's origin at staging) or Bf16RowStager (bf16
+// tile-local rows, origin 0).
+template <typename Stager>
 __global__ void __launch_bounds__(kPixels) stream_fwd_kernel(
-    const float4* __restrict__ props, const int* __restrict__ row_start,
+    typename Stager::Src __restrict__ props, const int* __restrict__ row_start,
     const int* __restrict__ row_end, int grid_w, float* __restrict__ color,
     float* __restrict__ final_t) {
   __shared__ FwdBatch buf;
   const int t = blockIdx.x;
   const int p = fwd_pixel(threadIdx.x);
   const int r0 = row_start[t];
-  forward_walk<RowStager>(buf, props + (size_t)r0 * kRowV, row_end[t] - r0,
-                          (float)((t % grid_w) * kTile), (float)((t / grid_w) * kTile), p,
-                          (float)(p % kTile), (float)(p / kTile), color + (size_t)t * 3 * kPixels,
-                          final_t + (size_t)t * kPixels);
+  const float ox = Stager::kTileLocal ? 0.0f : (float)((t % grid_w) * kTile);
+  const float oy = Stager::kTileLocal ? 0.0f : (float)((t / grid_w) * kTile);
+  forward_walk<Stager>(buf, props + (size_t)r0 * Stager::kRowVecs, row_end[t] - r0, ox, oy, p,
+                       (float)(p % kTile), (float)(p / kTile), color + (size_t)t * 3 * kPixels,
+                       final_t + (size_t)t * kPixels);
+}
+
+template <typename Stager>
+int launch(const void* props, const void* row_start, const void* row_end, int grid_w, int n_tiles,
+           void* color, void* final_t, void* stream) {
+  if (n_tiles > 0) {
+    stream_fwd_kernel<Stager><<<n_tiles, kPixels, 0, (cudaStream_t)stream>>>(
+        (typename Stager::Src)props, (const int*)row_start, (const int*)row_end, grid_w, (float*)color,
+        (float*)final_t);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int stream_fwd(const void* props, const void* row_start, const void* row_end, int grid_w,
                           int n_tiles, void* color, void* final_t, void* stream) {
-  if (n_tiles > 0) {
-    stream_fwd_kernel<<<n_tiles, kPixels, 0, (cudaStream_t)stream>>>(
-        (const float4*)props, (const int*)row_start, (const int*)row_end, grid_w, (float*)color,
-        (float*)final_t);
-  }
-  return (int)cudaGetLastError();
+  return launch<RowStager>(props, row_start, row_end, grid_w, n_tiles, color, final_t, stream);
+}
+
+// precision="bf16": the same walk on bf16 tile-local rows [I_pad, 16] (32
+// bytes a row, 16-byte aligned).
+extern "C" int stream_fwd_bf16(const void* props, const void* row_start, const void* row_end,
+                               int grid_w, int n_tiles, void* color, void* final_t, void* stream) {
+  return launch<Bf16RowStager>(props, row_start, row_end, grid_w, n_tiles, color, final_t, stream);
 }
 
 extern "C" const char* gt_cuda_error_string(int code) {

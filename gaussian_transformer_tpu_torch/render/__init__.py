@@ -1,5 +1,5 @@
 """Tile-based Gaussian-splat renderer (port of
-``gaussian_transformer_tpu/render/__init__.py``: the fp32 paths).
+``gaussian_transformer_tpu/render/__init__.py``).
 
 ``render(camera, scene, ...)`` returns the reference's dict: ``render``
 [3, H, W], ``viewspace_points``, ``visibility_filter``, ``radii``, plus the
@@ -7,17 +7,22 @@
 ``n_tiles`` on the stream path). Pipeline: project (project.py), then
 
 - ``use_stream=True`` (default): padded-CSR binning (tiles.bin_stream), then
-  the stream compositor (stream.py, kernels K1 and K2 on CUDA);
+  the stream compositor (stream.py, kernels K1 and K2 on CUDA; with
+  ``precision="bf16"`` their bf16 entry points on bf16 tile-local rows);
 - ``use_stream=False``: depth sort and per-tile [T, max_per_tile] lists
   (tiles.bin_gaussians), then the table compositor (table_composite.py,
-  kernels K5 and K6 on CUDA).
+  kernels K5 and K6 on CUDA); ``precision`` is not read there, as in the
+  reference;
+- ``use_pallas=False``, whatever ``use_stream`` says: the table binning,
+  then the reference's non-Pallas compositor (composite.py: tensor ops in
+  blocks of ``tile_block`` tiles, differentiated by autograd).
 
 ``render`` is differentiable in the scene's parameters and in
 ``screenspace_offset`` (the screen-space gradient the densification reads).
 ``render_naive`` is the brute-force golden model the tests hold it against.
 
-Not yet ported: ``precision="bf16"`` and ``use_pallas=False`` (the
-reference's plain XLA compositor) raise ``NotImplementedError``.
+``layout="transposed"`` raises on the stream path, as in the reference; that
+layout (kernels K7 and K8) is ``attic/stream_t.py stream_image_t``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from gaussian_transformer_tpu_torch.render.composite import composite_image
 from gaussian_transformer_tpu_torch.render.project import Projected, project_gaussians
 from gaussian_transformer_tpu_torch.render.stream import (
     pack_props,
@@ -53,8 +59,7 @@ __all__ = ["render", "render_naive", "RenderConfig", "TILE", "tune_config", "pre
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Rasterizer configuration: the reference's fields (and defaults) that
-    the ported paths read, plus ``use_pallas`` and ``precision``, whose
-    False and "bf16" are not ported yet and raise."""
+    the ported paths read."""
 
     # Static per-tile list capacity of the table path; overflow drops the
     # farthest Gaussians of a tile.
@@ -69,11 +74,16 @@ class RenderConfig:
     max_stream: int = 0
     # Stream layout granularity (rows per chunk); 0 = the reference's policy.
     chunk: int = 0
+    # Tiles per block of the use_pallas=False compositor (composite.py).
+    tile_block: int = 64
     # Compositor kernels: the padded-CSR stream (True) or the [T, K] table.
     use_stream: bool = True
-    # Not ported yet; False (the plain XLA compositor) raises NotImplementedError.
+    # False: the table binning and the reference's non-Pallas compositor
+    # (composite.py), whatever use_stream says.
     use_pallas: bool = True
-    # Not ported yet; anything but "fp32" raises NotImplementedError.
+    # The stream compositor's rows: "bf16" (tile-local means rounded to
+    # bf16, float32 arithmetic; a lossy mode), else float32. The table paths
+    # do not read it.
     precision: str = "fp32"
     # Stream layout: "rows" ([I_pad, 16]). The stream path raises for
     # "transposed" as the reference does; that layout ([16, I_pad], kernels
@@ -145,13 +155,6 @@ def tune_config(cfg: RenderConfig, probe, headroom: float = 0.0, floor: int = 81
     return cfg
 
 
-def _check_supported(cfg: RenderConfig) -> None:
-    if not cfg.use_pallas:
-        raise NotImplementedError("use_pallas=False (the plain XLA compositor) is on the port's roadmap")
-    if cfg.precision != "fp32":
-        raise NotImplementedError(f"precision={cfg.precision!r} is not ported yet (fp32 only)")
-
-
 def project_view(viewpoint_camera, pc, scaling_modifier=1.0, override_color=None) -> Projected:
     """Project a scene's (activated) Gaussians for one camera."""
     shs = None if override_color is not None else pc.get_features
@@ -200,7 +203,6 @@ class StreamInputs(NamedTuple):
 def _project_for_binning(viewpoint_camera, pc, cfg, scaling_modifier, override_color,
                          screenspace_offset):
     """(proj, screen means with the offset, include mask, grid_w, grid_h)."""
-    _check_supported(cfg)
     proj = project_view(viewpoint_camera, pc, scaling_modifier, override_color)
     means2d = proj.means2d
     if screenspace_offset is not None:
@@ -294,18 +296,26 @@ def render(
     dev = pc.get_xyz.device
     bg = torch.zeros(3, device=dev) if bg_color is None else torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
     args = (viewpoint_camera, pc, cfg, scaling_modifier, override_color, screenspace_offset)
-    if cfg.use_stream:
+    if cfg.use_pallas and cfg.use_stream:
         s = prepare_stream(*args)
         p = s.proj
         img_pad, t_pad = stream_image(
-            s.binned, s.means2d, p.conics, p.rgbs, p.opacities, bg, grid_w=s.grid_w, grid_h=s.grid_h
+            s.binned, s.means2d, p.conics, p.rgbs, p.opacities, bg, grid_w=s.grid_w, grid_h=s.grid_h,
+            # As in the reference, only "bf16" selects the bf16 rows.
+            precision="bf16" if cfg.precision == "bf16" else "fp32",
         )
         extra = {"n_padded": s.binned.n_padded, "n_tiles": s.grid_w * s.grid_h}
-    else:
+    elif cfg.use_pallas:
         # The reference's composite_image_pallas: build the table, K5, blend.
         s = prepare_table(*args)
         color, final_t = composite_table_tiles(s.props(), s.binned.tile_counts, s.grid_w)
         img_pad, t_pad = tiles_to_image(color, final_t, None, bg, grid_w=s.grid_w, grid_h=s.grid_h)
+        extra = {}
+    else:
+        # The reference's composite_image on the same depth-sorted lists.
+        s = prepare_table(*args)
+        img_pad, t_pad = composite_image(s.binned.tile_lists, *s.sorted_props(), bg, grid_w=s.grid_w,
+                                         grid_h=s.grid_h, tile_block=cfg.tile_block)
         extra = {}
     H, W = viewpoint_camera.image_height, viewpoint_camera.image_width
     return {

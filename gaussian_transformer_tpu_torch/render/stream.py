@@ -22,9 +22,23 @@ in shared memory: the walk stores each pixel's (g_power, w) per row, then
 segments without a contributing pixel, and join a row's 8 partials with
 three shuffle levels (fixed order, no atomics: a row belongs to one tile).
 
+``precision="bf16"`` (the reference's bf16 property stream,
+``render/stream.py:159-165,751-753``): ``kernel_props`` shifts each row's
+mean into its tile's frame in float32 (``localize_props``), then rounds the
+rows to bf16, so the 8-bit mantissa spans the tile (screen coordinates up
+to 1920 would keep whole pixels only). Its entry points
+``stream_fwd_bf16`` and ``stream_bwd_bf16`` are K1's and K2's kernels on a
+bf16 row stager (``csrc/stream_common.cuh Bf16RowStager``): the rows are
+32 bytes instead of 64, the walk, its arithmetic and the accumulators stay
+float32. They stay bound by operations (the row's bytes are shared by 256
+pixels), so halving the bytes is not expected to make them faster. The
+backward replays the bf16 rows the forward saved and returns the float32
+rows' gradient (the shift is a translation).
+
 ``composite_stream_tiles`` launches K1 (and K2 in its backward) for CUDA
 tensors and uses the plain PyTorch versions, ``composite_stream_tiles_plain``
-and ``composite_stream_tiles_bwd_plain``, only for CPU tensors.
+and ``composite_stream_tiles_bwd_plain``, only for CPU tensors. The plain
+versions take bf16 rows as tile-local (origin 0) and upcast them.
 ``stream_gather`` pulls the stream's gradient rows back to the Gaussians by a
 deterministic sum over each Gaussian's instance range (a float64 prefix sum).
 
@@ -60,6 +74,12 @@ STREAM_BWD = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 )
+# precision="bf16": the same kernels on bf16 tile-local rows, each with its
+# own launch counter.
+STREAM_FWD_BF16 = CudaKernel("stream_fwd.cu", "stream_fwd_bf16", STREAM_FWD.argtypes)
+STREAM_BWD_BF16 = CudaKernel("stream_bwd.cu", "stream_bwd_bf16", STREAM_BWD.argtypes)
+# The kernels' row type by precision.
+ROW_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 # Columns of a gradient row that can be non-zero (x .. opacity).
 GRAD_F = 9
 
@@ -72,6 +92,35 @@ def pack_props(means2d, conics, rgbs, opac):
         [means2d, conics, rgbs, opac[:, None], means2d.new_zeros(C, PROPS_F - 9)], dim=1
     )
     return torch.cat([cols, cols.new_zeros(1, PROPS_F)], dim=0)
+
+
+def _local_xy(props, chunk_tile, grid_w: int, chunk: int):
+    """[I_pad, 2] columns x, y minus the origin ((t % grid_w) * 16,
+    (t // grid_w) * 16) of the tile t of their chunk, in the rows' type."""
+    t = chunk_tile.long()[:, None]
+    origin = torch.cat([t % grid_w, t // grid_w], dim=1).to(props.dtype) * TILE  # [G, 2]
+    return (props[:, :2].reshape(-1, chunk, 2) - origin[:, None, :]).reshape(-1, 2)
+
+
+def localize_props(props, chunk_tile, grid_w: int, chunk: int):
+    """The rows with x, y shifted into their tile's frame, in float32, every
+    row (the trash tile's included), as the reference's ``_localize_props``
+    does. The shift is a translation: the gradient passes through it
+    unchanged."""
+    return torch.cat([_local_xy(props, chunk_tile, grid_w, chunk), props[:, 2:]], dim=1)
+
+
+def kernel_props(props, chunk_tile, grid_w: int, precision: str):
+    """The rows as the compositor kernels read them: the float32 rows for
+    "fp32"; for "bf16" ``localize_props`` rounded to bf16 (to nearest even,
+    as the reference's ``astype``): x and y are shifted in float32 and
+    rounded after the shift, never before; the other columns are rounded
+    as they are (one cast, then two columns overwritten)."""
+    if precision != "bf16":
+        return props
+    rows = props.to(torch.bfloat16)
+    rows[:, :2] = _local_xy(props, chunk_tile, grid_w, props.shape[0] // chunk_tile.shape[0]).to(torch.bfloat16)
+    return rows
 
 
 def instance_pullback(g, pos, rows, gauss_offsets, gauss_cov):
@@ -241,7 +290,10 @@ def _plain_rounds(props, chunk_tile, grid_w, grid_h, absolute=False):
     tile's run at once, with the reference's scan-free termination, carrying
     T and a live flag per tile-pixel between rounds. Yields a ``_Round``.
     Means and pixel centers are tile-local (K1, K2), or with ``absolute``
-    the screen's (the transposed kernels K7, K8)."""
+    the screen's (the transposed kernels K7, K8). bf16 rows are already
+    tile-local (``kernel_props``): upcast, origin 0."""
+    local = props.dtype == torch.bfloat16
+    props = props.float()
     I_pad = props.shape[0]
     chunk = I_pad // chunk_tile.shape[0]
     T = grid_w * grid_h
@@ -273,6 +325,10 @@ def _plain_rounds(props, chunk_tile, grid_w, grid_h, absolute=False):
             x, y = rows[..., 0:1], rows[..., 1:2]
             dx = x - (ox[tiles, None, None] + px)
             dy = y - (oy[tiles, None, None] + py)
+        elif local:
+            x, y = rows[..., 0:1], rows[..., 1:2]
+            dx = x - px
+            dy = y - py
         else:
             x = rows[..., 0:1] - ox[tiles, None, None]
             y = rows[..., 1:2] - oy[tiles, None, None]
@@ -306,7 +362,8 @@ def walked_pairs(rows, lv, trigger):
 
 
 def composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h, count_work=False, absolute=False):
-    """Plain PyTorch version of K1: (color [T, 3, P], final_T [T, 1, P]).
+    """Plain PyTorch version of K1: (color [T, 3, P], final_T [T, 1, P]),
+    from float32 rows or, as K1's bf16 entry point, bf16 tile-local rows.
 
     ``count_work=True`` also returns (walked, contributing) for roofline
     accounting: the (row, pixel) pairs a sequential walk evaluates (real rows
@@ -332,7 +389,8 @@ def composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h, count_work=F
 
 def composite_stream_tiles_bwd_plain(props, chunk_tile, grid_w, grid_h, color, final_t,
                                      g_color, g_t):
-    """Plain PyTorch version of K2: dprops [I_pad, 16] from the forward's
+    """Plain PyTorch version of K2: float32 dprops [I_pad, 16] from float32
+    or bf16 tile-local rows (K2's bf16 entry point) and the forward's
     outputs (color = C_total [T, 3, P], final_T [T, 1, P]) and their
     cotangents, replaying the plain forward's rounds with the reference
     kernel's formulas (stream.py:505-621): the suffix sums of the color
@@ -345,7 +403,7 @@ def composite_stream_tiles_bwd_plain(props, chunk_tile, grid_w, grid_h, color, f
                   + g_color[:, 2:3] * color[:, 2:3])  # [T, 1, P]
     gt_final = g_t * final_t
     pref = torch.zeros(T, 1, P, dtype=torch.float32, device=props.device)
-    dprops = torch.zeros_like(props)
+    dprops = torch.zeros(props.shape, dtype=torch.float32, device=props.device)
     rs = lambda v: v.sum(dim=2, keepdim=True)  # [Ta, B, P] -> [Ta, B, 1]
     for rd in _plain_rounds(props, chunk_tile, grid_w, grid_h):
         x, y, alpha, t_in = rd.x, rd.y, rd.alpha, rd.t_in
@@ -382,40 +440,47 @@ def composite_stream_tiles_bwd_plain(props, chunk_tile, grid_w, grid_h, color, f
 class _StreamComposite(torch.autograd.Function):
     """K1 forward and K2 backward on CUDA tensors; the plain versions on CPU
     tensors (which walk each run to its padded end: the sentinel rows past
-    its real count change nothing). Saves the stream rows and the forward's
-    outputs (the backward's C_total and T_final)."""
+    its real count change nothing). Saves the rows in the kernels' precision
+    (bf16: half the bytes; the backward replays exactly the rows the forward
+    read) and the forward's outputs (the backward's C_total and T_final)."""
 
     @staticmethod
-    def forward(ctx, props, chunk_tile, tile_counts, grid_w, grid_h):
+    def forward(ctx, props, chunk_tile, tile_counts, grid_w, grid_h, precision):
+        props_k = kernel_props(props, chunk_tile, grid_w, precision)
         if props.is_cuda:
-            color, final_t = _launch_stream_fwd(props, chunk_tile, tile_counts, grid_w, grid_h)
+            color, final_t = _launch_stream_fwd(props_k, chunk_tile, tile_counts, grid_w, grid_h, precision)
         else:
-            color, final_t = composite_stream_tiles_plain(props, chunk_tile, grid_w, grid_h)
-        ctx.save_for_backward(props, chunk_tile, color, final_t)
+            color, final_t = composite_stream_tiles_plain(props_k, chunk_tile, grid_w, grid_h)
+        ctx.save_for_backward(props_k, chunk_tile, color, final_t)
         ctx.grid = (grid_w, grid_h)
+        ctx.precision = precision
         return color, final_t
 
     @staticmethod
     def backward(ctx, g_color, g_t):
-        props, chunk_tile, color, final_t = ctx.saved_tensors
+        props_k, chunk_tile, color, final_t = ctx.saved_tensors
         grid_w, grid_h = ctx.grid
         g_color = torch.zeros_like(color) if g_color is None else g_color
         g_t = torch.zeros_like(final_t) if g_t is None else g_t
-        if props.is_cuda:
-            dprops = _launch_stream_bwd(props, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t)
+        if props_k.is_cuda:
+            dprops = _launch_stream_bwd(props_k, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t,
+                                        ctx.precision)
         else:
             dprops = composite_stream_tiles_bwd_plain(
-                props, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t
+                props_k, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t
             )
-        return dprops, None, None, None, None
+        return dprops, None, None, None, None, None
 
 
-def _checked_props(props, chunk_tile):
+def _checked_props(props, chunk_tile, precision="fp32"):
     """The stream rows as the kernels read them: contiguous, 16-byte aligned
-    float32 [I_pad, 16], a whole number of chunks, on chunk_tile's device."""
+    [I_pad, 16] of the precision's type (float32, or bf16 for "bf16"), a
+    whole number of chunks, on chunk_tile's device."""
     G = chunk_tile.shape[0]
-    if props.dtype != torch.float32 or props.ndim != 2 or props.shape[1] != PROPS_F:
-        raise ValueError(f"props must be float32 [I_pad, {PROPS_F}], got {props.dtype} {tuple(props.shape)}")
+    dtype = _row_dtype(precision)
+    if props.dtype != dtype or props.ndim != 2 or props.shape[1] != PROPS_F:
+        raise ValueError(f"props must be {dtype} [I_pad, {PROPS_F}] for precision={precision!r}, "
+                         f"got {props.dtype} {tuple(props.shape)}")
     if G == 0 or props.shape[0] % G:
         raise ValueError(f"{props.shape[0]} stream rows do not split into {G} chunks")
     if chunk_tile.device != props.device:
@@ -426,18 +491,25 @@ def _checked_props(props, chunk_tile):
     return props
 
 
-def _launch_stream_fwd(props, chunk_tile, tile_counts, grid_w, grid_h):
+def _row_dtype(precision):
+    if precision not in ROW_DTYPES:
+        raise ValueError(f"precision must be one of {sorted(ROW_DTYPES)}, got {precision!r}")
+    return ROW_DTYPES[precision]
+
+
+def _launch_stream_fwd(props, chunk_tile, tile_counts, grid_w, grid_h, precision="fp32"):
     """K1: (color [T, 3, P], final_T [T, 1, P]), each run walked to its last
-    real row."""
+    real row; ``precision="bf16"``: ``stream_fwd_bf16`` on the bf16
+    tile-local rows of ``kernel_props``."""
     T = grid_w * grid_h
     G = chunk_tile.shape[0]
-    props = _checked_props(props, chunk_tile)
+    props = _checked_props(props, chunk_tile, precision)
     _check_counts(tile_counts, T, props.device)
     row_start, row_end = real_row_ranges(chunk_tile.to(torch.int32).contiguous(), tile_counts, T,
                                          props.shape[0] // G)
     color = torch.empty(T, 3, P, dtype=torch.float32, device=props.device)
     final_t = torch.empty(T, 1, P, dtype=torch.float32, device=props.device)
-    STREAM_FWD.launch(
+    (STREAM_FWD_BF16 if precision == "bf16" else STREAM_FWD).launch(
         props.data_ptr(), row_start.data_ptr(), row_end.data_ptr(), grid_w, T,
         color.data_ptr(), final_t.data_ptr(), torch.cuda.current_stream(props.device).cuda_stream,
     )
@@ -450,11 +522,12 @@ def _check_counts(tile_counts, n_tiles, device):
                          f"{tile_counts.dtype} {tuple(tile_counts.shape)} on {tile_counts.device}")
 
 
-def _launch_stream_bwd(props, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t):
-    """K2: dprops [I_pad, 16] from K1's outputs and their cotangents."""
+def _launch_stream_bwd(props, chunk_tile, grid_w, grid_h, color, final_t, g_color, g_t, precision="fp32"):
+    """K2: float32 dprops [I_pad, 16] from K1's rows (``kernel_props``), its
+    outputs and their cotangents; ``precision="bf16"``: ``stream_bwd_bf16``."""
     T = grid_w * grid_h
     G = chunk_tile.shape[0]
-    props = _checked_props(props, chunk_tile)
+    props = _checked_props(props, chunk_tile, precision)
     for name, v, rows in (("color", color, 3), ("final_t", final_t, 1), ("g_color", g_color, 3),
                           ("g_t", g_t, 1)):
         if tuple(v.shape) != (T, rows, P) or v.device != props.device:
@@ -464,8 +537,8 @@ def _launch_stream_bwd(props, chunk_tile, grid_w, grid_h, color, final_t, g_colo
     pad1 = lambda v: torch.cat([v.float(), v.new_zeros(1, *v.shape[1:])], dim=0)
     tiledata = torch.cat([pad1(color), pad1(final_t), pad1(g_color), pad1(g_t)], dim=1).contiguous()
     start, end = tile_chunk_ranges(chunk_tile.to(torch.int32).contiguous(), T + 1)
-    dprops = torch.empty_like(props)
-    STREAM_BWD.launch(
+    dprops = torch.empty(props.shape, dtype=torch.float32, device=props.device)
+    (STREAM_BWD_BF16 if precision == "bf16" else STREAM_BWD).launch(
         props.data_ptr(), tiledata.data_ptr(), start.data_ptr(), end.data_ptr(),
         props.shape[0] // G, grid_w, T, dprops.data_ptr(),
         torch.cuda.current_stream(props.device).cuda_stream,
@@ -473,24 +546,32 @@ def _launch_stream_bwd(props, chunk_tile, grid_w, grid_h, color, final_t, g_colo
     return dprops
 
 
-def composite_stream_tiles(props, chunk_tile, tile_counts, grid_w, grid_h) -> Tuple[torch.Tensor, torch.Tensor]:
+def composite_stream_tiles(props, chunk_tile, tile_counts, grid_w, grid_h,
+                           precision: str = "fp32") -> Tuple[torch.Tensor, torch.Tensor]:
     """(color [T, 3, P], final_T [T, 1, P]) pre-background, differentiable in
-    ``props``; ``tile_counts`` [T] are the real rows of each tile's run
-    (``StreamBinned.tile_counts``), where K1 ends the run. CUDA tensors go
-    through kernels K1 and K2; CPU tensors through the plain versions."""
+    the float32 ``props``; ``tile_counts`` [T] are the real rows of each
+    tile's run (``StreamBinned.tile_counts``), where K1 ends the run. CUDA
+    tensors go through kernels K1 and K2 (``precision="bf16"``: their bf16
+    entry points, on ``kernel_props``); CPU tensors through the plain
+    versions."""
     if not (props.is_cuda or props.device.type == "cpu"):
         raise ValueError(f"no stream compositor for device {props.device}")
+    if props.dtype != torch.float32:
+        raise ValueError(f"props must be float32 (precision={precision!r} rounds them itself), got {props.dtype}")
+    _row_dtype(precision)
     _check_counts(tile_counts, grid_w * grid_h, props.device)
-    return _StreamComposite.apply(props, chunk_tile, tile_counts, grid_w, grid_h)
+    return _StreamComposite.apply(props, chunk_tile, tile_counts, grid_w, grid_h, precision)
 
 
-def stream_image(binned, means2d, conics, rgbs, opac, bg, *, grid_w: int, grid_h: int):
+def stream_image(binned, means2d, conics, rgbs, opac, bg, *, grid_w: int, grid_h: int,
+                 precision: str = "fp32"):
     """Padded image [3, H_pad, W_pad] + transmittance map [H_pad, W_pad] from
     the instance stream. The property arrays are in the original per-Gaussian
-    order that ``binned.stream_gauss`` indexes."""
+    order that ``binned.stream_gauss`` indexes; ``precision`` is the
+    compositor's row type ("fp32" or "bf16")."""
     stream_gauss, chunk_tile = used_stream(binned)
     props = stream_gather(pack_props(means2d, conics, rgbs, opac), binned, stream_gauss)
-    color, final_t = composite_stream_tiles(props, chunk_tile, binned.tile_counts, grid_w, grid_h)
+    color, final_t = composite_stream_tiles(props, chunk_tile, binned.tile_counts, grid_w, grid_h, precision)
     return tiles_to_image(color, final_t, binned.covered, bg, grid_w=grid_w, grid_h=grid_h)
 
 

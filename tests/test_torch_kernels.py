@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels (K1-K9) against their plain PyTorch
-versions, on the card only (marker ``gpu``; each test skips without a CUDA
+"""The port's hand-written CUDA kernels (K1-K9, and K1/K2's bf16 entry
+points) against their plain PyTorch versions, on the card only (marker ``gpu``; each test skips without a CUDA
 device), and on the CPU the plain replay backwards on the kernels' edge cases
 and the plain forwards on the skip-floor sweep.
 
@@ -94,6 +94,110 @@ def test_stream_kernel_saturated_and_empty(cuda):
         out = render(_camera(64, 48, cuda), empty, bg_color=torch.tensor([0.2, 0.4, 0.6]))
         assert torch.allclose(out["render"][:, 0, 0].cpu(), torch.tensor([0.2, 0.4, 0.6]))
         assert float(out["final_T"].min()) == 1.0
+
+
+def _bf16_stream(s):
+    """(float32 rows, bf16 tile-local rows, chunk_tile) of a stream."""
+    props = s.props()
+    return props, stream.kernel_props(props, s.chunk_tile, s.grid_w, "bf16"), s.chunk_tile
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,height,chunk", [(160, 112, 0), (1920, 1080, 64), (200, 90, 128)])
+def test_bf16_stream_kernels_match_plain(cuda, width, height, chunk):
+    """``stream_fwd_bf16`` and ``stream_bwd_bf16`` against their plain
+    versions on the same bf16 rows, at K1's and K2's rules; each launch
+    counts on its own counter, never on the float32 kernels'."""
+    with torch.no_grad():
+        s = prepare_stream(_camera(width, height, cuda), _scene(4000, 1, cuda), RenderConfig(chunk=chunk))
+        _, rows, ct = _bf16_stream(s)
+        counts = s.binned.tile_counts
+        before = (stream.STREAM_FWD.launches, stream.STREAM_BWD.launches, stream.STREAM_FWD_BF16.launches,
+                  stream.STREAM_BWD_BF16.launches)
+        color, t = stream._launch_stream_fwd(rows, ct, counts, s.grid_w, s.grid_h, "bf16")
+        gen = torch.Generator(cuda).manual_seed(width)
+        g_color = torch.randn(color.shape, generator=gen, device=cuda)
+        g_t = torch.randn(t.shape, generator=gen, device=cuda)
+        got = stream._launch_stream_bwd(rows, ct, s.grid_w, s.grid_h, color, t, g_color, g_t, "bf16")
+        torch.cuda.synchronize()
+        after = (stream.STREAM_FWD.launches, stream.STREAM_BWD.launches, stream.STREAM_FWD_BF16.launches,
+                 stream.STREAM_BWD_BF16.launches)
+        assert after == (before[0], before[1], before[2] + 1, before[3] + 1)
+        p_color, p_t = stream.composite_stream_tiles_plain(rows, ct, s.grid_w, s.grid_h)
+        cov = s.binned.covered
+        err = torch.cat([(color - p_color)[cov].flatten(), (t - p_t)[cov].flatten()]).abs()
+        assert float(err.max()) <= 1e-3
+        assert float((err > K1_ATOL).float().mean()) <= 1e-4
+        ref = stream.composite_stream_tiles_bwd_plain(rows, ct, s.grid_w, s.grid_h, color, t, g_color, g_t)
+        assert got.dtype == torch.float32 and ref.dtype == torch.float32
+        scale = float(ref.abs().max())
+        assert scale > 0
+        err = (got - ref).abs()
+        assert float(err.max()) <= 1e-3 * scale
+        assert float((err > 2e-4 * scale).float().mean()) <= 1e-4
+        assert torch.all(got[:, stream.GRAD_F:] == 0)
+
+
+@pytest.mark.gpu
+def test_bf16_render_close_to_fp32_on_card(cuda):
+    """The bf16 render on the card: the reference's bf16 image rule (PSNR
+    > 40 dB) against the float32 render; with ``-s`` it prints the largest
+    difference (the reference's 0.03 at its 80x48 size) and each gradient's
+    largest difference of the largest (its 0.12 rule), and the share within
+    5%. The gradient goes through ``stream_bwd_bf16``, the float32 kernels
+    run only for the float32 render."""
+    cam = _camera(640, 360, cuda)
+    scene = _scene(8000, 7, cuda)
+    out, grads = {}, {}
+    for prec in ("fp32", "bf16"):
+        offset = torch.zeros(scene.capacity, 2, device=cuda, requires_grad=True)
+        before = stream.STREAM_BWD_BF16.launches
+        r = render(cam, scene, RenderConfig(precision=prec), bg_color=torch.tensor([0.2, 0.1, 0.3], device=cuda),
+                   screenspace_offset=offset)
+        loss = torch.sum(r["render"] ** 2) + 0.1 * torch.sum(r["final_T"])
+        leaves = [scene.xyz, scene.opacity, scene.scaling, scene.features_dc, offset]
+        grads[prec] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        assert stream.STREAM_BWD_BF16.launches == before + (prec == "bf16")
+        out[prec] = torch.clamp(r["render"].detach(), 0, 1)
+    mse = ((out["bf16"] - out["fp32"]) ** 2).mean(dim=(1, 2))
+    psnr = float((20 * torch.log10(1.0 / torch.sqrt(mse))).mean())
+    diff = float((out["bf16"] - out["fp32"]).abs().max())
+    print(f"bf16 vs fp32 render, 640x360, 8000 Gaussians: PSNR {psnr:.2f} dB, max abs diff {diff:.4f}")
+    assert psnr > 40.0
+    for name, a, b in zip(["xyz", "opacity", "scaling", "features_dc", "offset"], grads["fp32"], grads["bf16"]):
+        assert torch.all(torch.isfinite(b)), name
+        scale = float(a.abs().max())
+        rel = float((b - a).abs().max()) / scale
+        tight = float(((b - a).abs() <= 0.05 * scale).float().mean())
+        print(f"  {name}: max diff {rel:.4f} of the largest, {tight:.4f} within 5%")
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_reject_bad_inputs(cuda):
+    """Float32 rows in bf16 mode (and bf16 rows in float32 mode), rows not
+    16-byte aligned, rows that do not split into chunks: each raises before
+    a launch."""
+    ct = torch.zeros(2, dtype=torch.int32, device=cuda)
+    counts = torch.full((1,), 64, dtype=torch.int32, device=cuda)
+    rows32 = torch.zeros(64, 16, device=cuda)
+    rows16 = rows32.to(torch.bfloat16)
+    flat = torch.zeros(64 * 16 + 4, dtype=torch.bfloat16, device=cuda)
+    misaligned = flat[4:].view(64, 16)  # 8 bytes past a 16-byte boundary
+    assert misaligned.data_ptr() % 16 == 8
+    t = torch.zeros(1, 1, 256, device=cuda)
+    c = torch.zeros(1, 3, 256, device=cuda)
+    before = (stream.STREAM_FWD_BF16.launches, stream.STREAM_BWD_BF16.launches)
+    for rows, prec in ((rows32, "bf16"), (rows16, "fp32"), (misaligned, "bf16"), (rows16[:63], "bf16")):
+        with pytest.raises(ValueError):
+            stream._launch_stream_fwd(rows, ct, counts, 1, 1, prec)
+        with pytest.raises(ValueError):
+            stream._launch_stream_bwd(rows, ct, 1, 1, c, t, c, t, prec)
+    assert (stream.STREAM_FWD_BF16.launches, stream.STREAM_BWD_BF16.launches) == before
+    with pytest.raises(ValueError):  # the public entry takes the float32 rows and rounds them itself
+        stream.composite_stream_tiles(rows16, ct, counts, 1, 1, "bf16")
+    color, final_t = stream.composite_stream_tiles(rows32, ct, counts, 1, 1, "bf16")  # zero rows: background
+    assert float(final_t.min()) == 1.0 and float(color.abs().max()) == 0.0
 
 
 # K3/K4's tile is 32 rows x 64 columns: one below, at and one above a tile
@@ -684,6 +788,37 @@ def test_forward_kernels_edge_rows(cuda, chunk):
         max_err, share = _k2_rule(got, ref)
         assert max_err <= 1e-3 and share <= 1e-4, (max_err, share)
     _check_k8_is_k6(got8, got6, tiles, chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [512, 32])
+def test_bf16_kernels_edge_rows(cuda, chunk):
+    """K1.bf16 and K2.bf16 on ``_forward_edge_tiles`` rounded as
+    ``kernel_props`` rounds them: the opacity-0 rows, the sentinel padding
+    and the trash chunk (all shifted to x = -origin with opacity 0), the
+    spike, a tile that never stops, counts off 32; against their plain
+    versions under K1's and K2's rules. Tile 1 stops by row 32, so a run
+    cut there gives the same bits."""
+    (props, ct), (_, counts) = _replay_layouts(_forward_edge_tiles(), chunk, cuda)
+    rows = stream.kernel_props(props, ct, 2, "bf16")
+    fwd = stream._launch_stream_fwd(rows, ct, counts, 2, 1, "bf16")
+    ref = stream.composite_stream_tiles_plain(rows, ct, 2, 1)
+    err = torch.cat([(fwd[0] - ref[0]).flatten(), (fwd[1] - ref[1]).flatten()]).abs()
+    assert float(err.max()) <= 1e-3 and float((err > K1_ATOL).float().mean()) <= 1e-4
+    cut = counts.clone()
+    cut[1] = 33
+    assert all(torch.equal(a, b) for a, b in zip(fwd, stream._launch_stream_fwd(rows, ct, cut, 2, 1, "bf16")))
+    assert float(fwd[1][0].min()) > 0.1 and float(fwd[1][1].max()) < 0.02
+    (props, ct), (_, counts) = _replay_layouts(_forward_edge_tiles(spike=False), chunk, cuda)
+    rows = stream.kernel_props(props, ct, 2, "bf16")
+    fwd = stream._launch_stream_fwd(rows, ct, counts, 2, 1, "bf16")
+    g_color, g_t = _cotangents(*fwd, seed=7)
+    got = stream._launch_stream_bwd(rows, ct, 2, 1, *fwd, g_color, g_t, "bf16")
+    ref = stream.composite_stream_tiles_bwd_plain(rows, ct, 2, 1, *fwd, g_color, g_t)
+    max_err, share = _k2_rule(got, ref)
+    assert max_err <= 1e-3 and share <= 1e-4, (max_err, share)
+    pad = slice(int(counts[0]), -(-int(counts[0]) // chunk) * chunk)  # tile 0's sentinel rows
+    assert int(torch.count_nonzero(got[pad])) == 0
 
 
 def _skip_floor_sweep():

@@ -106,12 +106,24 @@ def test_empty_scene_is_background():
 
 
 def test_unported_options_raise():
-    cam = torch_camera(make_camera(width=32, height=32))
-    scene = torch_scene(make_scene(16, seed=0))
-    for cfg in (RenderConfig(precision="bf16"), RenderConfig(precision="bf16", use_stream=False),
-                RenderConfig(use_pallas=False)):
-        with pytest.raises(NotImplementedError):
-            render(cam, scene, cfg)
+    """What still raises in both packages: ``layout="transposed"`` on the
+    stream path (the JAX package retired that kernel to attic/stream_t.py;
+    the port serves it through attic/stream_t.py stream_image_t). The
+    table paths do not read ``layout``, so there both packages render; so
+    does every other option (tests/test_torch_bf16_stream.py,
+    tests/test_torch_composite.py compare the images)."""
+    cam = make_camera(width=32, height=32)
+    scene = make_scene(16, seed=0)
+    tc, ts = torch_camera(cam), torch_scene(scene)
+    with pytest.raises(NotImplementedError):
+        jax_render(cam, scene, JaxRenderConfig(layout="transposed", precision="bf16"))
+    with pytest.raises(NotImplementedError):
+        render(tc, ts, RenderConfig(layout="transposed", precision="bf16"))
+    for kw in ({"use_stream": False}, {"use_pallas": False}, {"use_pallas": False, "use_stream": False}):
+        ref = jax_render(cam, scene, JaxRenderConfig(layout="transposed", **kw))
+        with torch.no_grad():
+            out = render(tc, ts, RenderConfig(layout="transposed", **kw))
+        np.testing.assert_allclose(out["render"].numpy(), np.asarray(ref["render"]), atol=ATOL)
 
 
 @pytest.mark.parametrize("seed,n,opacity", [(1, 256, None), (3, 96, 0.97)], ids=["dense", "saturated"])
