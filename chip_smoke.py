@@ -275,6 +275,37 @@ section 15:
 The kernels line carries K1.bf16 and K2.bf16 (``stream_fwd_bf16``,
 ``stream_bwd_bf16``) with their launches in sections 25 and 26.
 
+The multi-device tier (``gaussian_transformer_tpu_torch/parallel/``) at
+world size 1 under NCCL, in this process's own process group (destroyed
+at the end); the card's machine has one card, so these sections check the
+backend, the collectives on CUDA tensors, FSDP2 at full width and K1-K4
+through the sharded paths, not scaling:
+
+28. After section 8, on its state (the point cloud's Gaussians at 4x
+    capacity) and train views 0-1 at 1080p, budgets tuned to the unculled
+    binning every form uses: one step each of ``make_sharded_train_step``'s
+    batched (``mesh=None``), manual (data 1 x gauss 1) and tile-sharded
+    forms and the batched one again (the card's run-to-run difference); the
+    manual and tile-sharded steps held to the batched step (the JAX test's
+    bounds; parameters wherever the gradient is above float noise), K1-K4
+    twice a step, ``render_tile_sharded`` against ``render()`` (2e-5), the
+    manual step's collectives (``parallel/audit.py``: 7 all-gathers a view,
+    no raw parameter); each step's ms.
+29. After section 18, on its model and first batch: ``make_dp_train_step``
+    under FSDP2 on a (data 1, fsdp 1) mesh against ``make_train_step`` on
+    the same window and dropout key (loss 1e-5 relative, parameters 1e-2 x
+    lr), their ms and peak memory; then ``cli.train_stacked --dp 1 --fsdp
+    1`` for one epoch at one layer.
+30. After section 22, on section 19's scene: a full-width flat loss and
+    backward with ``ring_attention`` over a one-rank group against the same
+    with blockwise attention (loss 1e-5 relative, gradients 1e-4 of the
+    largest), their ms and peak; ``ulysses_attention`` and the ring on q/k/v
+    of the main path's shape against blockwise attention (1e-5 of the
+    largest); a heartbeat.
+
+The kernels line's K1-K4 entries carry these runs' launches as
+``tier_launches``.
+
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
 before and after its window. The K3, K4, K7 and K8 entries of the kernels
 line carry the registers, spills and static shared memory ``nvcc -Xptxas
@@ -1093,6 +1124,7 @@ def train_path(args, device, scene, summary):
             print(f"K4 checksum of (d_img1, d_img2) on train view 0: {k4_sum}")
     del d_plain, d_plain_ssim, g0
     summary.update(train_k2_chunk=chunk, train_k2_rows=props.shape[0], train_k1_checksum=k1_train_sum)
+    tier_3dgs_path(args, device, summary, data, splits)
 
     if not on_card:
         return entries, cfg
@@ -2478,6 +2510,8 @@ def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYE
                        stacked_image_grad_scale=g_scale)
         peak("18")
 
+    stacked_tier_path(args, device, summary, data, model_dir, work, tscene, batch, stack, layers)
+    if on_card:
         # Last, as a torch.profiler window slows the host's launches for the
         # rest of the process: section 16's model again, one cached decode
         # profiled, then the same timings as section 16's.
@@ -3405,6 +3439,376 @@ def gate_path(args, device, summary, cams=GATE_CAMS, width=GATE_WIDTH, height=GA
     return launches
 
 
+# ------------------------------------------------- the multi-device tier ---
+
+TIER_LOSS_REL = 1e-5  # the manual step vs the batched step (tests/test_parallel.py:70-77)
+TIER_ATOL = 1e-6  # their parameters and Adam moments
+TIER_STATS_ATOL = 1e-5  # their densify statistics
+TILE_LOSS_REL, TILE_XYZ_ATOL, TILE_STATS_ATOL = 1e-3, 1e-5, 1e-4  # the tile-sharded step (the JAX test's bounds)
+TILE_IMAGE_ATOL = 2e-5  # render_tile_sharded vs render()
+TIER_VIEWS = 2  # section 28's camera batch
+# Section 28's parameters: a first Adam step (eps 1e-15) moves an element by
+# lr x g / (|g| + eps), lr x sign(g) wherever g is not ~0; where |g| is float
+# noise (below this share of its leaf's largest) the CUDA atomics' order
+# decides the sign, so there the bound is the step's largest move, 2 x lr.
+TIER_GRAD_NOISE = 1e-6
+TIER_PARAM_ATOL = 1e-2 * 5e-4  # section 29: 1e-2 x lr of the parameters after one Adam step
+TIER_ATTN_REL = 1e-5  # section 30: ring vs blockwise vs Ulysses, of the largest output
+TIER_GRAD_REL = 1e-4  # section 30: the ring step's gradients vs the blockwise step's, of the largest
+
+
+def tier_group(device):
+    """Join (once) the process group of sections 28-30: world size 1, NCCL
+    on the card (gloo on the CPU), in this process."""
+    import torch.distributed as dist
+
+    from gaussian_transformer_tpu_torch.parallel.mesh import free_port, init_distributed
+
+    if not dist.is_initialized():
+        init_distributed(device, init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+        print(f"process group: backend {dist.get_backend()}, world size {dist.get_world_size()}")
+    return dist.group.WORLD
+
+
+def tier_3dgs_path(args, device, summary, data, splits) -> dict:
+    """Section 28: the 3DGS tier on section 8's state (the point cloud's
+    Gaussians at 4x capacity) and a batch of the first two train views: one
+    step each of the batched (``mesh=None``), the manual Gaussian-sharded
+    (data 1 x gauss 1) and the tile-sharded step on fresh copies, held to
+    each other; ``render_tile_sharded`` against ``render()``; the manual
+    step's collectives. Returns the K1-K4 launches of each step."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.config import OptConfig
+    from gaussian_transformer_tpu_torch.parallel import audit
+    from gaussian_transformer_tpu_torch.parallel import collectives as cc
+    from gaussian_transformer_tpu_torch.parallel.mesh import make_mesh
+    from gaussian_transformer_tpu_torch.parallel.step import make_sharded_train_step, stack_cameras
+    from gaussian_transformer_tpu_torch.parallel.tile_shard import render_tile_sharded
+    from gaussian_transformer_tpu_torch.render import RenderConfig, render, tune_config
+    from gaussian_transformer_tpu_torch.scene.densify import DensifyStats
+    from gaussian_transformer_tpu_torch.scene.gaussians import GaussianScene
+    from gaussian_transformer_tpu_torch.scene.ply import fetch_point_cloud
+    from gaussian_transformer_tpu_torch.train.optim import PARAM_LEAVES, AdamState, expon_lr, leaf_learning_rates
+    from gaussian_transformer_tpu_torch.utils.png import read_png
+
+    on_card = device.type == "cuda"
+    smi = smi_line() if on_card else "cpu"
+    W, H, fovx = args.width, args.height, math.radians(50.0)
+    group = tier_group(device)
+    print(f"== 28. the 3DGS tier: batched, manual (data 1 x gauss 1) and tile-sharded steps, {TIER_VIEWS} train "
+          f"views at {W}x{H}")
+    cams = []
+    for i in range(TIER_VIEWS):
+        cam = camera_from_c2w(splits["train"][i], fovx, W, H, device)
+        cam.original_image = torch.as_tensor(read_png(str(data / "train" / f"r_{i}.png"))[..., :3].transpose(2, 0, 1)
+                                             / 255.0, dtype=torch.float32, device=device)
+        cams.append(cam)
+    batch = stack_cameras(cams)
+    pcd = fetch_point_cloud(str(data / "points3d.ply"))
+    fresh = lambda: GaussianScene.from_pcd(pcd, 1, capacity=4 * args.train_points, device=device)
+    bg = torch.zeros(3, device=device)
+    # Every form bins without tile culling (the manual and tile-sharded
+    # forms' binning), at budgets tuned to that binning's counts.
+    g = fresh()
+    with torch.no_grad():
+        probe = render(cams[0], g, RenderConfig(tile_cull=False))
+    cfg = tune_config(RenderConfig(tile_cull=False), {k: int(probe[k]) for k in ("n_instances", "n_padded", "n_tiles")})
+    print(f"capacity {g.capacity}, {g.num_alive} alive; budgets max_instances {cfg.max_instances}, "
+          f"max_stream {cfg.max_stream}")
+    del g, probe
+    mesh = make_mesh(1, 1)
+    counters = kernel_counters()
+    results, launches, times, reports = {}, {}, {}, {}
+    runs = (("batched", {}), ("manual", {"mesh": mesh}), ("tile", {"mesh": mesh, "tile_axis": "gauss"}),
+            ("batched_again", {}))
+    for name, kw in runs:
+        step = make_sharded_train_step(OptConfig(), cfg, **kw)
+        g = fresh()
+        adam, stats = AdamState.init(g), DensifyStats.init(g.capacity, device)
+        zero_counts(counters)
+        if on_card:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        with cc.recording() as rec:
+            g, adam, stats, m = step(g, adam, stats, batch, bg, 1, 1.0)
+        if on_card:
+            ev[1].record()
+            torch.cuda.synchronize()
+            times[name] = ev[0].elapsed_time(ev[1])
+        launches[name] = read_counts(counters)
+        reports[name] = audit.collective_report(rec)
+        results[name] = (g, adam, stats, {k: float(v) for k, v in m.items()})
+        print(f"{name} step: loss {results[name][3]['loss']:.7f}, n_visible {int(results[name][3]['n_visible'])}; "
+              f"launches {launches[name]}" + (f"; [{smi}] {times[name]:.2f} ms (CUDA events, one step)" if on_card
+                                              else ""))
+        if on_card:
+            check(launches[name] == {k: TIER_VIEWS for k in ("K1", "K2", "K3", "K4")},
+                  f"K1-K4 launched once per view in the {name} step")
+    lrs = leaf_learning_rates(OptConfig(), float(expon_lr(1, OptConfig().position_lr_init, OptConfig().position_lr_final,
+                                                          lr_delay_mult=OptConfig().position_lr_delay_mult,
+                                                          max_steps=OptConfig().position_lr_max_steps)))
+
+    def diffs(a, b, atol):
+        (ga, aa, sa, ma), (gb, ab, sb, mb) = results[a], results[b]
+        d = {"loss_rel": abs(ma["loss"] - mb["loss"]) / abs(mb["loss"]), "params_tight": 0.0, "noise_elements": 0,
+             "params_beyond": 0}
+        for k in PARAM_LEAVES:
+            g = ab.mu[k] / 0.1  # the step's gradient, read off Adam's first moment
+            noise = g.abs() < TIER_GRAD_NOISE * g.abs().max()
+            diff = (getattr(ga, k) - getattr(gb, k)).detach().abs()
+            if (~noise).any():
+                d["params_tight"] = max(d["params_tight"], float(diff[~noise].max()))
+            d["noise_elements"] += int(noise.sum())
+            d["params_beyond"] += int((diff > torch.where(noise, torch.full_like(diff, 2.0 * float(lrs[k])),
+                                                          torch.full_like(diff, atol))).sum())
+        d["xyz"] = float((ga.xyz - gb.xyz).detach().abs().max())
+        d["adam"] = max(float((x[k] - y[k]).abs().max()) for x, y in ((aa.mu, ab.mu), (aa.nu, ab.nu))
+                        for k in PARAM_LEAVES)
+        d["stats"] = max(float((getattr(sa, k) - getattr(sb, k)).abs().max())
+                         for k in ("xyz_gradient_accum", "denom", "max_radii2d"))
+        d["accum"] = float((sa.xyz_gradient_accum - sb.xyz_gradient_accum).abs().max())
+        return d
+
+    dr, dm = diffs("batched_again", "batched", TIER_ATOL), diffs("manual", "batched", TIER_ATOL)
+    dt = diffs("tile", "batched", TILE_XYZ_ATOL)
+    print(f"the batched step run twice (the card's run-to-run difference): {dr}")
+    print(f"manual vs batched: {dm}")
+    print(f"tile vs batched: {dt}")
+    check(dm["loss_rel"] <= TIER_LOSS_REL and dm["adam"] <= TIER_ATOL and dm["stats"] <= TIER_STATS_ATOL
+          and dm["params_beyond"] == 0,
+          f"the manual step agrees with the batched step (loss {TIER_LOSS_REL} relative, Adam's moments "
+          f"{TIER_ATOL}, statistics {TIER_STATS_ATOL}, parameters {TIER_ATOL}; 2 x lr where the gradient is "
+          f"below {TIER_GRAD_NOISE} of its leaf's largest)")
+    check(dt["loss_rel"] <= TILE_LOSS_REL and dt["params_beyond"] == 0 and dt["accum"] <= TILE_STATS_ATOL,
+          f"the tile-sharded step agrees with the batched step (loss {TILE_LOSS_REL} relative, parameters "
+          f"{TILE_XYZ_ATOL}, 2 x lr where the gradient is below {TIER_GRAD_NOISE} of its leaf's largest; gradient "
+          f"accumulator {TILE_STATS_ATOL})")
+    report = reports["manual"]
+    print("the manual step's collectives (parallel/audit.py):\n" + audit.summarize(report))
+    audit.assert_no_param_gathers(report, [(3, 3), (4,), (1, 3)], min_rows=1024)
+    check(sum(c.op == "all-gather" for c in report) == 7 * TIER_VIEWS,
+          "the manual step all-gathers the 7 projected arrays per view and no raw parameter")
+    del results
+    g = fresh()
+    with torch.no_grad():
+        a = render(cams[0], g, cfg, bg_color=bg)
+        zero_counts(counters)
+        b = render_tile_sharded(cams[0], g, cfg, group, bg_color=bg)
+        tile_render = read_counts(counters)
+    img_err = float((a["render"] - b["render"]).abs().max())
+    t_err = float((a["final_T"] - b["final_T"]).abs().max())
+    print(f"render_tile_sharded vs render() on train view 0: image max abs diff {img_err:.3e}, final T {t_err:.3e} "
+          f"(tolerance {TILE_IMAGE_ATOL}); launches {tile_render}")
+    check(img_err <= TILE_IMAGE_ATOL and t_err <= TILE_IMAGE_ATOL, "render_tile_sharded agrees with render()")
+    summary.update(tier_3dgs={"launches": launches, "ms": times, "manual_vs_batched": dm, "tile_vs_batched": dt,
+                              "batched_run_to_run": dr,
+                              "tile_render_err": img_err, "collectives": [c._asdict() for c in report], "smi": smi})
+    del g, a, b
+    summary["tier_3dgs_launches"] = {f"3dgs_{k}": v for k, v in launches.items()}
+    return summary["tier_3dgs_launches"]
+
+
+def stacked_tier_path(args, device, summary, data, model_dir, work, tscene, batch, stack, layers) -> dict:
+    """Section 29: the stacked tier at the width of sections 16-18 (the
+    CLI's recipe, float32 Adam): one ``make_dp_train_step`` on a (data 1,
+    fsdp 1) mesh with the model under FSDP2 against ``make_train_step`` on
+    the same window and dropout key; then one epoch of ``cli.train_stacked
+    --dp 1 --fsdp 1`` at one layer. Returns the K1-K4 launches of both."""
+    import gc
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from gaussian_transformer_tpu_torch.cli import train_stacked as cli_stacked
+    from torch.distributed.tensor import DTensor
+
+    from gaussian_transformer_tpu_torch.parallel.fsdp import full_tensor, leaf_spec, shard_model
+    from gaussian_transformer_tpu_torch.parallel.mesh import world_device_type
+    from gaussian_transformer_tpu_torch.render import RenderConfig
+    from gaussian_transformer_tpu_torch.train import stacked
+
+    on_card = device.type == "cuda"
+    smi = smi_line() if on_card else "cpu"
+    tier_group(device)
+    print(f"== 29. the stacked tier: make_dp_train_step under FSDP2 on a (data 1, fsdp 1) mesh vs make_train_step "
+          f"(STACK {stack}, {layers} layers, float32 Adam)")
+    counters = kernel_counters()
+    key = (42, 29)
+    out, ms = {}, {}
+
+    def timed(name, fn):
+        zero_counts(counters)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        res = fn()
+        if on_card:
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms[name] = ev[0].elapsed_time(ev[1])
+            ms[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out[name] = read_counts(counters)
+        return res
+
+    model = stacked.make_stacked_model(stack, layers, 0, seed=0, device=device)
+    step = stacked.make_train_step(model, tscene.handler, RenderConfig(), stacked.make_optimizer(model), stack)
+    ref_loss, ref_met = timed("stacked_train_step", lambda: step(batch.src, batch.trg_y, batch.cameras, 5e-4,
+                                                                  batch.src_mask, key + (0,)))
+    ref = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    ref_loss = float(ref_loss)
+    del model, step
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    model = stacked.make_stacked_model(stack, layers, 0, seed=0, device=device)
+    mesh = init_device_mesh(world_device_type(), (1, 1), mesh_dim_names=("data", "fsdp"))
+    shard_model(model, mesh)
+    step = stacked.make_dp_train_step(model, tscene.handler, RenderConfig(), stacked.make_optimizer(model), stack,
+                                      mesh=mesh)
+    loss, met = timed("stacked_dp_fsdp_step", lambda: step(batch.src, batch.trg_y, [batch.cameras], 5e-4,
+                                                           batch.src_mask, key))
+    loss = float(loss)
+    sharded = sum(isinstance(p, DTensor) for p in model.parameters())
+    want = sum(bool(leaf_spec(p, 1, "fsdp")) for p in model.parameters())
+    p_err = max(float((full_tensor(p.detach()).cpu() - ref[n]).abs().max()) for n, p in model.named_parameters())
+    l_err = abs(loss - ref_loss) / abs(ref_loss)
+    print(f"make_train_step: loss {ref_loss:.7f} (chamfer {float(ref_met['chamfer']):.4f}); make_dp_train_step "
+          f"under FSDP2 ({sharded} of {len(ref)} parameters sharded): loss {loss:.7f}; loss rel diff {l_err:.3e}, "
+          f"largest parameter difference after the step {p_err:.3e} (tolerance {TIER_PARAM_ATOL}); launches "
+          f"{out}")
+    if on_card:
+        print(f"[{smi}] make_train_step {ms['stacked_train_step']:.1f} ms, peak {ms['stacked_train_step_peak_gib']:.2f} "
+              f"GiB; make_dp_train_step under FSDP2 {ms['stacked_dp_fsdp_step']:.1f} ms, peak "
+              f"{ms['stacked_dp_fsdp_step_peak_gib']:.2f} GiB (CUDA events, one step; "
+              f"torch.cuda.max_memory_allocated)")
+    check(sharded == want, f"FSDP2 holds the {want} parameters leaf_spec shards as DTensors")
+    check(l_err <= TIER_LOSS_REL and p_err <= TIER_PARAM_ATOL,
+          "the FSDP2 data-parallel step agrees with the single-device step")
+    summary.update(tier_stacked={"loss": loss, "ref_loss": ref_loss, "loss_rel": l_err, "param_err": p_err,
+                                 "ms": ms, "launches": dict(out), "sharded": sharded})
+    del model, step, ref
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    print("== 29b. main path: cli.train_stacked --dp 1 --fsdp 1, one epoch at 1 layer")
+    dev_arg = [] if on_card else ["--device", str(device)]
+    t0 = time.time()
+    res = timed("stacked_cli_dp_fsdp", lambda: cli_stacked.main(
+        ["-s", str(data), "-m", str(model_dir), "--eval", "--epochs", "1", "--stack", str(stack), "--layers", "1",
+         "--run_name", str(work / "run_tier"), "--quiet", "--dp", "1", "--fsdp", "1"] + dev_arg))
+    hist = res["history"]
+    print(f"cli.train_stacked --dp 1 --fsdp 1: {len(hist)} steps in {time.time() - t0:.1f} s; launches "
+          f"{out['stacked_cli_dp_fsdp']}; losses {[round(h['loss'], 4) for h in hist]}")
+    check(len(hist) == tscene.size // 4 and all(math.isfinite(h["loss"]) for h in hist),
+          f"{tscene.size // 4} data-parallel steps with finite losses")
+    summary["tier_stacked"]["cli_losses"] = [h["loss"] for h in hist]
+    summary["tier_stacked_launches"] = dict(out)
+    del res
+    gc.collect()
+    return summary["tier_stacked_launches"]
+
+
+def flat_tier_path(args, device, summary, d_model=FLAT_D, layers=FLAT_LAYERS) -> dict:
+    """Section 30: the flat tier at the width of section 19 (d_model 1024,
+    N 6) on its scene's longest camera: one loss and backward with
+    ``ring_attention`` over a one-rank group against the same with
+    ``blockwise_attention``; ``ulysses_attention`` on q/k/v of the main
+    path's shape; a heartbeat. Returns the K1-K4 launches of the ring step."""
+    import gc
+
+    import torch
+
+    from gaussian_transformer_tpu_torch.cli import train_transformer as cli_flat
+    from gaussian_transformer_tpu_torch.ops.attention import blockwise_attention
+    from gaussian_transformer_tpu_torch.parallel.health import heartbeat
+    from gaussian_transformer_tpu_torch.parallel.ring import ring_attention
+    from gaussian_transformer_tpu_torch.parallel.ulysses import ulysses_attention
+    from gaussian_transformer_tpu_torch.render import RenderConfig
+    from gaussian_transformer_tpu_torch.scene import Scene
+    from gaussian_transformer_tpu_torch.train import flat
+
+    on_card = device.type == "cuda"
+    smi = smi_line() if on_card else "cpu"
+    group = tier_group(device)
+    work = (Path(args.work) / "flat").resolve()
+    random.seed(args.seed)
+    ns = Namespace(sh_degree=1, source_path=str(work / "data"), model_path=str(work / "model"), images="images",
+                   resolution=-1, white_background=False, data_device=str(device), eval=True)
+    tscene = flat.FlatTrainingScene(Scene(ns, load_iteration=-1, sh_degree=1, device=device), RenderConfig(),
+                                    max_len=FLAT_MAX_LEN, min_len=cli_flat.MIN_LEN)
+    longest = max(range(tscene.size), key=lambda i: int(tscene.visible[i].sum()))
+    tscene.set_epoch(0)
+    batch = tscene.make_batch(longest)
+    Ls, Lt = batch["src"].shape[1], batch["trg"].shape[1]
+    print(f"== 30. the flat tier: ring_attention over a one-rank group vs blockwise_attention (d_model {d_model}, "
+          f"{layers} layers), camera {longest}: src {Ls} tokens, tgt {Lt}")
+    counters = kernel_counters()
+    args_b = [batch[k] for k in ("src", "trg", "trg_y", "src_mask", "trg_mask", "cam")]
+    runs, ms = {}, {}
+    ring = flat.init_flat_model(flat.EmbeddedEncoderDecoder(N=layers, d_model=d_model, device=device,
+                                                            seq_group=group), seed=0)
+    blk = flat.EmbeddedEncoderDecoder(N=layers, d_model=d_model, block_k=FLAT_BLOCK_K, device=device)
+    blk.load_state_dict(ring.state_dict())
+    launches = {}
+    for name, model in (("ring", ring), ("blockwise", blk)):
+        zero_counts(counters)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        loss, met = flat.make_flat_loss(model, RenderConfig(), use_lpips=False)(*args_b)
+        loss.backward()
+        if name == "ring":
+            flat.reduce_grads(model.parameters(), group)
+        if on_card:
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms[name] = ev[0].elapsed_time(ev[1])
+            ms[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        launches[name] = read_counts(counters)
+        runs[name] = (float(loss.detach()), {n: p.grad for n, p in model.named_parameters()})
+    l_err = abs(runs["ring"][0] - runs["blockwise"][0]) / abs(runs["blockwise"][0])
+    g_scale = max(float(g.abs().max()) for g in runs["blockwise"][1].values())
+    g_err = max(float((runs["ring"][1][n] - g).abs().max()) for n, g in runs["blockwise"][1].items())
+    print(f"loss: ring {runs['ring'][0]:.7f}, blockwise {runs['blockwise'][0]:.7f} (rel diff {l_err:.3e}, tolerance "
+          f"{TIER_LOSS_REL}); gradients max abs diff {g_err:.3e} = {g_err / g_scale:.3e} of max {g_scale:.3e} "
+          f"(tolerance {TIER_GRAD_REL}); launches {launches}")
+    if on_card:
+        print(f"[{smi}] loss and backward: ring {ms['ring']:.1f} ms (peak {ms['ring_peak_gib']:.2f} GiB), blockwise "
+              f"{ms['blockwise']:.1f} ms (peak {ms['blockwise_peak_gib']:.2f} GiB) (CUDA events, one step)")
+        check(launches["ring"] == {"K1": 2, "K2": 1, "K3": 0, "K4": 0}, "K1 twice and K2 once in the ring step")
+    check(l_err <= TIER_LOSS_REL and g_err <= TIER_GRAD_REL * g_scale, "the ring step agrees with the blockwise step")
+    del ring, blk, runs
+    gc.collect()
+
+    gen = torch.Generator(device).manual_seed(args.seed + 30)
+    h, dk = 8, d_model // 8
+    q, k, v = (torch.randn(1, h, Ls, dk, generator=gen, device=device) for _ in range(3))
+    mask = batch["src_mask"][:, None]  # [1, 1, 1, Ls]
+    with torch.no_grad():
+        o_ring = ring_attention(q, k, v, mask, group)
+        o_uly = ulysses_attention(q, k, v, mask, group)
+        o_blk = blockwise_attention(q, k, v, mask, block_k=FLAT_BLOCK_K)
+    scale = float(o_blk.abs().max())
+    e_ring, e_uly = float((o_ring - o_blk).abs().max()), float((o_uly - o_blk).abs().max())
+    print(f"attention on q/k/v [1, {h}, {Ls}, {dk}] with the source PAD mask: ring vs blockwise max abs diff "
+          f"{e_ring:.3e}, ulysses vs blockwise {e_uly:.3e} (of max {scale:.3e}; tolerance {TIER_ATTN_REL} x max)")
+    check(e_ring <= TIER_ATTN_REL * scale and e_uly <= TIER_ATTN_REL * scale,
+          "ring and Ulysses attention agree with blockwise attention")
+    beat = heartbeat(60.0, group)
+    print(f"heartbeat over the world: {beat}")
+    check(beat, "the heartbeat completed")
+    summary.update(tier_flat={"loss_rel": l_err, "grad_err": g_err, "grad_scale": g_scale, "ms": ms,
+                              "launches": launches, "ring_err": e_ring, "ulysses_err": e_uly, "src_len": Ls})
+    del q, k, v, o_ring, o_uly, o_blk
+    gc.collect()
+    summary["tier_flat_launches"] = {"flat_ring_step": launches["ring"]}
+    return summary["tier_flat_launches"]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3441,6 +3845,8 @@ def main(argv=None) -> int:
         flat_summary, stacked = {}, {}
         flat_launches = flat_path(args, device, flat_summary)
         torch.cuda.empty_cache()
+        flat_tier_path(args, device, flat_summary)
+        torch.cuda.empty_cache()
         campaign_launches = campaign_path(args, device, stacked)
         torch.cuda.empty_cache()
         launches = stacked_path(args, device, stacked)
@@ -3456,10 +3862,18 @@ def main(argv=None) -> int:
                           {k: v for k, v in flat_launches.items() if k.startswith("autoencoder")})
         torch.cuda.empty_cache()
         add_path_launches(summary["kernels"], "gate_launches", gate_path(args, device, summary))
+        add_path_launches(summary["kernels"], "tier_launches",
+                          {**summary["tier_3dgs_launches"], **summary["tier_stacked_launches"],
+                           **summary["tier_flat_launches"]})
         trace_path(args, device, summary)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
     summary["total_s"] = time.time() - t0
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -16,10 +16,25 @@ newest snapshot first, and the crash save stays a checkpoint. Runs on the
 CUDA card unless ``--device cpu`` is given. TensorBoard scalars go to
 ``logs/<run_name>/base`` (``<run_name>/base`` for an absolute run name) when
 ``torch.utils.tensorboard`` imports; ``--ip``/``--port`` are accepted and
-unused (no viewer). ``--dp`` and ``--fsdp`` raise ``NotImplementedError``
-(the parallel tier is on the port's roadmap).
+unused (no viewer).
+
+Several cards, one process each under ``torchrun --nproc_per_node <dp x
+fsdp>`` (a product other than ``WORLD_SIZE`` raises):
+
+  * ``--dp N``: each step trains N independent windows, one per rank
+    (``train/stacked.py make_dp_train_step``: gradients averaged, one
+    update), ``tscene.size // (N * batch_size)`` steps an epoch;
+  * ``--fsdp M``: parameters and Adam moments sharded over M ranks
+    (``parallel/fsdp.py``, FSDP2), every rank on the same batches;
+  * both: N windows x M-way shards on a ("data", "fsdp") mesh.
+
+Rank 0 alone writes checkpoints (gathered whole, so the unsharded trainer
+reads them), TensorBoard scalars and the log; ``--device cpu`` runs the
+ranks on gloo. ``--orbax`` snapshots hold whole tensors and are refused
+with ``--fsdp``.
 
     python -m gaussian_transformer_tpu_torch.cli.train_stacked -s <data> -m <model> [--epochs N]
+    torchrun --nproc_per_node 8 -m gaussian_transformer_tpu_torch.cli.train_stacked -s <data> -m <model> --dp 8
 """
 
 from __future__ import annotations
@@ -31,9 +46,12 @@ import time
 from argparse import ArgumentParser
 
 import torch
+from torch.distributed.device_mesh import init_device_mesh
 
 from gaussian_transformer_tpu_torch.config import ModelParams, OptimizationParams, PipelineParams
 from gaussian_transformer_tpu_torch.device import resolve_device
+from gaussian_transformer_tpu_torch.parallel.fsdp import make_fsdp_mesh, shard_model
+from gaussian_transformer_tpu_torch.parallel.mesh import init_distributed, is_lead, seed_host_random_alike, world_device_type, world_size
 from gaussian_transformer_tpu_torch.render import RenderConfig
 from gaussian_transformer_tpu_torch.scene import Scene
 from gaussian_transformer_tpu_torch.train import orbax_ckpt
@@ -41,6 +59,7 @@ from gaussian_transformer_tpu_torch.train.stacked import (
     ReduceLROnPlateau,
     TrainingScene,
     load_checkpoint,
+    make_dp_train_step,
     make_optimizer,
     make_stacked_model,
     make_train_step,
@@ -68,8 +87,10 @@ def _parse(argv):
     parser.add_argument("--batch_size", type=int, default=4)
     parser.add_argument("--run_name", type=str, default=None)
     parser.add_argument("--checkpoint_every", type=int, default=50)
-    parser.add_argument("--dp", type=int, default=0, help="not ported (ROADMAP Queue 1: the parallel tier)")
-    parser.add_argument("--fsdp", type=int, default=0, help="not ported (ROADMAP Queue 1: the parallel tier)")
+    parser.add_argument("--dp", type=int, default=0,
+                        help="data parallelism: one independent window per rank (torchrun)")
+    parser.add_argument("--fsdp", type=int, default=0,
+                        help="FSDP: parameters and optimizer state sharded over this many ranks (torchrun)")
     parser.add_argument("--orbax", action="store_true",
                         help="snapshots under <run_name>/orbax/ in place of the periodic checkpoints")
     parser.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
@@ -83,19 +104,39 @@ def main(argv=None):
     src_len, trg_len, and ``ms`` on the card) and ``epochs`` (one dict per
     epoch: epoch, loss per token, lr after the scheduler step)."""
     lp, args = _parse(argv)
-    if args.dp or args.fsdp:
-        raise NotImplementedError("--dp/--fsdp: the parallel tier is on the port's roadmap (ROADMAP Queue 1)")
     device = resolve_device(args.device)
+    parallel = bool(args.dp or args.fsdp)
+    if parallel:
+        n = max(args.dp, 1) * max(args.fsdp, 1)
+        if n != world_size():
+            raise ValueError(f"--dp {args.dp} x --fsdp {args.fsdp} needs {n} processes, WORLD_SIZE is "
+                             f"{world_size()}: launch with torchrun --nproc_per_node {n}")
+        if args.orbax and args.fsdp:
+            raise ValueError("--orbax with --fsdp: the snapshots hold whole tensors; use the checkpoints")
+        init_distributed(device)
+        seed_host_random_alike()  # every rank shuffles the cameras alike
+    log = print if is_lead() else (lambda *a, **k: None)
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
 
-    print("Optimizing " + args.model_path)
+    log("Optimizing " + args.model_path)
     dataset = lp.extract(args)
     render_cfg = RenderConfig()
     scene = Scene(dataset, load_iteration=-1, sh_degree=1, device=device)
     tscene = TrainingScene(scene, render_cfg, batch_size=args.batch_size, stack=args.stack)
 
     model = make_stacked_model(args.stack, args.layers, args.attn_block_k, seed=0, device=device)
+    mesh = None
+    if args.dp and args.fsdp:
+        mesh = init_device_mesh(world_device_type(), (args.dp, args.fsdp), mesh_dim_names=("data", "fsdp"))
+        shard_model(model, mesh)
+        log(f"DPxFSDP: {args.dp} windows x {args.fsdp}-way param shards")
+    elif args.dp:
+        mesh = init_device_mesh(world_device_type(), (args.dp,), mesh_dim_names=("data",))
+        log(f"DP: one window per rank over {args.dp} ranks")
+    elif args.fsdp:
+        shard_model(model, make_fsdp_mesh(args.fsdp))
+        log(f"FSDP: params+optimizer sharded over {args.fsdp} ranks")
     optimizer = make_optimizer(model)
     scheduler = ReduceLROnPlateau(lr=0.0005)
 
@@ -111,24 +152,29 @@ def main(argv=None):
             model.load_state_dict(snap["params"])
             optimizer.load_state_dict(snap["opt_state"])
             first_epoch = orbax_mgr.latest_step() + 1
-            print(f"resumed from orbax epoch {first_epoch - 1}")
+            log(f"resumed from orbax epoch {first_epoch - 1}")
     if first_epoch == 0 and os.path.exists(run_name):
         max_iter = search_for_max_iteration(run_name)
         if max_iter is not None:
-            print(f"loading Model iter {max_iter}")
+            log(f"loading Model iter {max_iter}")
             load_checkpoint(run_name, max_iter, model, optimizer)
             first_epoch = max_iter + 1
-    os.makedirs(run_name, exist_ok=True)
+    if is_lead():
+        os.makedirs(run_name, exist_ok=True)
 
     tb_writer = None
     try:
-        from torch.utils.tensorboard import SummaryWriter
+        if is_lead():
+            from torch.utils.tensorboard import SummaryWriter
 
-        tb_writer = SummaryWriter(os.path.join("logs", run_name, "base"))
+            tb_writer = SummaryWriter(os.path.join("logs", run_name, "base"))
     except ImportError:
         pass
 
-    step_fn = make_train_step(model, tscene.handler, render_cfg, optimizer, args.stack)
+    if args.dp:
+        step_fn = make_dp_train_step(model, tscene.handler, render_cfg, optimizer, args.stack, mesh=mesh)
+    else:
+        step_fn = make_train_step(model, tscene.handler, render_cfg, optimizer, args.stack)
     model.train()
     on_card = device.type == "cuda"
     history, epochs = [], []
@@ -137,7 +183,13 @@ def main(argv=None):
         try:
             tscene.set_epoch(epoch)
             total_loss, total_tokens = 0.0, 0
-            for batch in tscene.batches():
+            if args.dp:
+                # One group of args.dp independent windows per step.
+                n_steps = max(1, tscene.size // (args.dp * args.batch_size))
+                batch_iter = (tscene.make_batch_group(args.dp) for _ in range(n_steps))
+            else:
+                batch_iter = tscene.batches()
+            for batch in batch_iter:
                 if batch is None:
                     continue
                 if on_card:
@@ -161,7 +213,7 @@ def main(argv=None):
                     tb_writer.add_scalar("chamfer", record["chamfer"], global_step)
                 global_step += 1
             epoch_loss = total_loss / max(total_tokens, 1)
-            print(f"Epoch: {epoch} Loss: {epoch_loss}")
+            log(f"Epoch: {epoch} Loss: {epoch_loss}")
             scheduler.step(epoch_loss)
             epochs.append({"epoch": epoch, "loss": epoch_loss, "lr": scheduler.lr})
             if tb_writer:
@@ -169,19 +221,20 @@ def main(argv=None):
                 tb_writer.add_scalar("dropout", tscene.dropout, epoch)
             if epoch % args.checkpoint_every == 0 and epoch > first_epoch:
                 if orbax_mgr is not None:
-                    orbax_ckpt.save(orbax_mgr, epoch, {"params": model.state_dict(),
-                                                       "opt_state": optimizer.state_dict()})
+                    if is_lead():
+                        orbax_ckpt.save(orbax_mgr, epoch, {"params": model.state_dict(),
+                                                           "opt_state": optimizer.state_dict()})
                 else:
                     save_checkpoint(run_name, epoch, model, optimizer)
         except (RuntimeError, FloatingPointError) as e:
             # Crash save: keep what was trained, and go on with the next epoch.
-            print(e)
+            log(e)
             save_checkpoint(run_name, epoch, model, optimizer)
     if orbax_mgr is not None:
         orbax_mgr.wait_until_finished()
     if tb_writer:
         tb_writer.close()
-    print("\nTraining complete.")
+    log("\nTraining complete.")
     return {"run_name": run_name, "first_epoch": first_epoch, "model": model, "optimizer": optimizer,
             "tscene": tscene, "history": history, "epochs": epochs}
 

@@ -13,11 +13,22 @@ epoch it prints the mean loss and, when it is the lowest yet, writes
 ``best_model.npz`` found there at start is loaded. Runs on the CUDA card
 unless ``--device cpu`` is given. TensorBoard scalars go to
 ``runs/gaussian_trainer_embed`` when ``torch.utils.tensorboard`` imports;
-``--ip``/``--port`` are accepted and unused (no viewer). ``--seq_shard`` > 1
-and ``--fsdp`` raise ``NotImplementedError`` (the parallel tier is on the
-port's roadmap).
+``--ip``/``--port`` are accepted and unused (no viewer).
+
+Several cards, one process each under ``torchrun --nproc_per_node N`` (N
+other than ``WORLD_SIZE`` raises, and so do both flags together):
+
+  * ``--seq_shard N`` (> 1): the token axis sharded over N ranks, every
+    attention a ring over them (``parallel/ring.py``; sequences pad to
+    buckets that N divides), the weight gradients summed before Adamax;
+  * ``--fsdp N``: parameters and Adamax state sharded over N ranks (FSDP2,
+    ``parallel/fsdp.py``), every rank on the same camera.
+
+Rank 0 alone writes ``best_model.npz`` (whole tensors), TensorBoard scalars
+and the log; ``--device cpu`` runs the ranks on gloo.
 
     python -m gaussian_transformer_tpu_torch.cli.train_transformer -s <data> -m <model> [--epochs N]
+    torchrun --nproc_per_node 8 -m gaussian_transformer_tpu_torch.cli.train_transformer -s <data> -m <model> --seq_shard 8
 """
 
 from __future__ import annotations
@@ -28,9 +39,12 @@ from argparse import ArgumentParser
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gaussian_transformer_tpu_torch.config import ModelParams, OptimizationParams, PipelineParams
 from gaussian_transformer_tpu_torch.device import resolve_device
+from gaussian_transformer_tpu_torch.parallel.fsdp import make_fsdp_mesh, reduce_replicated_grads, shard_model
+from gaussian_transformer_tpu_torch.parallel.mesh import init_distributed, is_lead, seed_host_random_alike, world_size
 from gaussian_transformer_tpu_torch.render import RenderConfig
 from gaussian_transformer_tpu_torch.scene import Scene
 from gaussian_transformer_tpu_torch.train.flat import (
@@ -40,6 +54,7 @@ from gaussian_transformer_tpu_torch.train.flat import (
     load_flat_params,
     make_flat_loss,
     make_noam_adamax,
+    reduce_grads,
     save_flat_params,
 )
 
@@ -62,8 +77,10 @@ def _parse(argv):
     parser.add_argument("--max_len", type=int, default=15000)
     parser.add_argument("--attn_block_k", type=int, default=0,
                         help="key-block size for blockwise (flash-style) attention; 0 = dense")
-    parser.add_argument("--seq_shard", type=int, default=0, help="not ported (ROADMAP Queue 1: the parallel tier)")
-    parser.add_argument("--fsdp", type=int, default=0, help="not ported (ROADMAP Queue 1: the parallel tier)")
+    parser.add_argument("--seq_shard", type=int, default=0,
+                        help="ring attention: the token axis sharded over this many ranks (torchrun)")
+    parser.add_argument("--fsdp", type=int, default=0,
+                        help="FSDP: parameters and optimizer state sharded over this many ranks (torchrun)")
     parser.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     return lp, parser.parse_args(sys.argv[1:] if argv is None else argv)
 
@@ -77,30 +94,48 @@ def main(argv=None, on_step=None):
     ``best_epoch`` (the epoch of the last ``best_model.npz`` written, or
     None)."""
     lp, args = _parse(argv)
-    if args.seq_shard > 1 or args.fsdp:
-        raise NotImplementedError("--seq_shard/--fsdp: the parallel tier is on the port's roadmap (ROADMAP Queue 1)")
     device = resolve_device(args.device)
-    print("Optimizing " + args.model_path)
+    ring = args.seq_shard > 1
+    if ring or args.fsdp:
+        if ring and args.fsdp:
+            raise ValueError("--fsdp and --seq_shard shard different axes; pick one")
+        n = args.seq_shard if ring else args.fsdp
+        if n != world_size():
+            raise ValueError(f"--{'seq_shard' if ring else 'fsdp'} {n} needs {n} processes, WORLD_SIZE is "
+                             f"{world_size()}: launch with torchrun --nproc_per_node {n}")
+        init_distributed(device)
+        seed_host_random_alike()  # every rank shuffles the cameras alike
+    log = print if is_lead() else (lambda *a, **k: None)
+    log("Optimizing " + args.model_path)
     dataset = lp.extract(args)
     render_cfg = RenderConfig()
 
     scene = Scene(dataset, load_iteration=-1, sh_degree=1, device=device)
     tscene = FlatTrainingScene(scene, render_cfg, max_len=args.max_len, min_len=MIN_LEN)
     assert tscene.size > 0, "no cameras within the visible-count window"
+    if ring and tscene.bucket % args.seq_shard:
+        raise ValueError(f"bucket {tscene.bucket} not divisible by seq_shard {args.seq_shard}")
 
+    group = dist.group.WORLD if ring else None
     model = init_flat_model(EmbeddedEncoderDecoder(N=args.layers, d_model=args.d_model,
-                                                   block_k=args.attn_block_k, device=device), seed=0)
-    optimizer, scheduler = make_noam_adamax(model.parameters(), args.d_model)
+                                                   block_k=args.attn_block_k, device=device,
+                                                   seq_group=group), seed=0)
     if os.path.exists(BEST_MODEL):
-        print("Loading Model")
+        log("Loading Model")
         load_flat_params(BEST_MODEL, model)
+    if args.fsdp:
+        shard_model(model, make_fsdp_mesh(args.fsdp))
+        log(f"FSDP: params+optimizer sharded over {args.fsdp} ranks")
+    optimizer, scheduler = make_noam_adamax(model.parameters(), args.d_model,
+                                            foreach=False if args.fsdp else None)
     loss_fn = make_flat_loss(model, render_cfg)
 
     tb_writer = None
     try:
-        from torch.utils.tensorboard import SummaryWriter
+        if is_lead():
+            from torch.utils.tensorboard import SummaryWriter
 
-        tb_writer = SummaryWriter("runs/gaussian_trainer_embed")
+            tb_writer = SummaryWriter("runs/gaussian_trainer_embed")
     except ImportError:
         pass
 
@@ -124,6 +159,10 @@ def main(argv=None, on_step=None):
             loss, metrics = loss_fn(batch["src"], batch["trg"], batch["trg_y"], batch["src_mask"],
                                     batch["trg_mask"], batch["cam"], dropout_key=(DROPOUT_BASE_SEED, global_step))
             loss.backward()
+            if ring:
+                reduce_grads(model.parameters(), group)
+            elif args.fsdp:
+                reduce_replicated_grads(model)
             optimizer.step()
             scheduler.step()
             if on_card:
@@ -143,14 +182,14 @@ def main(argv=None, on_step=None):
                 tb_writer.add_scalar("l2_loss", record["l2"], global_step)
             global_step += 1
         epoch_loss = total / max(len(order), 1)
-        print(f"Epoch: {epoch} Loss: {epoch_loss}")
+        log(f"Epoch: {epoch} Loss: {epoch_loss}")
         epochs.append({"epoch": epoch, "loss": epoch_loss})
         if epoch_loss < lowest_loss:
             lowest_loss, best_epoch = epoch_loss, epoch
             save_flat_params(BEST_MODEL, model)
     if tb_writer:
         tb_writer.close()
-    print("\nTraining complete.")
+    log("\nTraining complete.")
     return {"model": model, "optimizer": optimizer, "tscene": tscene, "history": history, "epochs": epochs,
             "best_epoch": best_epoch}
 

@@ -35,7 +35,12 @@ autocast, whose per-op lists are not flax's per-module dtypes):
   * the dense path's scores and softmax are float32 (flax's
     ``preferred_element_type``), the probabilities cast to v's dtype.
 
-Not ported: the sequence-parallel ring attention.
+Sequence parallelism (the JAX package's ``ring_axis``/``mesh``):
+``seq_group``, a ``torch.distributed`` process group, makes every attention
+``parallel/ring.py ring_attention`` over the group. The model then runs on
+this rank's token shards: LayerNorm, the FFN, the embeddings and the head
+are per token and stay local; masks keep the whole key axis (a query-
+broadcast mask whole, any other this rank's query rows).
 """
 
 from __future__ import annotations
@@ -125,14 +130,15 @@ def merge_heads(y: torch.Tensor) -> torch.Tensor:
 
 class MultiHeadedAttention(nn.Module):
     """h-head scaled dot-product attention; ``block_k > 0`` runs the
-    O(L)-memory blockwise path (same outputs, same dropout semantics)."""
+    O(L)-memory blockwise path (same outputs, same dropout semantics);
+    ``seq_group`` the ring over the group's token shards."""
 
     def __init__(self, h: int, d_model: int, dropout: float = 0.1, block_k: int = 0, device=None,
-                 dtype=torch.float32, param_dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=torch.float32, seq_group=None):
         super().__init__()
         if d_model % h:
             raise ValueError(f"d_model {d_model} is not a multiple of h {h}")
-        self.h, self.dropout, self.block_k = h, dropout, block_k
+        self.h, self.dropout, self.block_k, self.seq_group = h, dropout, block_k, seq_group
         for name in ("q", "k", "v", "out"):
             self.add_module(name, Dense(d_model, d_model, device, dtype, param_dtype))
 
@@ -142,7 +148,13 @@ class MultiHeadedAttention(nn.Module):
         v = split_heads(self.v(value), self.h)
         if mask is not None and mask.ndim == 3:
             mask = mask[:, None]  # broadcast over heads
-        if self.block_k > 0:
+        if self.seq_group is not None:
+            from gaussian_transformer_tpu_torch.parallel.ring import generator_key, ring_attention
+
+            train = rng is not None and self.dropout > 0.0
+            x = ring_attention(q, k, v, mask, self.seq_group, self.dropout if train else 0.0,
+                               generator_key(rng) if train else None)
+        elif self.block_k > 0:
             x = blockwise_attention(q, k, v, mask=mask, block_k=self.block_k,
                                     dropout_rate=self.dropout if rng is not None else 0.0,
                                     generator=rng)
@@ -170,9 +182,9 @@ class SublayerConnection(nn.Module):
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, h: int, dropout: float = 0.1, block_k: int = 0, device=None,
-                 dtype=torch.float32, param_dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=torch.float32, seq_group=None):
         super().__init__()
-        self.self_attn = MultiHeadedAttention(h, d_model, dropout, block_k, device, dtype, param_dtype)
+        self.self_attn = MultiHeadedAttention(h, d_model, dropout, block_k, device, dtype, param_dtype, seq_group)
         self.feed_forward = FeedForward(d_model, 2 * d_model, dropout, device, dtype, param_dtype)
         self.sub0 = SublayerConnection(d_model, dropout, device)
         self.sub1 = SublayerConnection(d_model, dropout, device)
@@ -184,10 +196,10 @@ class EncoderLayer(nn.Module):
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model: int, h: int, dropout: float = 0.1, block_k: int = 0, device=None,
-                 dtype=torch.float32, param_dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=torch.float32, seq_group=None):
         super().__init__()
-        self.self_attn = MultiHeadedAttention(h, d_model, dropout, block_k, device, dtype, param_dtype)
-        self.src_attn = MultiHeadedAttention(h, d_model, dropout, block_k, device, dtype, param_dtype)
+        self.self_attn = MultiHeadedAttention(h, d_model, dropout, block_k, device, dtype, param_dtype, seq_group)
+        self.src_attn = MultiHeadedAttention(h, d_model, dropout, block_k, device, dtype, param_dtype, seq_group)
         self.feed_forward = FeedForward(d_model, 2 * d_model, dropout, device, dtype, param_dtype)
         self.sub0 = SublayerConnection(d_model, dropout, device)
         self.sub1 = SublayerConnection(d_model, dropout, device)
@@ -202,11 +214,12 @@ class DecoderLayer(nn.Module):
 class _Stack(nn.Module):
     """N layers named layer0..layer{N-1}, then a final norm."""
 
-    def __init__(self, layer_cls, d_model, h, N, dropout, block_k, device, dtype, param_dtype):
+    def __init__(self, layer_cls, d_model, h, N, dropout, block_k, device, dtype, param_dtype, seq_group=None):
         super().__init__()
         self.N = N
         for i in range(N):
-            self.add_module(f"layer{i}", layer_cls(d_model, h, dropout, block_k, device, dtype, param_dtype))
+            self.add_module(f"layer{i}", layer_cls(d_model, h, dropout, block_k, device, dtype, param_dtype,
+                                                   seq_group))
         self.norm = TorchLayerNorm(d_model, device=device)
 
     def layers(self) -> List[nn.Module]:
@@ -215,8 +228,8 @@ class _Stack(nn.Module):
 
 class Encoder(_Stack):
     def __init__(self, d_model, h, N, dropout=0.1, block_k=0, device=None, dtype=torch.float32,
-                 param_dtype=torch.float32):
-        super().__init__(EncoderLayer, d_model, h, N, dropout, block_k, device, dtype, param_dtype)
+                 param_dtype=torch.float32, seq_group=None):
+        super().__init__(EncoderLayer, d_model, h, N, dropout, block_k, device, dtype, param_dtype, seq_group)
 
     def forward(self, x, mask, rng=None):
         for layer in self.layers():
@@ -226,8 +239,8 @@ class Encoder(_Stack):
 
 class Decoder(_Stack):
     def __init__(self, d_model, h, N, dropout=0.1, block_k=0, device=None, dtype=torch.float32,
-                 param_dtype=torch.float32):
-        super().__init__(DecoderLayer, d_model, h, N, dropout, block_k, device, dtype, param_dtype)
+                 param_dtype=torch.float32, seq_group=None):
+        super().__init__(DecoderLayer, d_model, h, N, dropout, block_k, device, dtype, param_dtype, seq_group)
 
     def forward(self, x, memory, src_mask, tgt_mask, rng=None):
         for layer in self.layers():
@@ -241,7 +254,7 @@ class EncoderDecoder(nn.Module):
 
     def __init__(self, src_g_len: int, tgt_g_len: int, N: int = 2, d_model: int = 32, h: int = 8,
                  dropout: float = 0.1, block_k: int = 0, dtype=torch.float32,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None, seq_group=None):
         super().__init__()
         check_dtypes(dtype, param_dtype)
         device = resolve_device(device)
@@ -249,8 +262,8 @@ class EncoderDecoder(nn.Module):
         self.N, self.d_model, self.h, self.block_k = N, d_model, h, block_k
         self.dtype, self.param_dtype = dtype, param_dtype
         kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
-        self.encoder = Encoder(d_model, h, N, dropout, block_k, **kw)
-        self.decoder = Decoder(d_model, h, N, dropout, block_k, **kw)
+        self.encoder = Encoder(d_model, h, N, dropout, block_k, seq_group=seq_group, **kw)
+        self.decoder = Decoder(d_model, h, N, dropout, block_k, seq_group=seq_group, **kw)
         self.src_embed = FeedForward(d_model, 2 * d_model, dropout, **kw)
         self.tgt_embed = FeedForward(d_model, 2 * d_model, dropout, **kw)
         # The regression head stays float32.
@@ -271,13 +284,15 @@ class EncoderDecoder(nn.Module):
 
 def make_model(stacking: int, src_g_len: int = 64, tgt_g_len: int = 64, N: int = 2,
                d_model: int = 32, h: int = 8, dropout: float = 0.1, block_k: int = 0,
-               dtype=torch.float32, param_dtype=torch.float32, device=None) -> EncoderDecoder:
+               dtype=torch.float32, param_dtype=torch.float32, device=None, seq_group=None) -> EncoderDecoder:
     """Construct the model (``stacking`` is part of the reference signature
     and unused, as there). Its weights are torch's defaults until
-    ``init_model``."""
+    ``init_model``. ``seq_group``: ring attention over the group's token
+    shards (the JAX package's ``ring_axis``/``mesh``)."""
     del stacking
     return EncoderDecoder(src_g_len, tgt_g_len, N=N, d_model=d_model, h=h, dropout=dropout,
-                          block_k=block_k, dtype=dtype, param_dtype=param_dtype, device=device)
+                          block_k=block_k, dtype=dtype, param_dtype=param_dtype, device=device,
+                          seq_group=seq_group)
 
 
 def _jax_path(name: str) -> tuple:

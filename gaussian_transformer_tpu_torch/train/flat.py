@@ -21,7 +21,15 @@ in either package. Batches pad to ``bucket`` multiples with PAD tokens
 same batches. Dropout comes from per-step generators
 (``train/stacked.py dropout_generator``).
 
-Not ported: the sequence-parallel ring mesh (the parallel tier).
+Sequence parallelism (``--seq_shard``): ``EmbeddedEncoderDecoder(seq_group=
+...)`` runs ring attention over the group (``parallel/ring.py``) on this
+rank's token shards. ``make_flat_loss`` still takes the whole batch: it
+hands the model this rank's rows (the source PAD mask whole, the target
+mask's query rows), all-gathers the generated tokens before its two renders,
+and every rank then computes the same loss (``collectives.replicated_output``
+makes it count once). The weight gradients are summed over the group
+(``reduce_grads``) before Adamax. Sequence lengths must divide by the group
+size, which the bucket padding keeps.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from gaussian_transformer_tpu_torch.models.transformer import (
     tensor_to_jax,
 )
 from gaussian_transformer_tpu_torch.ops.losses import l1_loss, l2_loss
+from gaussian_transformer_tpu_torch.parallel import collectives as cc
 from gaussian_transformer_tpu_torch.render import RenderConfig, render
 from gaussian_transformer_tpu_torch.train.stacked import dropout_generator
 
@@ -62,12 +71,14 @@ class EmbeddedEncoderDecoder(nn.Module):
     ``block_k > 0``: blockwise attention for long visible-set sequences."""
 
     def __init__(self, N: int = 6, d_model: int = 1024, h: int = 8, dropout: float = 0.1, block_k: int = 0,
-                 device=None):
+                 device=None, seq_group=None):
         super().__init__()
         device = resolve_device(device)
+        self.seq_group = seq_group
         self.embed_in_src = nn.Linear(TOKEN_DIM, d_model, device=device)
         self.embed_in_tgt = nn.Linear(TOKEN_DIM, d_model, device=device)
-        self.core = make_model(0, d_model, d_model, N, d_model, h, dropout, block_k, device=device)
+        self.core = make_model(0, d_model, d_model, N, d_model, h, dropout, block_k, device=device,
+                               seq_group=seq_group)
         self.out_proj = nn.Linear(d_model, TOKEN_DIM, device=device)
 
     def encode(self, src, src_mask, rng=None):
@@ -102,13 +113,13 @@ def noam_rate(step, model_size: int, factor: float = 0.5, warmup: int = 2000):
     return factor * (model_size ** (-0.5) * min(step ** (-0.5), step * warmup ** (-1.5)))
 
 
-def make_noam_adamax(params, model_size: int, factor: float = 0.5, warmup: int = 2000):
+def make_noam_adamax(params, model_size: int, factor: float = 0.5, warmup: int = 2000, foreach=None):
     """Adamax(b1 0.9, b2 0.98, eps 1e-4) and a ``LambdaLR`` at the Noam rate
     (call ``scheduler.step()`` after each ``optimizer.step()``). The k-th
     update runs at ``noam_rate(k - 1)``, which is ``noam_rate(1)`` for the
     first two: optax evaluates its schedule at the update count before the
     update, and ``LambdaLR``'s epoch counts the updates made so far."""
-    optimizer = torch.optim.Adamax(params, lr=1.0, betas=(0.9, 0.98), eps=1e-4)
+    optimizer = torch.optim.Adamax(params, lr=1.0, betas=(0.9, 0.98), eps=1e-4, foreach=foreach)
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda count: noam_rate(count, model_size, factor, warmup))
     return optimizer, scheduler
@@ -198,11 +209,21 @@ def make_flat_loss(model: EmbeddedEncoderDecoder, render_cfg: RenderConfig = Ren
     if use_lpips is None:
         use_lpips = lpips_mod.available("alex")
 
+    group = getattr(model, "seq_group", None)
+
     def loss_fn(batch_src, batch_trg, batch_trg_y, src_mask, trg_mask, cam,
                 dropout_key: Optional[Sequence[int]] = None):
-        rng = None if dropout_key is None else dropout_generator(batch_src.device, dropout_key)
-        out = model(batch_src, batch_trg, src_mask, trg_mask, rng)
-        x = model.generator(out)[0]  # [Lt, 26]
+        if group is None:
+            rng = None if dropout_key is None else dropout_generator(batch_src.device, dropout_key)
+            out = model(batch_src, batch_trg, src_mask, trg_mask, rng)
+            x = model.generator(out)[0]  # [Lt, 26]
+        else:
+            # This rank's token rows (and its own dropout draws).
+            n, me = cc.size(group), cc.rank(group)
+            rows = lambda t: t.chunk(n, dim=1)[me]
+            rng = None if dropout_key is None else dropout_generator(batch_src.device, tuple(dropout_key) + (me,))
+            out = model(rows(batch_src), rows(batch_trg), src_mask, rows(trg_mask), rng)
+            x = cc.all_gather(model.generator(out)[0], group)  # [Lt, 26]
 
         prompt = batch_src[0]
         g_combined = unflatten_gaussians(torch.cat([prompt, x], dim=0))
@@ -221,9 +242,20 @@ def make_flat_loss(model: EmbeddedEncoderDecoder, render_cfg: RenderConfig = Ren
         if use_lpips:
             loss = loss + 0.4 * lpips_mod.lpips(torch.clamp(image, 0, 1), torch.clamp(original, 0, 1), "alex")
         overflow = torch.stack([torch.as_tensor(o["overflow"]) for o in (out_gen, out_base)])
+        if group is not None:
+            loss = cc.replicated_output(loss, group)  # every rank scored the same renders
         return loss, {"base": base, "gen": gen, "l2": l2, "overflow": overflow}
 
     return loss_fn
+
+
+@torch.no_grad()
+def reduce_grads(params, group) -> None:
+    """Sum the weight gradients over ``group``: the ring's ranks each hold
+    their token shard's share."""
+    grads = [p.grad for p in params if p.grad is not None]
+    for g, total in zip(grads, cc.all_reduce_tensors(grads, group)):
+        g.copy_(total)
 
 
 @torch.no_grad()
@@ -245,9 +277,16 @@ def greedy_decode_flat(model: EmbeddedEncoderDecoder, src, src_mask, max_len: in
 
 def save_flat_params(path: str, model: nn.Module) -> None:
     """``np.savez`` of the parameters as the flax tree flattens them
-    (``arr_0, arr_1, ...``; dense kernels [in, out])."""
+    (``arr_0, arr_1, ...``; dense kernels [in, out]). Under
+    ``torch.distributed`` every rank calls it (FSDP shards are gathered
+    whole) and rank 0 alone writes."""
+    from gaussian_transformer_tpu_torch.parallel.fsdp import full_tensor
+    from gaussian_transformer_tpu_torch.parallel.mesh import is_lead
+
     params = dict(model.named_parameters())
-    np.savez(path, *[tensor_to_jax(n, params[n]) for n in jax_order(model)])
+    arrays = [tensor_to_jax(n, full_tensor(params[n])) for n in jax_order(model)]
+    if is_lead():
+        np.savez(path, *arrays)
 
 
 @torch.no_grad()

@@ -19,8 +19,17 @@ the same batches. The decode is checkpointed per step
 generator seeded from (dropout key, step), created inside the checkpointed
 function so its recomputation draws the same masks.
 
-Not ported: ``make_batch_group`` / ``make_dp_train_step`` (the parallel
-tier) and ``LiveViewerStream`` (the viewer).
+Data parallelism (``--dp``): ``make_batch_group`` draws N independent
+windows, identically on every rank (the same seeded ``rng``), and
+``make_dp_train_step`` has rank w decode and render window w, averages the
+gradients over the data axis and makes one update; with the model sharded
+by ``parallel/fsdp.py shard_model`` over a ``("data", "fsdp")`` mesh FSDP2
+does the averaging. The chamfer gate reads the loss on the host, but no
+collective lies inside either branch, so the ranks of a group issue theirs
+in the same order whatever their windows' gates say. Checkpoints of a
+sharded model are gathered whole and written by rank 0 alone.
+
+Not ported: ``LiveViewerStream`` (the viewer).
 """
 
 from __future__ import annotations
@@ -155,6 +164,40 @@ class TrainingScene:
         idxs = idxs[: (self.size // self.batch_size) * self.batch_size]
         for group in idxs.reshape(-1, self.batch_size):
             yield self.make_batch(list(group))
+
+    def make_batch_group(self, n_windows: int) -> Optional[StackedBatch]:
+        """``n_windows`` independent windows stacked on a leading axis for
+        the data-parallel step: each draws its own cameras and scheduled
+        split, and all re-pad to the group's common src/tgt lengths.
+        ``cameras`` is one list of cameras per window; ``trg_mask`` is None."""
+        idxs = np.arange(self.size)
+        self.rng.shuffle(idxs)
+        bs = self.batch_size
+        reps = [[int(idxs[(i * bs + j) % self.size]) for j in range(bs)] for i in range(n_windows)]
+        batches = [self.make_batch(g) for g in reps]
+        if any(b is None for b in batches):
+            return None
+        padt = pad_token(self.stack).numpy()
+
+        def repad(arr, want):
+            arr = arr[0].cpu().numpy()
+            return np.concatenate([arr, np.tile(padt, (want - len(arr), 1))], axis=0)
+
+        ls = max(b.src.shape[1] for b in batches)
+        lt = max(b.trg_y.shape[1] for b in batches)
+        src = torch.from_numpy(np.stack([repad(b.src, ls) for b in batches])).to(self.device)
+        trg_full = np.stack([np.concatenate([b.trg[0, :1].cpu().numpy(), repad(b.trg_y, lt)], axis=0)
+                             for b in batches])  # [N, lt + 1, D]: START + the re-padded targets
+        trg_full = torch.from_numpy(trg_full).to(self.device)
+        return StackedBatch(
+            src=src,
+            src_mask=~fuzzy_token_equal(src, pad_token(self.stack))[:, None, :],
+            trg=trg_full[:, :-1],
+            trg_y=trg_full[:, 1:],
+            trg_mask=None,
+            cameras=[b.cameras for b in batches],
+            ntokens=sum(b.ntokens for b in batches),
+        )
 
     def make_batch(self, cam_idxs: Sequence[int]) -> Optional[StackedBatch]:
         fold = 2**self.stack
@@ -341,8 +384,12 @@ class ReduceLROnPlateau:
 
 def make_optimizer(model: EncoderDecoder, lr: float = 5e-4) -> torch.optim.Adam:
     """Adam(b1 0.9, b2 0.999, eps 1e-4); the train step sets the lr. optax's
-    ``adam(1.0)`` scaled by lr is the same update."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-4)
+    ``adam(1.0)`` scaled by lr is the same update. On an FSDP-sharded model
+    the per-tensor loop (its shards are DTensors, its small leaves not)."""
+    from gaussian_transformer_tpu_torch.parallel.fsdp import is_sharded
+
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-4,
+                            foreach=False if is_sharded(model) else None)
 
 
 def make_train_step(model: EncoderDecoder, handler: GaussianHandler, render_cfg: RenderConfig,
@@ -351,16 +398,60 @@ def make_train_step(model: EncoderDecoder, handler: GaussianHandler, render_cfg:
     (loss, metrics): one loss, its backward and one update at ``lr`` (the
     JAX step's ``updates * lr``: Adam's rule at ``lr``, ``Adafactor``'s
     update scaled by it)."""
+    from gaussian_transformer_tpu_torch.parallel.fsdp import is_sharded, reduce_replicated_grads
+
     loss_fn = make_loss_fn(model, handler, render_cfg, stack)
 
     def step(src, trg_y, cams, lr: float, src_mask=None, dropout_key=None):
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(src, trg_y, cams, src_mask, dropout_key)
         loss.backward()
+        if is_sharded(model):
+            reduce_replicated_grads(model)
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
         return loss.detach(), metrics
+
+    return step
+
+
+def make_dp_train_step(model: EncoderDecoder, handler: GaussianHandler, render_cfg: RenderConfig,
+                       optimizer: torch.optim.Optimizer, stack: int = STACK, mesh=None, axis: str = "data"):
+    """Data-parallel step over independent windows (``make_batch_group``):
+    rank w of mesh axis ``axis`` decodes and renders window w with its own
+    cameras and dropout key (``dropout_key + (w,)``, (0, w) without one: the
+    step always runs in train mode, as the JAX package's), the gradients are
+    averaged over the axis, and one update follows on every rank. Returns
+    step(src, trg_y, cams, lr, src_mask, dropout_key=None) -> (loss,
+    metrics), both the mean over the windows; the arguments are the whole
+    group's. On a ``("data", "fsdp")`` mesh with the model sharded by
+    ``parallel/fsdp.py shard_model`` over it, FSDP2 averages over the mesh."""
+    from gaussian_transformer_tpu_torch.parallel import collectives as cc
+    from gaussian_transformer_tpu_torch.parallel.fsdp import is_sharded, reduce_replicated_grads
+
+    loss_fn = make_loss_fn(model, handler, render_cfg, stack)
+    group = mesh.get_group(axis)
+    w = mesh.get_local_rank(axis)
+
+    def step(src, trg_y, cams, lr: float, src_mask, dropout_key=None):
+        optimizer.zero_grad(set_to_none=True)
+        key = tuple(dropout_key if dropout_key is not None else (0,)) + (w,)
+        loss, metrics = loss_fn(src[w:w + 1], trg_y[w:w + 1], cams[w], src_mask[w:w + 1], key)
+        loss.backward()
+        if is_sharded(model):
+            reduce_replicated_grads(model)
+        else:
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            for g, mean in zip(grads, cc.all_reduce_tensors(grads, group, "mean")):
+                g.copy_(mean)
+        for g in optimizer.param_groups:
+            g["lr"] = lr
+        optimizer.step()
+        with torch.no_grad():
+            names = sorted(k for k, v in metrics.items() if v.ndim == 0)
+            mean = cc.all_reduce(torch.stack([loss.detach()] + [metrics[k].float() for k in names]), group, "mean")
+        return mean[0], dict(zip(names, mean[1:]))
 
     return step
 
@@ -373,29 +464,42 @@ def make_train_step(model: EncoderDecoder, handler: GaussianHandler, render_cfg:
 
 
 def save_checkpoint(run_dir: str, epoch, model: EncoderDecoder, optimizer: torch.optim.Optimizer) -> None:
+    """Write ``checkpoint_<epoch>/{model,optim}.npz``. Under
+    ``torch.distributed`` every rank calls it (an FSDP shard is gathered
+    whole, a collective) and rank 0 alone writes."""
+    from gaussian_transformer_tpu_torch.parallel.fsdp import full_tensor
+    from gaussian_transformer_tpu_torch.parallel.mesh import is_lead
+
     d = os.path.join(run_dir, f"checkpoint_{epoch}")
-    os.makedirs(d, exist_ok=True)
     names = jax_order(model)
     params = dict(model.named_parameters())
-    np.savez(os.path.join(d, "model.npz"), *[tensor_to_jax(n, params[n]) for n in names])
     states = [optimizer.state.get(params[n], {}) for n in names]
     count = next((int(st["step"]) for st in states if st), 0)
+    weights = [tensor_to_jax(n, full_tensor(params[n])) for n in names]
     if isinstance(optimizer, Adafactor):
         # The state is already in the flax layout (train/adafactor.py).
         states = [st or Adafactor.init_state(params[n]) for n, st in zip(names, states)]
         leaves = [tensor_to_numpy(st[k]) for k in ("v_row", "v_col", "v") for st in states]
     else:
-        def moment(n, st, key):
-            return tensor_to_jax(n, st[key]) if st else np.zeros_like(tensor_to_jax(n, params[n]))
+        def moment(i, n, st, key):
+            return tensor_to_jax(n, full_tensor(st[key])) if st else np.zeros_like(weights[i])
 
-        leaves = [moment(n, st, key) for key in ("exp_avg", "exp_avg_sq") for n, st in zip(names, states)]
+        leaves = [moment(i, n, st, key) for key in ("exp_avg", "exp_avg_sq") for i, (n, st) in
+                  enumerate(zip(names, states))]
+    if not is_lead():
+        return
+    os.makedirs(d, exist_ok=True)
+    np.savez(os.path.join(d, "model.npz"), *weights)
     np.savez(os.path.join(d, "optim.npz"), np.asarray(count, np.int32), *leaves)
 
 
 @torch.no_grad()
 def load_checkpoint(run_dir: str, epoch, model: EncoderDecoder, optimizer: torch.optim.Optimizer) -> None:
     """Load a checkpoint written by either package into ``model`` and
-    ``optimizer`` (Adam or Adafactor, as it was saved) in place."""
+    ``optimizer`` (Adam or Adafactor, as it was saved) in place; an FSDP
+    shard takes its piece of each whole tensor."""
+    from gaussian_transformer_tpu_torch.parallel.fsdp import like
+
     d = os.path.join(run_dir, f"checkpoint_{epoch}")
     names = jax_order(model)
     params = dict(model.named_parameters())
@@ -405,7 +509,7 @@ def load_checkpoint(run_dir: str, epoch, model: EncoderDecoder, optimizer: torch
 
     def from_jax(name, arr):
         p = params[name]
-        return leaf(arr.T if name.endswith("weight") else arr, p).contiguous()
+        return like(leaf(arr.T if name.endswith("weight") else arr, p).contiguous(), p)
 
     with np.load(os.path.join(d, "model.npz")) as m:
         for i, n in enumerate(names):

@@ -352,8 +352,11 @@ def test_cli_trains_saves_and_reloads_best_model(model_dir, tmp_path, capsys, mo
 
 
 @pytest.mark.parametrize("flag", [["--seq_shard", "2"], ["--fsdp", "2"]])
-def test_cli_parallel_flags_raise(model_dir, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_cli_parallel_flags_raise(model_dir, flag, monkeypatch):
+    """The flags need one process per shard (torchrun): a single process
+    asked for 2 raises before it trains."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         cli.main(["-s", str(model_dir / "data"), "-m", str(model_dir / "model"), "--device", "cpu", *flag])
 
 
