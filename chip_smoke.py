@@ -306,6 +306,41 @@ through the sharded paths, not scaling:
 The kernels line's K1-K4 entries carry these runs' launches as
 ``tier_launches``.
 
+The viewer bridge (``viewer/network_gui.py``), the native IO tier
+(``native/``) and ``cli.full_eval``:
+
+31. After section 26b: a SIBR client thread over 127.0.0.1 asks
+    ``network_gui.pump`` for 20 frames of section 2's scene at 1920x1080
+    (the test views, scaling modifiers 1 and 0.5); checks each frame equals
+    ``image_to_bytes(render(...))`` of its camera and names the source
+    path, and K1 ran once a frame; the ms a frame from the request sent to
+    the last byte received, beside the render alone. 31b: ``cli.train`` on
+    section 6's dataset with ``--port`` for 30 iterations, a client asking
+    for 20 frames (train=True); the loss falls, the frames arrive whole.
+    31c: with the listener bound and no client, one train step of section
+    7's checkpoint with and without a pump before it: the same host
+    synchronisations by call site and the same CUDA kernels.
+32. After section 29, on a fresh model of section 16's weights and its
+    first batch: ``pump_stacked`` with train=False streams the cached
+    decode, one frame a token, each equal to ``LiveViewerStream.compose``
+    of the same carry (K1 once a frame); a train=True tick serves the
+    teacher-forced composite and leaves ``model.training`` True; the ms a
+    streamed frame beside section 16's cached decode ms a token.
+33. The machine's libjpeg/libpng/g++ probe, the tier's build (with the
+    codecs that compile and link; the reason for any left out), its
+    readers against the Python ones bit for bit on a COLMAP binary model of
+    section 6's views (images.bin, points3D.bin, the PNG decode when libpng
+    is built) and on section 2's PLY (read and write), each timed; the
+    JPEG fixture against its array (1 level) when libjpeg is built, else a
+    COLMAP folder of JPEGs raising the error that names libjpeg; the
+    COLMAP folder through ``Scene``. 33b: ``cli.full_eval
+    --skip_training`` over synthetic roots, one scene per list, its
+    renders and metrics in child processes on the card; PSNR against a
+    numpy recomputation.
+
+The kernels line's K1-K4 entries carry the launches of sections 31-32 as
+``viewer_launches``.
+
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
 before and after its window. The K3, K4, K7 and K8 entries of the kernels
 line carry the registers, spills and static shared memory ``nvcc -Xptxas
@@ -726,10 +761,11 @@ def train_step_profile(ckpt: Path, cam, gt, cfg, device, top: int = 25) -> str:
     return prof.key_averages().table(sort_by="cuda_time_total", row_limit=top, max_name_column_width=60)
 
 
-def train_step_syncs(ckpt: Path, cam, gt, cfg, device) -> dict:
+def train_step_syncs(ckpt: Path, cam, gt, cfg, device, before=None) -> dict:
     """The host synchronisations one warm train step makes (PyTorch's sync
     debug mode set to warn), by call site: {"file:line <- caller <- caller": count},
-    the innermost frames in the port."""
+    the innermost frames in the port; ``before()``, if given, is called
+    just before each step."""
     import collections
     import traceback
     import warnings
@@ -741,6 +777,8 @@ def train_step_syncs(ckpt: Path, cam, gt, cfg, device) -> dict:
     scene, adam, stats, it, slrs = restore(dict(np.load(ckpt, allow_pickle=False)), device)
     cam.original_image = gt
     bg = torch.zeros(3, device=device)
+    before = before or (lambda: None)
+    before()
     scene, adam, stats, _ = train_step(scene, adam, stats, cam, bg, it, slrs, OptConfig(), cfg)
     torch.cuda.synchronize()
     sites = collections.Counter()
@@ -756,6 +794,7 @@ def train_step_syncs(ckpt: Path, cam, gt, cfg, device) -> dict:
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
+            before()
             train_step(scene, adam, stats, cam, bg, it + 1, slrs, OptConfig(), cfg)
         finally:
             torch.cuda.set_sync_debug_mode(0)
@@ -955,6 +994,8 @@ def run(args, device) -> dict:
     kernels_line["kernels"] += probe_path(args, device, summary)
     kernels_line["kernels"] += bf16_path(args, device, scene, fovx, splits["test"], train_cfg, summary)
     nopallas_path(args, device, scene, fovx, splits["test"], summary)
+    summary["viewer_launches"] = viewer_path(args, device, summary, scene, fovx, splits["test"], train_cfg)
+    native_io_path(args, device, summary)
     summary.update(kernels_line)
     return summary
 
@@ -2511,12 +2552,16 @@ def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYE
         peak("18")
 
     stacked_tier_path(args, device, summary, data, model_dir, work, tscene, batch, stack, layers)
+    # Section 32 and 16b: section 16's model again.
+    model = stacked.make_stacked_model(stack, layers, 0, seed=0, device=device).eval()
+    summary["stacked_stream_launches"] = stacked_viewer_path(args, device, summary, model, tscene, batch,
+                                                             stack)["stream"]
+    model.eval()
     if on_card:
         # Last, as a torch.profiler window slows the host's launches for the
-        # rest of the process: section 16's model again, one cached decode
-        # profiled, then the same timings as section 16's.
+        # rest of the process: one cached decode profiled, then the same
+        # timings as section 16's.
         print("== 16b. serving under torch.profiler: the cached decode's kernels and device idle share")
-        model = stacked.make_stacked_model(stack, layers, 0, seed=0, device=device).eval()
         run_cached = lambda: greedy_decode_cached(model, batch.src, batch.src_mask, Lt + 1, start)
         clk = sm_clock()
         with torch.no_grad():
@@ -2531,7 +2576,7 @@ def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYE
         print_clocks(clk, "16b")
         summary.update(stacked_cached_busy_ms=busy_ms, stacked_cached_wall_ms=wall_ms,
                        stacked_cached_kernels=n_kernels, stacked_cached_after_profiler_ms=after_ms)
-        del model
+    del model
     return out
 
 
@@ -3809,6 +3854,574 @@ def flat_tier_path(args, device, summary, d_model=FLAT_D, layers=FLAT_LAYERS) ->
     return summary["tier_flat_launches"]
 
 
+# ------------------------------------------------------ the viewer bridge ---
+
+VIEWER_REQUESTS = 20  # served frames timed in section 31
+VIEWER_TRAIN_ITERS = 30  # cli.train iterations with a client attached
+VIEWER_TRAIN_FRAMES = 20  # frames the client asks for during them
+# full_eval's synthetic roots: one scene per list (a child process per
+# render and one for the metrics), at this size.
+FULL_EVAL_SCENES = {"mipnerf360_outdoor_scenes": ["bicycle"], "mipnerf360_indoor_scenes": ["room"],
+                    "tanks_and_temples_scenes": ["truck"], "deep_blending_scenes": ["drjohnson"]}
+FULL_EVAL_GAUSSIANS, FULL_EVAL_VIEWS, FULL_EVAL_W, FULL_EVAL_H = 50_000, 3, 480, 270
+
+
+def free_port() -> int:
+    """A free localhost port (bind port 0, read it, release it)."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sibr_request(cam, train: bool, keep_alive: bool = True, smod: float = 1.0, shs_python: bool = False) -> bytes:
+    """The SIBR viewer's request for ``cam`` (its matrices with the
+    protocol's flips undone, which ``receive`` flips back)."""
+    view = np.array(cam.world_view_transform.detach().cpu().numpy(), np.float32)
+    proj = np.array(cam.full_proj_transform.detach().cpu().numpy(), np.float32)
+    view[:, 1:3] *= -1
+    proj[:, 1] *= -1
+    msg = {"resolution_x": cam.image_width, "resolution_y": cam.image_height, "train": train,
+           "fov_y": cam.FoVy, "fov_x": cam.FoVx, "z_near": 0.01, "z_far": 100.0, "shs_python": shs_python,
+           "rot_scale_python": False, "keep_alive": keep_alive, "scaling_modifier": smod,
+           "view_matrix": [float(v) for v in view.ravel()],
+           "view_projection_matrix": [float(v) for v in proj.ravel()]}
+    payload = json.dumps(msg).encode()
+    return len(payload).to_bytes(4, "little") + payload
+
+
+class SibrClient:
+    """A SIBR viewer in a thread: it connects to ``port`` (retrying until the
+    listener is bound), sends each request once the reply to the last one
+    has arrived, and records (image bytes, verify string, ms from the
+    request sent to the reply's last byte) per reply; then it closes the
+    connection, which ends the server's service."""
+
+    def __init__(self, port: int, requests, image_bytes, timeout: float = 300.0):
+        import threading
+
+        self.port, self.requests, self.timeout = port, list(requests), timeout
+        self.image_bytes = image_bytes if isinstance(image_bytes, list) else [image_bytes] * len(self.requests)
+        self.replies, self.error = [], None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _recv(self, s, n) -> bytes:
+        out = bytearray()
+        while len(out) < n:
+            chunk = s.recv(min(n - len(out), 1 << 22))
+            if not chunk:
+                raise ConnectionError("closed mid-reply")
+            out += chunk
+        return bytes(out)
+
+    def _run(self):
+        import socket
+
+        try:
+            deadline = time.time() + self.timeout
+            while True:
+                try:
+                    s = socket.create_connection(("127.0.0.1", self.port), timeout=self.timeout)
+                    break
+                except ConnectionRefusedError:
+                    if time.time() > deadline:
+                        raise
+                    time.sleep(0.05)
+            with s:
+                for req, n in zip(self.requests, self.image_bytes):
+                    t0 = time.perf_counter()
+                    s.sendall(req)
+                    img = self._recv(s, n)
+                    verify = self._recv(s, int.from_bytes(self._recv(s, 4), "little")).decode("ascii")
+                    self.replies.append((img, verify, (time.perf_counter() - t0) * 1e3))
+        except Exception as e:  # read by the main thread
+            self.error = e
+
+    @property
+    def done(self) -> bool:
+        return not self.thread.is_alive()
+
+    def join(self):
+        self.thread.join(self.timeout)
+        check(self.error is None and self.done, f"the SIBR client finished ({self.error!r})")
+
+
+def serve_until(client, tick, timeout: float = 300.0) -> None:
+    """Call ``tick()`` (one viewer pump) until ``client`` is done."""
+    deadline = time.time() + timeout
+    while not client.done and time.time() < deadline:
+        tick()
+        time.sleep(0.001)
+    client.join()
+
+
+def step_kernels(ckpt: Path, cam, gt, cfg, device, before=None) -> int:
+    """The CUDA kernels one warm train step of the state in ``ckpt`` launches
+    (torch.profiler), with ``before()`` called just before each step."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.train.splat import OptConfig, restore, train_step
+
+    scene, adam, stats, it, slrs = restore(dict(np.load(ckpt, allow_pickle=False)), device)
+    cam.original_image = gt
+    bg = torch.zeros(3, device=device)
+
+    def step():
+        if before is not None:
+            before()
+        train_step(scene, adam, stats, cam, bg, it, slrs, OptConfig(), cfg)
+
+    return step_profile(step)[3]
+
+
+def viewer_path(args, device, summary, scene, fovx, test_c2ws, train_cfg) -> dict:
+    """Section 31: the SIBR viewer bridge on the 3DGS path. Returns the K1-K4
+    launches of its runs (the served frames, cli.train with a client)."""
+    import shutil
+
+    import torch
+
+    from gaussian_transformer_tpu_torch.cli import train as cli_train
+    from gaussian_transformer_tpu_torch.render import RenderConfig, render
+    from gaussian_transformer_tpu_torch.utils.png import read_png
+    from gaussian_transformer_tpu_torch.viewer import network_gui
+
+    on_card = device.type == "cuda"
+    smi = smi_line(device)
+    W, H = args.width, args.height
+    work = Path(args.work)
+    data, model = work / "train_data", work / "train_model"
+    counters = kernel_counters()
+    out = {}
+
+    print(f"== 31. the SIBR viewer: network_gui.pump serving section 2's scene ({args.gaussians} Gaussians, "
+          f"SH 3) at {W}x{H} to a client over 127.0.0.1, {VIEWER_REQUESTS} requests over the test views")
+    cams = [camera_from_c2w(c, fovx, W, H, device) for c in test_c2ws]
+    smods = [(1.0, 0.5)[i % 2] for i in range(VIEWER_REQUESTS)]
+    reqs = [sibr_request(cams[i % len(cams)], train=i == VIEWER_REQUESTS - 1, smod=smods[i])
+            for i in range(VIEWER_REQUESTS)]
+    served = []
+
+    @torch.no_grad()
+    def render_fn(cam, smod):
+        served.append((cam, smod))
+        return render(cam, scene, RenderConfig(), scaling_modifier=smod)["render"]
+
+    port = free_port()
+    network_gui.init("127.0.0.1", port)
+    zero_counts(counters)
+    client = SibrClient(port, reqs, W * H * 3)
+    serve_until(client, lambda: network_gui.pump(render_fn, source_path=str(data), device=device))
+    served_launches = read_counts(counters)
+    network_gui.conn = None
+    check(len(client.replies) == VIEWER_REQUESTS and len(served) == VIEWER_REQUESTS,
+          f"{VIEWER_REQUESTS} frames served ({len(client.replies)} received, {len(served)} rendered)")
+    if on_card:
+        check(served_launches["K1"] == VIEWER_REQUESTS, f"K1 launched once per served frame ({served_launches})")
+    mismatched = 0
+    with torch.no_grad():
+        for (img, verify, _), (cam, smod) in zip(client.replies, served):
+            direct = bytes(network_gui.image_to_bytes(render(cam, scene, RenderConfig(), scaling_modifier=smod)["render"]))
+            mismatched += img != direct or verify != str(data)
+    check(mismatched == 0, f"every served frame equals image_to_bytes(render(...)) of its camera and "
+                           f"scaling modifier, and names the source path ({mismatched} of {VIEWER_REQUESTS} differ)")
+    check(len({img for img, _, _ in client.replies[:2]}) == 2, "scaling modifiers 1 and 0.5 serve different frames")
+    frame_ms = [ms for _, _, ms in client.replies]
+    out["served"] = served_launches
+    summary.update(viewer_frame_ms=frame_ms)
+    if on_card:
+        with torch.no_grad():
+            render_ms = {smod: cuda_ms(lambda: render(cams[0], scene, RenderConfig(), scaling_modifier=smod), reps=5)
+                         for smod in (1.0, 0.5)}
+            bytes_ms = cuda_ms(lambda: network_gui.image_to_bytes(
+                render(cams[0], scene, RenderConfig())["render"]), reps=5)
+        print(f"[{smi}] served frame, request sent to last byte received: {spread(frame_ms)}; the render alone "
+              f"(test view 0, CUDA events): {render_ms[1.0]:.3f} ms at smod 1.0, {render_ms[0.5]:.3f} ms at 0.5; "
+              f"render + image_to_bytes: {bytes_ms:.3f} ms")
+        summary.update(viewer_render_ms=render_ms, viewer_render_bytes_ms=bytes_ms)
+    network_gui.listener.close()
+
+    print(f"== 31b. cli.train on section 6's dataset for {VIEWER_TRAIN_ITERS} iterations with --port and a client "
+          f"asking for {VIEWER_TRAIN_FRAMES} frames (train=True) of train view 0")
+    with open(data / "transforms_train.json") as f:
+        c2w0 = json.load(f)["frames"][0]["transform_matrix"]
+    cam0 = camera_from_c2w(c2w0, fovx, W, H, device)
+    vmodel = work / "viewer_model"
+    shutil.rmtree(vmodel, ignore_errors=True)
+    port = free_port()
+    client = SibrClient(port, [sibr_request(cam0, train=True, keep_alive=False)] * VIEWER_TRAIN_FRAMES, W * H * 3)
+    zero_counts(counters)
+    dev_arg = [] if on_card else ["--device", str(device)]
+    n = VIEWER_TRAIN_ITERS
+    t0 = time.time()
+    res = cli_train.main(["-s", str(data), "-m", str(vmodel), "-r", "1", "--eval", "--iterations", str(n),
+                          "--test_iterations", str(n), "--save_iterations", str(n), "--quiet",
+                          "--ip", "127.0.0.1", "--port", str(port)] + dev_arg)
+    t_train = time.time() - t0
+    client.join()
+    network_gui.conn = None
+    network_gui.listener.close()
+    train_launches = read_counts(counters)
+    losses = [h["loss"] for h in res["history"]]
+    print(f"cli.train with the viewer: {n} steps in {t_train:.1f} s; launches {train_launches}; "
+          f"{len(client.replies)} frames received")
+    check(len(losses) == n and all(math.isfinite(v) for v in losses), "every loss is finite")
+    check(np.mean(losses[-10:]) < np.mean(losses[:10]), "the loss falls")
+    check(len(client.replies) == VIEWER_TRAIN_FRAMES and all(len(img) == W * H * 3 and verify == str(data)
+                                                             for img, verify, _ in client.replies),
+          f"{VIEWER_TRAIN_FRAMES} frames of {W}x{H}x3 bytes arrived, each naming the source path")
+    if on_card:
+        extra = summary["train_launches"]["K1"] - args.iterations  # section 7's probe and evaluation renders
+        check(train_launches["K1"] == n + VIEWER_TRAIN_FRAMES + extra and train_launches["K2"] == n,
+              f"K1 once per step and per served frame, plus the probe and evaluation renders ({extra}, as in "
+              f"section 7); K2 once per step")
+    out["cli_train"] = train_launches
+    summary.update(viewer_train_s=t_train, viewer_train_frame_ms=[ms for _, _, ms in client.replies])
+
+    if on_card:
+        print("== 31c. a bound listener and no client: section 9's tools on one train step with and without a pump "
+              "before it")
+        ckpt = model / f"chkpnt{args.iterations}.npz"
+        gt = torch.as_tensor(read_png(str(data / "train" / "r_0.png"))[..., :3].transpose(2, 0, 1) / 255.0,
+                             dtype=torch.float32, device=device)
+        network_gui.init("127.0.0.1", free_port())
+        pump = lambda: network_gui.pump(lambda c, s: None, device=device)
+        syncs = {"no listener": train_step_syncs(ckpt, cam0, gt, train_cfg, device),
+                 "pump, no client": train_step_syncs(ckpt, cam0, gt, train_cfg, device, before=pump)}
+        kernels_n = {"no listener": step_kernels(ckpt, cam0, gt, train_cfg, device),
+                     "pump, no client": step_kernels(ckpt, cam0, gt, train_cfg, device, before=pump)}
+        network_gui.listener.close()
+        print("host synchronisations of one step by call site: " + json.dumps(syncs))
+        print(f"CUDA kernels of one step (torch.profiler): {kernels_n}")
+        check(syncs["no listener"] == syncs["pump, no client"], "the pump adds no host synchronisation")
+        check(kernels_n["no listener"] == kernels_n["pump, no client"], "the pump adds no launch")
+        summary.update(viewer_step_syncs=syncs, viewer_step_kernels=kernels_n)
+    return out
+
+
+class RecordingStream:
+    """A LiveViewerStream that keeps a copy of every carry it renders (the
+    decoded rows, their count) and the request's camera and flags."""
+
+    def __init__(self, inner):
+        self.inner, self.rendered = inner, []
+
+    @property
+    def n_steps(self):
+        return self.inner.n_steps
+
+    def start(self):
+        return self.inner.start()
+
+    def step(self, carry):
+        return self.inner.step(carry)
+
+    def render(self, carry, cam, smod, show_prompt, show_pred):
+        self.rendered.append((carry[0].clone(), carry[2], cam, smod, show_prompt, show_pred))
+        return self.inner.render(carry, cam, smod, show_prompt, show_pred)
+
+
+def stacked_viewer_path(args, device, summary, model, tscene, batch, stack) -> dict:
+    """Section 32: the stacked live stream on section 16's model and first
+    batch. Returns the K1 launches of the stream (by run)."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.render import RenderConfig
+    from gaussian_transformer_tpu_torch.train import stacked
+    from gaussian_transformer_tpu_torch.viewer import network_gui
+
+    on_card = device.type == "cuda"
+    smi = smi_line(device)
+    counters = kernel_counters()
+    cam = batch.cameras[0]
+    W, H = cam.image_width, cam.image_height
+    Lt = batch.trg_y.shape[1]
+    print(f"== 32. the stacked live stream: pump_stacked with train=False streams the cached decode of the first "
+          f"batch ({Lt} tokens), one {W}x{H} frame a token (show_prompt and show_pred)")
+    stream = stacked.LiveViewerStream(model, tscene.handler, RenderConfig(), stack)
+    stream.set_batch(batch)
+    rec = RecordingStream(stream)
+    reqs = [sibr_request(cam, train=False, keep_alive=True, shs_python=True) for _ in range(Lt)]
+    reqs.append(sibr_request(cam, train=True))
+    port = free_port()
+    network_gui.init("127.0.0.1", port)
+    model.eval()
+    zero_counts(counters)
+    client = SibrClient(port, reqs, W * H * 3)
+    serve_until(client, lambda: network_gui.pump_stacked(lambda *a: None, rec, "stacked", device=device))
+    stream_launches = read_counts(counters)
+    network_gui.conn = None
+    frames = [img for img, _, _ in client.replies]
+    check(len(rec.rendered) == Lt and len(frames) == Lt + 1,
+          f"one frame per decoded token ({len(rec.rendered)} rendered of {Lt}), then the last again ({len(frames)})")
+    if on_card:
+        check(stream_launches["K1"] == Lt, f"K1 once per streamed frame ({stream_launches})")
+    with torch.no_grad():
+        expect = [bytes(network_gui.image_to_bytes(stream.compose(ys, i, c, s, p, q)))
+                  for ys, i, c, s, p, q in rec.rendered]
+    check(frames[:Lt] == expect and frames[Lt] == expect[-1],
+          "each streamed frame equals LiveViewerStream.compose of the same carry")
+    check([i for _, i, *_ in rec.rendered] == list(range(1, Lt + 1)), "the frames follow the decode steps 1..Lt")
+    frame_ms = [ms for _, _, ms in client.replies[:Lt]]
+    out = {"stream": stream_launches}
+
+    print("== 32b. one train=True tick: the teacher-forced composite of the batch, the model in train mode after")
+    model.train()
+    fn = stacked.make_viewer_train_fn(stream)
+    client = SibrClient(port, [sibr_request(cam, train=True, keep_alive=True, shs_python=True)], W * H * 3)
+    serve_until(client, lambda: network_gui.pump_stacked(fn, stream, "stacked", device=device))
+    network_gui.conn = None
+    network_gui.listener.close()
+    check(model.training, "model.training is True after the train-mode tick")
+    with torch.no_grad():
+        model.eval()
+        gen = model.generator(model.decode(model.encode(batch.src, batch.src_mask), batch.src_mask, batch.trg,
+                                           batch.trg_mask))
+        expect = bytes(network_gui.image_to_bytes(stream.compose(gen, gen.shape[1], cam, 1.0, True, True)))
+    check(len(client.replies) == 1 and client.replies[0][0] == expect,
+          "the train-mode frame is the teacher-forced decode's composite")
+    summary.update(stacked_stream_frame_ms=frame_ms)
+    if on_card:
+        med = float(np.median(frame_ms))
+        tok = summary.get("stacked_cached_ms_per_token")
+        with torch.no_grad():
+            carry = stream.start()
+            for _ in range(Lt // 2):
+                carry = stream.step(carry)
+            step_ms = cuda_ms_each(lambda: stream.step((carry[0], carry[1], Lt // 2)), reps=5)
+            comp_ms = cuda_ms_each(lambda: stream.render((carry[0], carry[1], Lt // 2), cam, 1.0, True, True), reps=5)
+        print(f"[{smi}] streamed frame (request sent to last byte received: decode step + render + bytes): "
+              f"{spread(frame_ms)}; section 16's cached decode {tok if tok is None else round(tok, 3)} ms/token; "
+              f"at token {Lt // 2}: decode step {spread(step_ms)}, composite render {spread(comp_ms)}")
+        summary.update(stacked_stream_frame_ms_median=med, stacked_stream_step_ms=step_ms,
+                       stacked_stream_render_ms=comp_ms)
+    return out
+
+
+# ------------------------------------------------- native IO and full_eval ---
+
+
+def io_probe() -> str:
+    """What the machine offers the native IO tier: the headers, the
+    libraries the loader knows, the compiler."""
+    cmd = ("ls /usr/include/jpeglib.h /usr/include/png.h 2>&1; ldconfig -p | grep -E 'jpeg|png'; "
+           "g++ --version 2>&1 | head -1")
+    return subprocess.run(["bash", "-c", cmd], capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def write_full_eval_roots(root: Path, device, scenes=None, gaussians=FULL_EVAL_GAUSSIANS, views=FULL_EVAL_VIEWS,
+                          width=FULL_EVAL_W, height=FULL_EVAL_H, seed=0) -> dict:
+    """Synthetic roots for ``cli.full_eval --skip_training``: per scene of
+    ``scenes`` ({full_eval list name: [scene]}), a COLMAP binary dataset
+    under ``root/<m360|tat|db>/<scene>`` (the image folder the list trains
+    on: images_4, images_2 or images; the ground truth a render plus
+    N(0, 0.05)) and a trained model dir ``root/eval/<scene>`` holding
+    point_cloud/iteration_7000 and _30000 and its cfg_args. Returns the
+    full_eval flags and {scene: model dir}."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.config import save_cfg_args
+    from gaussian_transformer_tpu_torch.convert import scene_from_numpy
+    from gaussian_transformer_tpu_torch.render import render
+    from gaussian_transformer_tpu_torch.tools.synthetic import write_colmap_binary
+
+    scenes = scenes or FULL_EVAL_SCENES
+    where = {"mipnerf360_outdoor_scenes": ("m360", "images_4"), "mipnerf360_indoor_scenes": ("m360", "images_2"),
+             "tanks_and_temples_scenes": ("tat", "images"), "deep_blending_scenes": ("db", "images")}
+    fovx = math.radians(50.0)
+    models = {}
+    for k, (lst, names) in enumerate(sorted(scenes.items())):
+        for name in names:
+            base, images = where[lst]
+            src, model = root / base / name, root / "eval" / name
+            fields = synthetic_scene(gaussians, seed + k)
+            scene = scene_from_numpy(fields, 3, device)
+            rng = np.random.RandomState(seed + k)
+            shots = []
+            for i in range(views):
+                c2w = orbit_c2w(2 * math.pi * i / views + 0.1 * k)
+                with torch.no_grad():
+                    img = render(camera_from_c2w(c2w, fovx, width, height, device), scene)["render"]
+                noisy = np.clip(img.cpu().numpy().transpose(1, 2, 0) + rng.normal(0, 0.05, (height, width, 3)), 0, 1)
+                shots.append((c2w, (noisy * 255).astype(np.uint8)))
+            xyz, rgb = surface_points(2000, seed + k)
+            write_colmap_binary(src, shots, width, height, fovx, xyz, rgb, images=images, seed=seed + k)
+            for it in (7000, 30000):
+                scene.save_ply(str(model / "point_cloud" / f"iteration_{it}" / "point_cloud.ply"))
+            save_cfg_args(str(model), Namespace(sh_degree=3, source_path=str(src), model_path=str(model),
+                                                images=images, resolution=1, white_background=False,
+                                                data_device="cuda", eval=True))
+            models[name] = model
+    flags = ["-m360", str(root / "m360"), "-tat", str(root / "tat"), "-db", str(root / "db"),
+             "--output_path", str(root / "eval")]
+    return {"flags": flags, "models": models}
+
+
+def native_io_path(args, device, summary) -> None:
+    """Section 33: the native IO tier (built, or why not) held to the Python
+    readers on section 6's views and section 2's PLY, a COLMAP folder
+    through ``Scene``, and ``cli.full_eval --skip_training``."""
+    import shutil
+
+    import torch
+
+    from gaussian_transformer_tpu_torch import native
+    from gaussian_transformer_tpu_torch.cli import full_eval
+    from gaussian_transformer_tpu_torch.scene import Scene
+    from gaussian_transformer_tpu_torch.scene import colmap, dataset_readers, ply
+    from gaussian_transformer_tpu_torch.tools.synthetic import write_colmap_binary
+    from gaussian_transformer_tpu_torch.utils.png import read_png
+
+    on_card = device.type == "cuda"
+    smi = smi_line(device)
+    work = Path(args.work)
+    data = work / "train_data"
+    fovx = math.radians(50.0)
+    W, H = args.width, args.height
+
+    print("== 33. native IO: the machine's libjpeg/libpng/g++, the tier's build, its readers against the Python ones")
+    probe = io_probe()
+    print("probe (ls /usr/include/jpeglib.h /usr/include/png.h; ldconfig -p | grep -E 'jpeg|png'; g++ --version):\n"
+          + probe)
+    headers = {"jpeg": os.path.exists("/usr/include/jpeglib.h"), "png": os.path.exists("/usr/include/png.h")}
+    _, build_ms = timed(native.build)
+    codecs, missing = native.codecs(), native.missing()
+    print(f"native tier: available {native.available()} ({native.unavailable_reason() or 'built'}), codecs "
+          f"{list(codecs)}, built in {build_ms:.0f} ms; missing: {missing or 'none'}")
+    for codec, there in headers.items():
+        if there:
+            check(codec in codecs, f"{codec}: its header is there, so the tier decodes it")
+        else:
+            print(f"{codec}: {'jpeglib.h' if codec == 'jpeg' else 'png.h'} is missing here; the tier is built "
+                  f"without it ({missing.get(codec)})")
+    check(native.available(), f"the tier's parsers build ({native.unavailable_reason()})")
+    summary.update(io_probe=probe, native_codecs=list(codecs), native_missing=missing, native_build_ms=build_ms)
+
+    root = work / "native_io"
+    shutil.rmtree(root, ignore_errors=True)
+    with open(data / "transforms_train.json") as f:
+        frames = json.load(f)["frames"]
+    views = [(fr["transform_matrix"], read_png(str(data / f"{fr['file_path']}.png"))[..., :3]) for fr in frames]
+    pc = ply.read_ply_vertex_table(str(data / "points3d.ply"))
+    xyz = np.stack([pc["x"], pc["y"], pc["z"]], 1).astype(np.float64)
+    rgb = np.stack([pc["red"], pc["green"], pc["blue"]], 1)
+    write_colmap_binary(root / "colmap", views, W, H, fovx, xyz, rgb)
+    times = {}
+    sp = root / "colmap" / "sparse" / "0"
+
+    def same(a, b, what):
+        ok = all(np.array_equal(x, y) and x.dtype == y.dtype for x, y in zip(a, b))
+        check(ok, f"{what}: native and Python readers agree bit for bit")
+
+    (n_img, times["images.bin native"]) = timed(lambda: colmap.read_extrinsics_binary(str(sp / "images.bin")))
+    (p_img, times["images.bin python"]) = timed(lambda: colmap.read_extrinsics_binary(str(sp / "images.bin"),
+                                                                                       native_io=False))
+    check(sorted(n_img) == sorted(p_img) and all(n_img[k].name == p_img[k].name and n_img[k].camera_id ==
+                                                 p_img[k].camera_id for k in n_img), "images.bin: ids and names")
+    same([v for k in sorted(n_img) for v in (n_img[k].qvec, n_img[k].tvec)],
+         [v for k in sorted(p_img) for v in (p_img[k].qvec, p_img[k].tvec)], f"images.bin ({len(n_img)} images)")
+    (n_pts, times["points3D.bin native"]) = timed(lambda: colmap.read_points3D_binary(str(sp / "points3D.bin")))
+    (p_pts, times["points3D.bin python"]) = timed(lambda: colmap.read_points3D_binary(str(sp / "points3D.bin"),
+                                                                                       native_io=False))
+    same(n_pts, p_pts, f"points3D.bin ({len(xyz)} points)")
+    check(np.array_equal(n_pts[0], xyz), "points3D.bin holds the points written")
+    big = work / "model" / "point_cloud" / "iteration_30000" / "point_cloud.ply"
+    (n_ply, times["PLY read native"]) = timed(lambda: ply.read_ply_vertex_table(str(big)))
+    (p_ply, times["PLY read python"]) = timed(lambda: ply.read_ply_vertex_table(str(big), native_io=False))
+    check(list(n_ply) == list(p_ply), "the PLY's property names")
+    same(list(n_ply.values()), list(p_ply.values()), f"section 2's PLY read ({len(n_ply['x'])} rows, "
+                                                     f"{len(n_ply)} properties)")
+    table = np.stack(list(p_ply.values()), 1)
+    names = list(p_ply)
+    del n_ply, p_ply
+    _, times["PLY write native"] = timed(lambda: ply.write_ply_vertex_table(str(root / "n.ply"), names, table))
+    _, times["PLY write python"] = timed(lambda: ply.write_ply_vertex_table(str(root / "p.ply"), names, table,
+                                                                            native_io=False))
+    check((root / "n.ply").read_bytes() == (root / "p.ply").read_bytes() == big.read_bytes(),
+          "section 2's PLY written by the native and Python writers: the same bytes as the file")
+    del table
+    pngs = [str(root / "colmap" / "images" / f"{i:03d}.png") for i in range(len(views))]
+    p_png, times["PNG decode utils/png.py"] = timed(lambda: {p: read_png(p) for p in pngs})
+    if "png" in codecs:
+        n_png, times["PNG decode native"] = timed(lambda: native.decode_folder(pngs))
+        same([n_png[p] for p in pngs], [p_png[p] for p in pngs], f"PNG decode ({len(pngs)} views at {W}x{H})")
+    else:
+        print(f"PNG decode: the tier has no libpng, so PNGs go through utils/png.py ({missing['png']})")
+    fixture = ROOT / "gaussian_transformer_tpu_torch" / "native" / "testdata"
+    if "jpeg" in codecs:
+        got, times["JPEG decode native (fixture)"] = timed(lambda: native.decode_folder([str(fixture / "fixture.jpg")]))
+        diff = int(np.abs(got[str(fixture / "fixture.jpg")].astype(int) - np.load(fixture / "fixture_rgb.npy")).max())
+        print(f"JPEG fixture: max abs diff {diff} level(s) against the JAX native tier's decode (tolerance 1)")
+        check(diff <= 1, "the JPEG fixture decodes to its array within one level")
+        summary["jpeg_fixture_diff"] = diff
+    else:
+        jdir = root / "jpeg_colmap"
+        write_colmap_binary(jdir, views[:1], W, H, fovx, xyz[:100], rgb[:100])
+        os.remove(jdir / "images" / "000.png")
+        shutil.copy(fixture / "fixture.jpg", jdir / "images" / "000.jpg")
+        binp = jdir / "sparse" / "0" / "images.bin"
+        binp.write_bytes(binp.read_bytes().replace(b"000.png\x00", b"000.jpg\x00"))
+        try:
+            dataset_readers.read_colmap_scene_info(str(jdir), None, False)
+            raised = None
+        except native.CodecUnavailable as e:
+            raised = str(e)
+        print(f"a COLMAP folder of JPEGs: {raised}")
+        check(raised is not None and "libjpeg" in raised, "a JPEG folder raises the error naming libjpeg")
+    print(f"[{smi}] IO times (ms, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    random.seed(args.seed)
+    ns = Namespace(sh_degree=3, source_path=str(root / "colmap"), model_path=str(root / "colmap_model"),
+                   images="images", resolution=1, white_background=False, eval=False)
+    (loaded, times["Scene load (COLMAP, PNGs)"]) = timed(lambda: Scene(ns, sh_degree=3, shuffle=False, device=device))
+    cams = {c.image_name: c for c in loaded.get_train_cameras()}
+    check(sorted(cams) == [f"{i:03d}" for i in range(len(views))] and all(
+        torch.equal(cams[f"{i:03d}"].original_image.cpu(),
+                    torch.from_numpy(views[i][1].transpose(2, 0, 1).astype(np.float32) / 255.0))
+        for i in range(len(views))), "the COLMAP folder loads through Scene with the PNGs' pixels")
+    print(f"Scene load of the COLMAP folder ({len(views)} views at {W}x{H}, {len(xyz)} points): "
+          f"{times['Scene load (COLMAP, PNGs)']:.0f} ms")
+    del loaded, cams
+    summary.update(io_ms=times)
+
+    n_children = sum(len(v) for v in FULL_EVAL_SCENES.values()) * 2 + 1
+    print(f"== 33b. cli.full_eval --skip_training over synthetic roots: one scene per list ({FULL_EVAL_GAUSSIANS} "
+          f"Gaussians, {FULL_EVAL_VIEWS} views at {FULL_EVAL_W}x{FULL_EVAL_H}, COLMAP binary), {n_children} child "
+          f"processes on the {'card' if on_card else 'CPU'}")
+    fe = write_full_eval_roots(root / "full_eval", device, FULL_EVAL_SCENES, FULL_EVAL_GAUSSIANS, FULL_EVAL_VIEWS,
+                               FULL_EVAL_W, FULL_EVAL_H)
+    saved = {k: getattr(full_eval, k) for k in FULL_EVAL_SCENES}
+    try:
+        for k, v in FULL_EVAL_SCENES.items():
+            setattr(full_eval, k, v)
+        t0 = time.time()
+        ran = full_eval.main(["--skip_training"] + fe["flags"] + ([] if on_card else ["--device", str(device)]))
+        t_fe = time.time() - t0
+    finally:
+        for k, v in saved.items():
+            setattr(full_eval, k, v)
+    print(f"cli.full_eval: {len(ran)} children in {t_fe:.1f} s, exit codes {[rc for _, rc in ran]}")
+    check(len(ran) == n_children and all(rc == 0 for _, rc in ran), "every child exited 0")
+    scores = {}
+    for name, model in fe["models"].items():
+        with open(model / "results.json") as f:
+            res = json.load(f)
+        for method in ("ours_7000", "ours_30000"):
+            ref = numpy_psnr(model, method)
+            check(abs(res[method]["PSNR"] - ref) <= 1e-3 and math.isfinite(res[method]["SSIM"]),
+                  f"{name} {method}: PSNR {res[method]['PSNR']:.4f} dB == numpy {ref:.4f} dB, SSIM "
+                  f"{res[method]['SSIM']:.4f}")
+        scores[name] = res
+    summary.update(full_eval_s=t_fe, full_eval_scores=scores)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3862,6 +4475,8 @@ def main(argv=None) -> int:
                           {k: v for k, v in flat_launches.items() if k.startswith("autoencoder")})
         torch.cuda.empty_cache()
         add_path_launches(summary["kernels"], "gate_launches", gate_path(args, device, summary))
+        add_path_launches(summary["kernels"], "viewer_launches",
+                          {**summary["viewer_launches"], "stacked_stream": summary["stacked_stream_launches"]})
         add_path_launches(summary["kernels"], "tier_launches",
                           {**summary["tier_3dgs_launches"], **summary["tier_stacked_launches"],
                            **summary["tier_flat_launches"]})

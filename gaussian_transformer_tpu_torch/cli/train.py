@@ -10,8 +10,10 @@ every N iterations under ``<model>/orbax/<iteration>/`` (the newest three,
 the newest. TensorBoard scalars (the reference's) go to the model dir when
 ``torch.utils.tensorboard`` imports. Runs on the CUDA card unless
 ``--device cpu`` is given. Progress is printed as plain lines (``--quiet``
-silences them); the viewer is not ported (``--ip``/``--port`` are accepted
-and unused).
+silences them). The SIBR remote viewer connects to ``--ip``/``--port``
+(default 127.0.0.1:6009): every iteration first serves its requests with
+renders of the current Gaussians (``viewer/network_gui.py``). When the
+address is taken the run prints ``viewer disabled: ...`` and trains on.
 
     python -m gaussian_transformer_tpu_torch.cli.train -s <data> -m <model> [--iterations N]
 """
@@ -35,6 +37,7 @@ from gaussian_transformer_tpu_torch.render import RenderConfig
 from gaussian_transformer_tpu_torch.scene import Scene
 from gaussian_transformer_tpu_torch.train.splat import evaluate_psnr, training
 from gaussian_transformer_tpu_torch.utils.general import safe_state
+from gaussian_transformer_tpu_torch.viewer.network_gui import bind_viewer
 
 
 def main(argv=None):
@@ -79,6 +82,7 @@ def main(argv=None):
         opt = OptConfig.from_args(op.extract(args))
         os.makedirs(dataset.model_path, exist_ok=True)
         save_cfg_args(dataset.model_path, dataset)
+        viewer_ok = bind_viewer(args.ip, args.port)
 
         scene = Scene(dataset, sh_degree=dataset.sh_degree, device=device)
         history, evals, render_cfgs = [], {}, []
@@ -135,6 +139,7 @@ def main(argv=None):
             log_fn=log_fn,
             orbax_dir=dataset.model_path if args.orbax_every else None,
             orbax_every=args.orbax_every,
+            viewer=viewer_ok,
         )
         if tb_writer:
             tb_writer.close()

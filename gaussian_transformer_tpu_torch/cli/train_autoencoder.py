@@ -12,8 +12,10 @@ x LPIPS(alex) when its weights are present (``image_loss``). A step whose
 loss is not finite is skipped, as the reference swallows backward errors.
 Runs on the CUDA card unless ``--device cpu`` is given. TensorBoard scalars
 go to ``LRruns/gaussian_autoencoder_<multiple>`` when
-``torch.utils.tensorboard`` imports. Not ported: the viewer's ``pump``
-(``--ip``/``--port`` are accepted and unused).
+``torch.utils.tensorboard`` imports. After each step the SIBR remote viewer
+at ``--ip``/``--port`` (default 127.0.0.1:6009) is served renders of the
+step's reconstruction (``viewer/network_gui.py pump``); when the address is
+taken the run prints ``viewer disabled: ...`` and trains on.
 
     python -m gaussian_transformer_tpu_torch.cli.train_autoencoder -s <data> -m <model> [--epochs N]
 """
@@ -36,6 +38,7 @@ from gaussian_transformer_tpu_torch.models.codec import flatten_gaussians, unfla
 from gaussian_transformer_tpu_torch.ops.losses import l1_loss, ssim
 from gaussian_transformer_tpu_torch.render import RenderConfig, render
 from gaussian_transformer_tpu_torch.scene import Scene
+from gaussian_transformer_tpu_torch.viewer import network_gui
 
 TOKEN_EPOCHS = 500  # epochs <= this train on the token L1, later ones on the image loss
 
@@ -90,6 +93,7 @@ def main(argv=None, on_step=None):
     print("Optimizing " + args.model_path)
     dataset = lp.extract(args)
     render_cfg = RenderConfig()
+    viewer_ok = network_gui.bind_viewer(args.ip, args.port)
 
     use_lpips = lpips_mod.available("alex")
     if not use_lpips:
@@ -130,9 +134,9 @@ def main(argv=None, on_step=None):
                 kind = "image" if epoch > TOKEN_EPOCHS else "token"
                 optimizer.zero_grad(set_to_none=True)
                 if kind == "image":
-                    loss, _ = image_loss(model, data, cam, render_cfg, use_lpips)
+                    loss, pred = image_loss(model, data, cam, render_cfg, use_lpips)
                 else:
-                    loss, _ = token_loss(model, data)
+                    loss, pred = token_loss(model, data)
                 # The reference swallows backward errors: skip a step whose
                 # loss is not finite.
                 value = float(loss.detach())
@@ -142,6 +146,11 @@ def main(argv=None, on_step=None):
                     optimizer.step()
                 if on_card:
                     ev[1].record()
+                if viewer_ok:
+                    recon = unflatten_gaussians(pred[0].detach())
+                    network_gui.pump(
+                        lambda custom_cam, smod: render(custom_cam, recon, render_cfg, scaling_modifier=smod)["render"],
+                        dataset.source_path, device=device)
                 record = {"lrm": lrm, "lr": lr, "epoch": epoch, "step": step, "kind": kind,
                           "n_visible": data.shape[1], "loss": value, "finite": finite}
                 if on_card:

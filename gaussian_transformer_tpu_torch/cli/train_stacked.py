@@ -15,8 +15,18 @@ written in the background, the newest three kept), a run resumes from the
 newest snapshot first, and the crash save stays a checkpoint. Runs on the
 CUDA card unless ``--device cpu`` is given. TensorBoard scalars go to
 ``logs/<run_name>/base`` (``<run_name>/base`` for an absolute run name) when
-``torch.utils.tensorboard`` imports; ``--ip``/``--port`` are accepted and
-unused (no viewer).
+``torch.utils.tensorboard`` imports.
+
+The SIBR remote viewer connects to ``--ip``/``--port`` (default
+127.0.0.1:6009; rank 0 alone binds, and a taken address prints ``viewer
+disabled: ...``). Before every step it is served: while it asks to train,
+the teacher-forced decode of the last batch (``model.eval()`` for the
+call, then ``model.train()`` again); when it pauses training
+(train=False), the cached greedy decode of the last batch streams live,
+one frame per decoded token, until it asks to train again. Its request's
+``shs_python`` flag shows the prediction and ``keep_alive`` the prompt;
+with neither, the target. With ``--dp``/``--fsdp`` the viewer gets
+empty replies (the decode would need every rank).
 
 Several cards, one process each under ``torchrun --nproc_per_node <dp x
 fsdp>`` (a product other than ``WORLD_SIZE`` raises):
@@ -56,6 +66,7 @@ from gaussian_transformer_tpu_torch.render import RenderConfig
 from gaussian_transformer_tpu_torch.scene import Scene
 from gaussian_transformer_tpu_torch.train import orbax_ckpt
 from gaussian_transformer_tpu_torch.train.stacked import (
+    LiveViewerStream,
     ReduceLROnPlateau,
     TrainingScene,
     load_checkpoint,
@@ -63,9 +74,11 @@ from gaussian_transformer_tpu_torch.train.stacked import (
     make_optimizer,
     make_stacked_model,
     make_train_step,
+    make_viewer_train_fn,
     save_checkpoint,
 )
 from gaussian_transformer_tpu_torch.utils.system import search_for_max_iteration
+from gaussian_transformer_tpu_torch.viewer import network_gui
 
 DROPOUT_BASE_SEED = 42  # model.train(): fresh dropout masks every step
 
@@ -120,6 +133,7 @@ def main(argv=None):
         torch.autograd.set_detect_anomaly(True)
 
     log("Optimizing " + args.model_path)
+    viewer_ok = is_lead() and network_gui.bind_viewer(args.ip, args.port)
     dataset = lp.extract(args)
     render_cfg = RenderConfig()
     scene = Scene(dataset, load_iteration=-1, sh_degree=1, device=device)
@@ -175,6 +189,10 @@ def main(argv=None):
         step_fn = make_dp_train_step(model, tscene.handler, render_cfg, optimizer, args.stack, mesh=mesh)
     else:
         step_fn = make_train_step(model, tscene.handler, render_cfg, optimizer, args.stack)
+    # The viewer: the teacher-forced composite of the last batch while
+    # training goes on, the live cached decode when it pauses training.
+    stream = LiveViewerStream(model, tscene.handler, render_cfg, args.stack)
+    viewer_train_fn = make_viewer_train_fn(stream)
     model.train()
     on_card = device.type == "cuda"
     history, epochs = [], []
@@ -192,6 +210,10 @@ def main(argv=None):
             for batch in batch_iter:
                 if batch is None:
                     continue
+                if not parallel:
+                    stream.set_batch(batch)
+                if viewer_ok:
+                    network_gui.pump_stacked(viewer_train_fn, stream, dataset.source_path, device=device)
                 if on_card:
                     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                     ev[0].record()

@@ -12,8 +12,10 @@ epoch it prints the mean loss and, when it is the lowest yet, writes
 ``best_model.npz`` (the JAX package's layout) to the working directory; a
 ``best_model.npz`` found there at start is loaded. Runs on the CUDA card
 unless ``--device cpu`` is given. TensorBoard scalars go to
-``runs/gaussian_trainer_embed`` when ``torch.utils.tensorboard`` imports;
-``--ip``/``--port`` are accepted and unused (no viewer).
+``runs/gaussian_trainer_embed`` when ``torch.utils.tensorboard`` imports.
+The SIBR viewer's listener is bound at ``--ip``/``--port`` (default
+127.0.0.1:6009; rank 0 alone), as the reference binds it; no frame is
+served. When the address is taken the run prints ``viewer disabled: ...``.
 
 Several cards, one process each under ``torchrun --nproc_per_node N`` (N
 other than ``WORLD_SIZE`` raises, and so do both flags together):
@@ -57,6 +59,7 @@ from gaussian_transformer_tpu_torch.train.flat import (
     reduce_grads,
     save_flat_params,
 )
+from gaussian_transformer_tpu_torch.viewer import network_gui
 
 DROPOUT_BASE_SEED = 42  # model.train(): fresh dropout masks every step
 BEST_MODEL = "best_model.npz"
@@ -107,6 +110,8 @@ def main(argv=None, on_step=None):
         seed_host_random_alike()  # every rank shuffles the cameras alike
     log = print if is_lead() else (lambda *a, **k: None)
     log("Optimizing " + args.model_path)
+    if is_lead():
+        network_gui.bind_viewer(args.ip, args.port)
     dataset = lp.extract(args)
     render_cfg = RenderConfig()
 

@@ -1,0 +1,347 @@
+"""ctypes bindings for the port's native IO tier (``native/gt_native.cpp``).
+
+COLMAP binary parsers, float32 PLY vertex tables and a thread-pool
+JPEG/PNG decoder with a bilinear resize: the same C ABI and the same
+Python functions as the JAX package's native tier, in the port's own copy.
+
+At first use the library is built with ``g++ -O3 -fPIC -std=c++17 -shared
+... -ljpeg -lpng -lpthread`` into ``build/torch_native/`` at the repository
+root, under a name keyed by a hash of the source and the flags. The build
+writes a temporary file and renames it into place, so processes that build
+at once never load a half-written library. Before it, two small probe
+programs check that libjpeg and libpng compile and link; a codec that does
+not is left out of the build (``GT_NO_JPEG``/``GT_NO_PNG``), the parsers are
+built all the same, and ``missing()`` says why. A scene load then decodes
+PNGs with ``utils/png.py`` and raises ``CodecUnavailable`` for a JPEG,
+naming the missing library. Without a compiler the tier is unavailable
+(``available()`` is False, ``unavailable_reason()`` says why) and the
+callers use their Python readers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import uuid
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+SOURCE = Path(__file__).resolve().parent / "gt_native.cpp"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_native"
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
+CODECS = ("jpeg", "png")
+# A program per codec that needs its header and its library, and the link flag.
+_PROBES = {
+    "jpeg": ("#include <cstdio>\n#include <jpeglib.h>\n"
+             "int main() { jpeg_error_mgr e; jpeg_std_error(&e); return 0; }\n", "-ljpeg"),
+    "png": ("#include <png.h>\nint main() { return png_access_version_number() == 0; }\n", "-lpng"),
+}
+
+
+class CodecUnavailable(RuntimeError):
+    """An image needs a codec the native tier was built without (or the
+    tier could not be built at all)."""
+
+
+_lib = None
+_tried = False
+_why: Optional[str] = None
+
+
+def compiler() -> Optional[str]:
+    """``$CXX`` or ``g++``, resolved on PATH (None when absent)."""
+    return shutil.which(os.environ.get("CXX") or "g++")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libgt_native-{digest}.so"
+
+
+def _first_error(stderr: str) -> str:
+    lines = [ln.strip() for ln in stderr.splitlines() if ln.strip()]
+    errors = [ln for ln in lines if "error" in ln]
+    line = (errors or lines or ["failed"])[0]
+    return line.split("error: ", 1)[-1]
+
+
+def probe_codecs(cxx: str) -> Dict[str, Optional[str]]:
+    """{codec: None if it compiles and links, else the compiler's reason}."""
+    out = {}
+    for codec, (code, lib) in _PROBES.items():
+        exe = BUILD_DIR / f"probe-{codec}-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+        proc = subprocess.run([cxx, "-x", "c++", "-", "-o", str(exe), lib], input=code,
+                              capture_output=True, text=True)
+        exe.unlink(missing_ok=True)
+        out[codec] = None if proc.returncode == 0 else f"{_first_error(proc.stderr)} ({cxx} {lib})"
+    return out
+
+
+def build(verbose: bool = False) -> bool:
+    """(Re)build the library now, with the codecs that compile and link
+    here. Returns ``available()``."""
+    global _lib, _tried, _why
+    _lib, _tried, _why = None, True, None
+    cxx = compiler()
+    if cxx is None:
+        _why = f"no C++ compiler ({os.environ.get('CXX') or 'g++'} not found)"
+        return False
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    missing = probe_codecs(cxx)
+    defines, libs = [], []
+    for codec in CODECS:
+        if missing[codec] is None:
+            libs.append(_PROBES[codec][1])
+        else:
+            defines.append(f"-DGT_NO_{codec.upper()}")
+    # "<codec>: <reason>; ..." (a C string literal: no quote, backslash or
+    # separator inside a reason).
+    note = "; ".join(f"{c}: {r.replace(';', ',')}" for c, r in missing.items() if r is not None)
+    note = note.replace("\\", "/").replace('"', "'")
+    out = library_path()
+    tmp = out.with_name(f"{out.name}.{os.getpid()}-{uuid.uuid4().hex[:8]}.tmp")
+    cmd = [cxx, *CXX_FLAGS, *defines, f'-DGT_BUILD_NOTE="{note}"', "-o", str(tmp), str(SOURCE),
+           *libs, "-lpthread"]
+    proc = subprocess.run(cmd, capture_output=not verbose, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        _why = f"{cxx} exit {proc.returncode}: {_first_error(proc.stderr or '')}"
+        return False
+    # Loaded under its temporary name: a process that rebuilds gets the new
+    # library, where the final name would return the one loaded before.
+    ok = _open(tmp)
+    os.replace(tmp, out)
+    return ok
+
+
+def _open(path: Path) -> bool:
+    global _lib, _why
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        _why = f"{path}: {e}"
+        return False
+    _bind(lib)
+    _lib = lib
+    return True
+
+
+def _load():
+    """The library, built at the first call of a process if it is missing;
+    None when it cannot be built."""
+    global _tried
+    if not _tried:
+        _tried = True
+        path = library_path()
+        if not (path.exists() and _open(path)):
+            build()
+    return _lib
+
+
+def _bind(lib) -> None:
+    c = ctypes
+    lib.gt_free.argtypes = [c.c_void_p]
+    lib.gt_codecs.restype = c.c_int
+    lib.gt_build_note.restype = c.c_char_p
+    lib.gt_read_points3d_bin.argtypes = [
+        c.c_char_p, c.POINTER(c.POINTER(c.c_double)), c.POINTER(c.POINTER(c.c_uint8)),
+        c.POINTER(c.POINTER(c.c_double)), c.POINTER(c.c_uint64),
+    ]
+    lib.gt_read_images_bin.argtypes = [
+        c.c_char_p, c.POINTER(c.POINTER(c.c_int32)), c.POINTER(c.POINTER(c.c_double)),
+        c.POINTER(c.POINTER(c.c_double)), c.POINTER(c.POINTER(c.c_int32)),
+        c.POINTER(c.c_char_p), c.POINTER(c.c_uint64), c.POINTER(c.c_uint64),
+    ]
+    lib.gt_read_ply_f32.argtypes = [
+        c.c_char_p, c.POINTER(c.POINTER(c.c_float)), c.POINTER(c.c_char_p),
+        c.POINTER(c.c_uint64), c.POINTER(c.c_uint32),
+    ]
+    lib.gt_write_ply_f32.argtypes = [c.c_char_p, c.c_char_p, c.POINTER(c.c_float), c.c_uint64, c.c_uint32]
+    lib.gt_load_images.argtypes = [
+        c.c_char_p, c.c_int, c.c_int, c.c_int, c.c_int,
+        c.POINTER(c.c_uint8), c.POINTER(c.c_int32),
+    ]
+    lib.gt_image_size.argtypes = [c.c_char_p, c.POINTER(c.c_int), c.POINTER(c.c_int)]
+
+
+def available() -> bool:
+    """The library is built and loaded (its parsers at least)."""
+    return _load() is not None
+
+
+def unavailable_reason() -> Optional[str]:
+    """Why the library could not be built or loaded (None when it was)."""
+    _load()
+    return None if _lib is not None else _why
+
+
+def codecs() -> Tuple[str, ...]:
+    """The image codecs built into the library (none without it)."""
+    lib = _load()
+    if lib is None:
+        return ()
+    bits = lib.gt_codecs()
+    return tuple(c for i, c in enumerate(CODECS) if bits >> i & 1)
+
+
+def missing() -> Dict[str, str]:
+    """{codec: why it was left out} for the codecs the tier lacks."""
+    lib = _load()
+    if lib is None:
+        return {c: f"native IO tier unavailable: {_why}" for c in CODECS}
+    notes = dict(part.split(": ", 1) for part in lib.gt_build_note().decode().split("; ") if part)
+    return {c: notes.get(c, "left out of the build") for c in CODECS if c not in codecs()}
+
+
+def codec_of(path: str) -> str:
+    """The codec the library decodes ``path`` with: PNG by extension, JPEG
+    otherwise."""
+    return "png" if path.lower().endswith(".png") else "jpeg"
+
+
+def require_codec(path: str) -> None:
+    """Raise ``CodecUnavailable`` naming the missing library when the tier
+    cannot decode ``path``."""
+    codec = codec_of(path)
+    if codec not in codecs():
+        lib = {"jpeg": "libjpeg (jpeglib.h, -ljpeg)", "png": "libpng (png.h, -lpng)"}[codec]
+        raise CodecUnavailable(f"{path}: decoding a {codec.upper()} needs {lib} in the native IO tier "
+                               f"(gaussian_transformer_tpu_torch/native): {missing()[codec]}")
+
+
+def _lib_or_raise():
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native IO tier unavailable: {_why}")
+    return lib
+
+
+def _take(ptr, shape, dtype, lib):
+    """Copy a malloc'd C buffer into numpy and free it."""
+    n = int(np.prod(shape))
+    ctype = np.ctypeslib.as_array(ptr, shape=(n,)) if n else np.zeros(0, dtype)
+    out = np.array(ctype, dtype=dtype, copy=True).reshape(shape)
+    lib.gt_free(ctypes.cast(ptr, ctypes.c_void_p))
+    return out
+
+
+def read_points3d_bin(path: str):
+    """COLMAP points3D.bin -> (xyz [N,3] f64, rgb [N,3] u8, err [N] f64)."""
+    lib = _lib_or_raise()
+    xyz_p = ctypes.POINTER(ctypes.c_double)()
+    rgb_p = ctypes.POINTER(ctypes.c_uint8)()
+    err_p = ctypes.POINTER(ctypes.c_double)()
+    n = ctypes.c_uint64()
+    rc = lib.gt_read_points3d_bin(path.encode(), xyz_p, rgb_p, err_p, n)
+    if rc != 0:
+        raise IOError(f"gt_read_points3d_bin({path}) failed: {rc}")
+    n = int(n.value)
+    return (
+        _take(xyz_p, (n, 3), np.float64, lib),
+        _take(rgb_p, (n, 3), np.uint8, lib),
+        _take(err_p, (n,), np.float64, lib),
+    )
+
+
+def read_images_bin(path: str):
+    """COLMAP images.bin -> (ids [N], qvecs [N,4], tvecs [N,3], cam_ids [N],
+    names list[str])."""
+    lib = _lib_or_raise()
+    ids_p = ctypes.POINTER(ctypes.c_int32)()
+    q_p = ctypes.POINTER(ctypes.c_double)()
+    t_p = ctypes.POINTER(ctypes.c_double)()
+    cam_p = ctypes.POINTER(ctypes.c_int32)()
+    names_p = ctypes.c_char_p()
+    names_len = ctypes.c_uint64()
+    n = ctypes.c_uint64()
+    rc = lib.gt_read_images_bin(path.encode(), ids_p, q_p, t_p, cam_p, names_p, names_len, n)
+    if rc != 0:
+        raise IOError(f"gt_read_images_bin({path}) failed: {rc}")
+    n = int(n.value)
+    names = names_p.value.decode().split("\n")[:n]
+    lib.gt_free(ctypes.cast(names_p, ctypes.c_void_p))
+    return (
+        _take(ids_p, (n,), np.int32, lib),
+        _take(q_p, (n, 4), np.float64, lib),
+        _take(t_p, (n, 3), np.float64, lib),
+        _take(cam_p, (n,), np.int32, lib),
+        names,
+    )
+
+
+def read_ply_f32(path: str) -> Tuple[np.ndarray, List[str]]:
+    """float32 vertex PLY -> (data [rows, cols] f32, property names)."""
+    lib = _lib_or_raise()
+    data_p = ctypes.POINTER(ctypes.c_float)()
+    names_p = ctypes.c_char_p()
+    rows = ctypes.c_uint64()
+    cols = ctypes.c_uint32()
+    rc = lib.gt_read_ply_f32(path.encode(), data_p, names_p, rows, cols)
+    if rc != 0:
+        raise IOError(f"gt_read_ply_f32({path}) failed: {rc}")
+    names = names_p.value.decode().rstrip("\n").split("\n")
+    lib.gt_free(ctypes.cast(names_p, ctypes.c_void_p))
+    return _take(data_p, (int(rows.value), int(cols.value)), np.float32, lib), names
+
+
+def write_ply_f32(path: str, names: List[str], data: np.ndarray) -> None:
+    lib = _lib_or_raise()
+    data = np.ascontiguousarray(data, np.float32)
+    rows, cols = data.shape
+    if len(names) != cols:
+        raise ValueError(f"{len(names)} names for {cols} columns")
+    rc = lib.gt_write_ply_f32(
+        path.encode(), "\n".join(names).encode(),
+        data.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), rows, cols,
+    )
+    if rc != 0:
+        raise IOError(f"gt_write_ply_f32({path}) failed: {rc}")
+
+
+def image_size(path: str) -> Tuple[int, int]:
+    lib = _lib_or_raise()
+    w = ctypes.c_int()
+    h = ctypes.c_int()
+    rc = lib.gt_image_size(path.encode(), w, h)
+    if rc != 0:
+        raise IOError(f"gt_image_size({path}) failed: {rc}")
+    return int(w.value), int(h.value)
+
+
+def load_images(paths: List[str], width: int, height: int, threads: int = 0) -> np.ndarray:
+    """Decode + resize a batch of JPEG/PNG files on a thread pool ->
+    [N, height, width, 3] uint8 (an RGBA PNG loses its alpha)."""
+    lib = _lib_or_raise()
+    for p in paths:
+        require_codec(p)
+    n = len(paths)
+    out = np.empty((n, height, width, 3), np.uint8)
+    status = np.zeros(n, np.int32)
+    rc = lib.gt_load_images(
+        "\n".join(paths).encode(), n, width, height, threads,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        status.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    if rc != 0 or np.any(status != 0):
+        bad = [paths[i] for i in np.nonzero(status)[0]]
+        raise IOError(f"gt_load_images failed (rc={rc}, bad={bad[:3]})")
+    return out
+
+
+def decode_folder(paths: List[str], threads: int = 0) -> Dict[str, np.ndarray]:
+    """Decode every image of ``paths`` at its own size, grouped by size on
+    the thread pool: {path: uint8 [H, W, 3]}."""
+    by_size: Dict[Tuple[int, int], List[str]] = {}
+    for p in paths:
+        require_codec(p)
+        by_size.setdefault(image_size(p), []).append(p)
+    out = {}
+    for (w, h), group in by_size.items():
+        for p, arr in zip(group, load_images(group, w, h, threads)):
+            out[p] = arr
+    return out

@@ -69,6 +69,7 @@ class Scene:
         resolution (the ModelParams group)."""
         device = resolve_device(device)
         self.model_path = args.model_path
+        self.source_path = args.source_path  # the viewer's reply names it
         if sh_degree is None:
             sh_degree = getattr(args, "sh_degree", 3)
 

@@ -1,7 +1,8 @@
 """COLMAP sparse-reconstruction parsers (cameras/images/points3D, .bin and .txt).
 
-Copy of ``gaussian_transformer_tpu/scene/colmap.py`` without its native fast
-paths.
+Port of ``gaussian_transformer_tpu/scene/colmap.py``: ``images.bin`` and
+``points3D.bin`` go through the native IO tier (``native/``) when it is
+built, else (or with ``native_io=False``) through the Python parsers.
 
 Pure-Python reimplementation of the standard COLMAP formats: dicts keyed by id
 holding NamedTuple records, with the API shape of the upstream 3DGS loader.
@@ -13,6 +14,8 @@ import struct
 from typing import Dict, NamedTuple
 
 import numpy as np
+
+from gaussian_transformer_tpu_torch import native
 
 
 class CameraModel(NamedTuple):
@@ -111,7 +114,22 @@ def read_intrinsics_binary(path: str) -> Dict[int, ColmapCamera]:
     return cameras
 
 
-def read_extrinsics_binary(path: str) -> Dict[int, ColmapImage]:
+def read_extrinsics_binary(path: str, native_io: bool = True) -> Dict[int, ColmapImage]:
+    """images.bin -> {image_id: ColmapImage}. The native parser skips the
+    track observations (empty ``xys``/``point3D_ids``): no call site reads
+    them."""
+    if native_io and native.available():
+        try:
+            ids, qvecs, tvecs, cam_ids, names = native.read_images_bin(path)
+        except OSError:
+            pass  # the Python parser says what is wrong with the file
+        else:
+            empty_xys, empty_ids = np.zeros((0, 2)), np.zeros((0,), dtype=np.int64)
+            return {
+                int(i): ColmapImage(id=int(i), qvec=q, tvec=t, camera_id=int(c), name=nm,
+                                    xys=empty_xys, point3D_ids=empty_ids)
+                for i, q, t, c, nm in zip(ids, qvecs, tvecs, cam_ids, names)
+            }
     images = {}
     with open(path, "rb") as fid:
         (num_images,) = _read_next_bytes(fid, 8, "Q")
@@ -147,8 +165,15 @@ def read_extrinsics_binary(path: str) -> Dict[int, ColmapImage]:
     return images
 
 
-def read_points3D_binary(path: str):
+def read_points3D_binary(path: str, native_io: bool = True):
     """Returns (xyz [N,3] f64, rgb [N,3] u8, error [N,1] f64)."""
+    if native_io and native.available():
+        try:
+            xyz, rgb, err = native.read_points3d_bin(path)
+        except OSError:
+            pass  # the Python parser says what is wrong with the file
+        else:
+            return xyz, rgb, err[:, None]
     with open(path, "rb") as fid:
         (num_points,) = _read_next_bytes(fid, 8, "Q")
         xyzs = np.empty((num_points, 3))

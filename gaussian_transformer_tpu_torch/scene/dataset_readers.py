@@ -5,9 +5,15 @@ Same behaviours: bin-with-txt fallback, train/test split every ``llffhold``-th
 camera under --eval, points3D.bin -> PLY conversion on first load, NeRF++
 camera-extent normalization, random 100k-point init for Blender scenes.
 
-Images are decoded by the port's PNG codec (``utils/png.py``) into uint8
-[H, W, C] arrays: there is no Pillow and no native decoder here, so COLMAP
-image folders must hold PNGs.
+Images are decoded into uint8 [H, W, C] arrays (no Pillow). A COLMAP image
+folder, JPEG and PNG alike, is decoded by the native IO tier (``native/``:
+libjpeg and libpng on a thread pool, grouped by size), which returns RGB
+(an RGBA PNG loses its alpha, as in the JAX package's native path). A
+codec the tier lacks falls to ``utils/png.py`` for a PNG (alpha kept) and
+raises ``native.CodecUnavailable``, naming the missing library, for a JPEG.
+The Blender reader composites each image's alpha over the background, so
+it decodes PNGs with ``utils/png.py`` (RGBA kept, as Pillow's
+``convert("RGBA")``) and JPEGs with the native tier.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 
+from gaussian_transformer_tpu_torch import native
 from gaussian_transformer_tpu_torch.scene import colmap as colmap_loader
 from gaussian_transformer_tpu_torch.scene.ply import fetch_point_cloud, store_point_cloud
 from gaussian_transformer_tpu_torch.utils.graphics import (
@@ -67,12 +74,32 @@ def get_nerfpp_norm(cam_info: List[CameraInfo]) -> dict:
 
 
 def _read_image(path: str) -> np.ndarray:
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"{path}: only PNG images can be decoded (no Pillow)")
-    return read_png(path)
+    """One image as uint8 [H, W, C]: a PNG through ``utils/png.py`` (its
+    channels as stored), any other file through the native tier (RGB)."""
+    if native.codec_of(path) == "png":
+        return read_png(path)
+    return native.decode_folder([path])[path]
+
+
+def decode_images(paths) -> dict:
+    """{path: uint8 [H, W, C]} for an image folder: every file whose codec
+    the native tier has on its thread pool (RGB), the other PNGs through
+    ``utils/png.py``; a JPEG the tier cannot decode raises
+    ``native.CodecUnavailable``."""
+    built = native.codecs()
+    on_pool = [p for p in paths if native.codec_of(p) in built]
+    out = native.decode_folder(on_pool) if on_pool else {}
+    for p in paths:
+        if p not in out:
+            out[p] = _read_image(p)
+    return out
 
 
 def _read_colmap_cameras(cam_extrinsics, cam_intrinsics, images_folder, load_images=True):
+    decoded = {}
+    if load_images:
+        paths = [os.path.join(images_folder, os.path.basename(e.name)) for e in cam_extrinsics.values()]
+        decoded = decode_images([p for p in paths if os.path.exists(p)])
     cam_infos = []
     for key in cam_extrinsics:
         extr = cam_extrinsics[key]
@@ -97,7 +124,7 @@ def _read_colmap_cameras(cam_extrinsics, cam_intrinsics, images_folder, load_ima
 
         image_path = os.path.join(images_folder, os.path.basename(extr.name))
         image_name = os.path.basename(image_path).split(".")[0]
-        image = _read_image(image_path) if load_images and os.path.exists(image_path) else None
+        image = decoded.get(image_path)
 
         cam_infos.append(
             CameraInfo(

@@ -1,9 +1,10 @@
-"""Minimal PLY reader/writer (port of ``gaussian_transformer_tpu/scene/ply.py``,
-pure-Python path only).
+"""Minimal PLY reader/writer (port of ``gaussian_transformer_tpu/scene/ply.py``).
 
 Handles point-cloud PLYs (float xyz/normals + uchar rgb) and all-float32
 Gaussian checkpoint PLYs. Reads binary_little_endian 1.0 and ascii 1.0;
-always writes binary_little_endian.
+always writes binary_little_endian. All-float32 vertex tables go through
+the native IO tier (``native/``) when it is built; ``native_io=False``, or
+any other layout, takes the Python path (same bytes, same arrays).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 
+from gaussian_transformer_tpu_torch import native
 from gaussian_transformer_tpu_torch.utils.graphics import BasicPointCloud
 
 _PLY_DTYPES = {
@@ -35,8 +37,15 @@ _PLY_DTYPES = {
 }
 
 
-def read_ply_vertex_table(path: str) -> Dict[str, np.ndarray]:
+def read_ply_vertex_table(path: str, native_io: bool = True) -> Dict[str, np.ndarray]:
     """Read the 'vertex' element of a PLY file into {property: 1-D array}."""
+    if native_io and native.available():
+        try:
+            data, names = native.read_ply_f32(path)
+        except OSError:
+            pass  # not an all-float32 binary table: the Python reader takes it
+        else:
+            return {name: data[:, i] for i, name in enumerate(names)}
     with open(path, "rb") as f:
         magic = f.readline().strip()
         if magic != b"ply":
@@ -85,11 +94,16 @@ def read_ply_vertex_table(path: str) -> Dict[str, np.ndarray]:
         return out
 
 
-def write_ply_vertex_table(path: str, names: Sequence[str], attributes: np.ndarray) -> None:
+def write_ply_vertex_table(path: str, names: Sequence[str], attributes: np.ndarray,
+                           native_io: bool = True) -> None:
     """Write an all-float32 vertex table: attributes [N, len(names)]."""
     n = attributes.shape[0]
     if attributes.shape[1] != len(names):
         raise ValueError(f"{attributes.shape[1]} columns for {len(names)} names")
+    if native_io and attributes.dtype == np.float32 and native.available():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        native.write_ply_f32(path, list(names), attributes)
+        return
     header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
     header += [f"property float {name}" for name in names]
     header += ["end_header", ""]

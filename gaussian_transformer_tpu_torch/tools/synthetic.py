@@ -84,9 +84,75 @@ def camera_from_c2w(c2w, fovx, width, height, device):
     from gaussian_transformer_tpu_torch.scene.cameras import Camera
     from gaussian_transformer_tpu_torch.utils.graphics import focal2fov, fov2focal
 
-    c2w = np.array(c2w)
-    c2w[:3, 1:3] *= -1
-    w2c = np.linalg.inv(c2w)
-    return Camera.create(0, np.transpose(w2c[:3, :3]), w2c[:3, 3], fovx,
+    R, t = colmap_w2c(c2w)
+    return Camera.create(0, np.transpose(R), t, fovx,
                          focal2fov(fov2focal(fovx, width), height), None, None, "view", 0,
                          width=width, height=height, device=device)
+
+
+def colmap_w2c(c2w):
+    """COLMAP's (world-to-camera rotation, translation) of a Blender/OpenGL
+    camera-to-world: the camera ``camera_from_c2w`` builds from it."""
+    c2w = np.array(c2w, np.float64)
+    c2w[:3, 1:3] *= -1
+    w2c = np.linalg.inv(c2w)
+    return w2c[:3, :3], w2c[:3, 3]
+
+
+def write_colmap_binary(root, views, width: int, height: int, fovx: float, xyz, rgb, images: str = "images",
+                        seed: int = 0) -> list:
+    """A COLMAP binary model under ``root``: ``sparse/0/cameras.bin`` (one
+    PINHOLE camera of ``fovx``), ``images.bin`` (one record per view, with a
+    few seeded 2D observations each, which the readers skip),
+    ``points3D.bin`` (``xyz`` [N, 3] float64, ``rgb`` [N, 3] uint8, seeded
+    errors and tracks), and the views' images as PNGs in ``root/images``.
+    ``views``: [(camera-to-world, uint8 [H, W, 3])]. Returns the image
+    names."""
+    import struct
+    from pathlib import Path
+
+    from gaussian_transformer_tpu_torch.scene.colmap import rotmat2qvec
+    from gaussian_transformer_tpu_torch.utils.png import write_png
+
+    root = Path(root)
+    (root / "sparse/0").mkdir(parents=True, exist_ok=True)
+    (root / images).mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    focal = width / (2 * math.tan(fovx / 2))
+    with open(root / "sparse/0/cameras.bin", "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 1, width, height))
+        f.write(struct.pack("<dddd", focal, focal, width / 2, height / 2))
+    names = []
+    with open(root / "sparse/0/images.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(views)))
+        for i, (c2w, image) in enumerate(views):
+            R, t = colmap_w2c(c2w)
+            name = f"{i:03d}.png"
+            write_png(str(root / images / name), image)
+            f.write(struct.pack("<I", i + 1))
+            f.write(struct.pack("<dddd", *rotmat2qvec(R)))
+            f.write(struct.pack("<ddd", *t))
+            f.write(struct.pack("<I", 1))
+            f.write(name.encode() + b"\x00")
+            n_obs = int(rng.randint(0, 4))
+            f.write(struct.pack("<Q", n_obs))
+            for _ in range(n_obs):
+                f.write(struct.pack("<ddq", *rng.uniform(0, width, 2), int(rng.randint(-1, len(xyz)))))
+            names.append(name)
+    xyz = np.asarray(xyz, np.float64)
+    rgb = np.asarray(rgb, np.uint8)
+    err = rng.rand(len(xyz))
+    track = rng.randint(0, 3, len(xyz))
+    # Each point: a 51-byte record, then its track of 8-byte (image, point2D) pairs.
+    rec = np.zeros(len(xyz), np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("err", "<f8"),
+                                       ("n", "<u8")]))
+    rec["id"], rec["xyz"], rec["rgb"], rec["err"], rec["n"] = np.arange(1, len(xyz) + 1), xyz, rgb, err, track
+    size = rec.dtype.itemsize + 8 * track
+    start = np.concatenate([[0], np.cumsum(size)[:-1]])
+    buf = rng.randint(0, 256, int(size.sum())).astype(np.uint8)  # the tracks' bytes: never read
+    buf[start[:, None] + np.arange(rec.dtype.itemsize)] = rec.view(np.uint8).reshape(len(xyz), -1)
+    with open(root / "sparse/0/points3D.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)))
+        f.write(buf.tobytes())
+    return names

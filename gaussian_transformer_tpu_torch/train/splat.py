@@ -12,7 +12,9 @@ full-state ``chkpnt<N>.npz`` checkpoints whose keys are the JAX package's, so
 a JAX checkpoint resumes here, and snapshots (``train/orbax_ckpt.py``) every
 ``orbax_every`` iterations with auto-resume from the latest; their tree is
 the JAX package's Orbax tree (``orbax_payload``), so a JAX snapshot read as
-numpy restores through ``orbax_restore_state``. Not ported: the viewer pump.
+numpy restores through ``orbax_restore_state``. With ``viewer=True`` each
+iteration first serves the SIBR viewer (``viewer/network_gui.py pump``)
+renders of the current Gaussians.
 
 Host reads per step: the stream length (``render.stream.used_stream``) and
 one read of (loss, overflow) after the step; a snapshot step also copies the
@@ -211,6 +213,7 @@ def training(
     capacity_headroom: float = 4.0,
     orbax_dir: Optional[str] = None,
     orbax_every: int = 0,
+    viewer: bool = False,
 ):
     """The reference's training loop against a Scene object (``gaussians``,
     ``cameras_extent``, ``model_path``, ``get_train_cameras``, ``save``).
@@ -226,7 +229,12 @@ def training(
     With ``orbax_dir``, the run resumes from the newest snapshot under it
     (unless ``start_checkpoint`` is given), snapshots every ``orbax_every``
     iterations and at the last one, and waits for the writes before it
-    returns. Returns the trained scene."""
+    returns. With ``viewer``, each iteration starts with one
+    ``network_gui.pump``: requests are served renders of the current
+    Gaussians at the current budgets on the base background, under
+    ``torch.no_grad()`` and without touching the trainer's random state;
+    with no client connected the pump is one non-blocking ``accept``.
+    Returns the trained scene."""
     gaussians = scene_obj.gaussians
     dev = gaussians.xyz.device
     n0 = gaussians.num_alive
@@ -262,7 +270,18 @@ def training(
     timer = StepTimer() if dev.type == "cuda" else None
     rng = np.random.RandomState(seed)
     viewpoint_stack = []
+    if viewer:
+        from gaussian_transformer_tpu_torch.viewer import network_gui
+
+        source_path = getattr(scene_obj, "source_path", "")
+
+        @torch.no_grad()
+        def viewer_render(cam, smod):
+            return render(cam, gaussians, render_cfg, bg_color=bg, scaling_modifier=smod)["render"]
+
     for iteration in range(first_iter + 1, opt.iterations + 1):
+        if viewer:
+            network_gui.pump(viewer_render, source_path=source_path, device=dev)
         if iteration % 1000 == 0:
             gaussians.oneup_sh_degree()
         if not viewpoint_stack:

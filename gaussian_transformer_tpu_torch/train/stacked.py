@@ -29,7 +29,10 @@ collective lies inside either branch, so the ranks of a group issue theirs
 in the same order whatever their windows' gates say. Checkpoints of a
 sharded model are gathered whole and written by rank 0 alone.
 
-Not ported: ``LiveViewerStream`` (the viewer).
+The viewer: ``LiveViewerStream`` streams the cached greedy decode
+(``models/decode_cache.py``) of the last batch to the SIBR viewer, one
+rendered frame per token, and ``make_viewer_train_fn`` serves the
+teacher-forced decode while training goes on.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from gaussian_transformer_tpu_torch.models.codec import (
     unflatten_gaussians,
     unstack_tokens,
 )
+from gaussian_transformer_tpu_torch.models.decode_cache import decode_step, init_decode_state
 from gaussian_transformer_tpu_torch.models.transformer import (
     EncoderDecoder,
     init_model,
@@ -345,6 +349,97 @@ def make_loss_fn(model: EncoderDecoder, handler: GaussianHandler, render_cfg: Re
         return loss, metrics
 
     return loss_fn
+
+
+class LiveViewerStream:
+    """Live autoregressive viewer streaming: when the SIBR viewer pauses
+    training (train=False), every greedy-decode step's partial
+    reconstruction is rendered and sent at once. The decode runs the
+    KV-cached path (``models/decode_cache.py``, O(L) attention a step);
+    training keeps the differentiable scan decode. Everything runs under
+    ``torch.no_grad()``.
+
+    ``viewer/network_gui.py pump_stacked`` drives ``start``/``step``/
+    ``render`` and reads ``n_steps``; the trainer hands over each step's
+    batch with ``set_batch`` (the model is the live module, so its weights
+    are always the current ones)."""
+
+    def __init__(self, model: EncoderDecoder, handler: GaussianHandler, render_cfg: RenderConfig,
+                 stack: int = STACK):
+        self.model, self.handler, self.render_cfg, self.stack = model, handler, render_cfg, stack
+        self.n_steps = 0
+        self.batch: Optional[StackedBatch] = None
+
+    def set_batch(self, batch: StackedBatch) -> None:
+        self.batch = batch
+        self.n_steps = int(batch.trg_y.shape[1])
+
+    @torch.no_grad()
+    def start(self):
+        """(ys [B, Lt + 1, D] holding START in row 0, the decode state, 0)."""
+        b = self.batch
+        max_len = int(b.trg_y.shape[1]) + 1
+        state = init_decode_state(self.model, b.src, b.src_mask, max_len)
+        ys = b.src.new_zeros(b.src.shape[0], max_len, b.src.shape[-1])
+        ys[:, 0] = start_token(self.stack).to(ys)
+        return ys, state, 0
+
+    @torch.no_grad()
+    def step(self, carry):
+        """One cached decode step: row i + 1 of ys from row i."""
+        ys, state, i = carry
+        ys[:, i + 1] = decode_step(self.model, state, ys[:, i:i + 1], i)
+        return ys, state, i + 1
+
+    def render(self, carry, cam, smod, show_prompt, show_pred):
+        ys, _, i = carry
+        return self.compose(ys, i, cam, smod, show_prompt, show_pred)
+
+    @torch.no_grad()
+    def compose(self, ys, n_valid, cam, smod, show_prompt, show_pred):
+        """The display composite of any prediction buffer ``ys`` whose rows
+        0..n_valid are live: the prompt's real tokens (``show_prompt``)
+        and/or those rows (``show_pred``); with neither flag, the target
+        without its PAD tokens. Shared by the stream and the teacher-forced
+        image."""
+        b, stack = self.batch, self.stack
+        if show_prompt or show_pred:
+            tokens = torch.cat([b.src[0], ys[0].to(b.src.dtype)], dim=0)
+            alive_fat = torch.cat([
+                b.src_mask[0, 0] & bool(show_prompt),
+                (torch.arange(ys.shape[1], device=ys.device) <= int(n_valid)) & bool(show_pred),
+            ])
+        else:
+            tokens = b.trg_y[0]
+            alive_fat = ~fuzzy_token_equal(b.trg_y[0], pad_token(stack))
+        g = self.handler.denormalize(unflatten_gaussians(unstack_tokens(tokens, stack))).replace(
+            alive=alive_fat.repeat_interleave(2**stack))
+        return render(cam, g, self.render_cfg, scaling_modifier=float(smod))["render"]
+
+
+def make_viewer_train_fn(stream: LiveViewerStream):
+    """The viewer's image while training goes on: the teacher-forced decode
+    of the stream's batch, ``generator(decode(encode(src), trg))``, run
+    deterministically (``model.eval()``, no dropout generator), composed by
+    ``stream.compose`` with every row live. The model's train/eval mode is
+    restored after the call. Returns fn(cam, smod, show_prompt, show_pred)
+    -> image, or None before the first batch."""
+
+    @torch.no_grad()
+    def viewer_train_fn(cam, smod, show_prompt, show_pred):
+        if stream.batch is None:
+            return None
+        b, model = stream.batch, stream.model
+        was_training = model.training
+        model.eval()
+        try:
+            memory = model.encode(b.src, b.src_mask)
+            gen = model.generator(model.decode(memory, b.src_mask, b.trg, b.trg_mask))
+        finally:
+            model.train(was_training)
+        return stream.compose(gen, gen.shape[1], cam, smod, show_prompt, show_pred)
+
+    return viewer_train_fn
 
 
 class ReduceLROnPlateau:
