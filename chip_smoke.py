@@ -326,20 +326,29 @@ The viewer bridge (``viewer/network_gui.py``), the native IO tier
     of the same carry (K1 once a frame); a train=True tick serves the
     teacher-forced composite and leaves ``model.training`` True; the ms a
     streamed frame beside section 16's cached decode ms a token.
-33. The machine's libjpeg/libpng/g++ probe, the tier's build (with the
-    codecs that compile and link; the reason for any left out), its
-    readers against the Python ones bit for bit on a COLMAP binary model of
-    section 6's views (images.bin, points3D.bin, the PNG decode when libpng
-    is built) and on section 2's PLY (read and write), each timed; the
-    JPEG fixture against its array (1 level) when libjpeg is built, else a
-    COLMAP folder of JPEGs raising the error that names libjpeg; the
-    COLMAP folder through ``Scene``. 33b: ``cli.full_eval
-    --skip_training`` over synthetic roots, one scene per list, its
-    renders and metrics in child processes on the card; PSNR against a
-    numpy recomputation.
+33. The machine's libjpeg/libpng/g++ probe, the tier's build (PNG where
+    libpng compiles and links, else the reason), its readers against the
+    Python ones bit for bit on a COLMAP binary model of section 6's views
+    (images.bin, points3D.bin, the PNG decode when libpng is built) and on
+    section 2's PLY (read and write), each timed; the COLMAP folder through
+    ``Scene``. 33b: ``cli.full_eval --skip_training`` over synthetic roots,
+    one scene per list, its renders and metrics in child processes on the
+    card; PSNR against a numpy recomputation.
+34. JPEG scenes: the tier's own JPEG decoder (``native/jpeg.cpp``) on a
+    machine without libjpeg: ``codecs()`` and ``missing()``; every
+    committed JPEG (``native/testdata/jpeg``: 8 views at 960x540, baseline,
+    progressive, restart markers, 4:4:4, and a 1080p view; PR 15's
+    ``fixture.jpg``) decodes to the sha256 recorded from libjpeg; the
+    1080p file on one thread (median of 21 calls, ms and MP/s) and the
+    8-view folder on the pool (images/s), beside the host's CPU count; a
+    COLMAP model written around the committed views loads through
+    ``Scene`` on the card with each camera's image equal to the
+    digest-checked decode; ``cli.train`` trains it for 300 steps with
+    ``--eval`` off and the PSNR on the training views must rise.
 
 The kernels line's K1-K4 entries carry the launches of sections 31-32 as
-``viewer_launches``.
+``viewer_launches`` and those of section 34's ``cli.train`` as
+``jpeg_launches``.
 
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
 before and after its window. The K3, K4, K7 and K8 entries of the kernels
@@ -996,6 +1005,7 @@ def run(args, device) -> dict:
     nopallas_path(args, device, scene, fovx, splits["test"], summary)
     summary["viewer_launches"] = viewer_path(args, device, summary, scene, fovx, splits["test"], train_cfg)
     native_io_path(args, device, summary)
+    summary["jpeg_launches"] = jpeg_path(args, device, summary)
     summary.update(kernels_line)
     return summary
 
@@ -4276,7 +4286,7 @@ def native_io_path(args, device, summary) -> None:
     from gaussian_transformer_tpu_torch import native
     from gaussian_transformer_tpu_torch.cli import full_eval
     from gaussian_transformer_tpu_torch.scene import Scene
-    from gaussian_transformer_tpu_torch.scene import colmap, dataset_readers, ply
+    from gaussian_transformer_tpu_torch.scene import colmap, ply
     from gaussian_transformer_tpu_torch.tools.synthetic import write_colmap_binary
     from gaussian_transformer_tpu_torch.utils.png import read_png
 
@@ -4287,21 +4297,18 @@ def native_io_path(args, device, summary) -> None:
     fovx = math.radians(50.0)
     W, H = args.width, args.height
 
-    print("== 33. native IO: the machine's libjpeg/libpng/g++, the tier's build, its readers against the Python ones")
+    print("== 33. native IO: the machine's libpng/g++, the tier's build, its readers against the Python ones")
     probe = io_probe()
     print("probe (ls /usr/include/jpeglib.h /usr/include/png.h; ldconfig -p | grep -E 'jpeg|png'; g++ --version):\n"
           + probe)
-    headers = {"jpeg": os.path.exists("/usr/include/jpeglib.h"), "png": os.path.exists("/usr/include/png.h")}
     _, build_ms = timed(native.build)
     codecs, missing = native.codecs(), native.missing()
     print(f"native tier: available {native.available()} ({native.unavailable_reason() or 'built'}), codecs "
           f"{list(codecs)}, built in {build_ms:.0f} ms; missing: {missing or 'none'}")
-    for codec, there in headers.items():
-        if there:
-            check(codec in codecs, f"{codec}: its header is there, so the tier decodes it")
-        else:
-            print(f"{codec}: {'jpeglib.h' if codec == 'jpeg' else 'png.h'} is missing here; the tier is built "
-                  f"without it ({missing.get(codec)})")
+    if os.path.exists("/usr/include/png.h"):
+        check("png" in codecs, "png: its header is there, so the tier decodes it")
+    else:
+        print(f"png: png.h is missing here; the tier is built without it ({missing.get('png')})")
     check(native.available(), f"the tier's parsers build ({native.unavailable_reason()})")
     summary.update(io_probe=probe, native_codecs=list(codecs), native_missing=missing, native_build_ms=build_ms)
 
@@ -4355,27 +4362,6 @@ def native_io_path(args, device, summary) -> None:
         same([n_png[p] for p in pngs], [p_png[p] for p in pngs], f"PNG decode ({len(pngs)} views at {W}x{H})")
     else:
         print(f"PNG decode: the tier has no libpng, so PNGs go through utils/png.py ({missing['png']})")
-    fixture = ROOT / "gaussian_transformer_tpu_torch" / "native" / "testdata"
-    if "jpeg" in codecs:
-        got, times["JPEG decode native (fixture)"] = timed(lambda: native.decode_folder([str(fixture / "fixture.jpg")]))
-        diff = int(np.abs(got[str(fixture / "fixture.jpg")].astype(int) - np.load(fixture / "fixture_rgb.npy")).max())
-        print(f"JPEG fixture: max abs diff {diff} level(s) against the JAX native tier's decode (tolerance 1)")
-        check(diff <= 1, "the JPEG fixture decodes to its array within one level")
-        summary["jpeg_fixture_diff"] = diff
-    else:
-        jdir = root / "jpeg_colmap"
-        write_colmap_binary(jdir, views[:1], W, H, fovx, xyz[:100], rgb[:100])
-        os.remove(jdir / "images" / "000.png")
-        shutil.copy(fixture / "fixture.jpg", jdir / "images" / "000.jpg")
-        binp = jdir / "sparse" / "0" / "images.bin"
-        binp.write_bytes(binp.read_bytes().replace(b"000.png\x00", b"000.jpg\x00"))
-        try:
-            dataset_readers.read_colmap_scene_info(str(jdir), None, False)
-            raised = None
-        except native.CodecUnavailable as e:
-            raised = str(e)
-        print(f"a COLMAP folder of JPEGs: {raised}")
-        check(raised is not None and "libjpeg" in raised, "a JPEG folder raises the error naming libjpeg")
     print(f"[{smi}] IO times (ms, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
     random.seed(args.seed)
     ns = Namespace(sh_degree=3, source_path=str(root / "colmap"), model_path=str(root / "colmap_model"),
@@ -4420,6 +4406,132 @@ def native_io_path(args, device, summary) -> None:
                   f"{res[method]['SSIM']:.4f}")
         scores[name] = res
     summary.update(full_eval_s=t_fe, full_eval_scores=scores)
+
+
+# ---------------------------------------------------------- JPEG scenes ---
+
+JPEG_DIR = ROOT / "gaussian_transformer_tpu_torch" / "native" / "testdata" / "jpeg"
+JPEG_ITERATIONS = 300  # section 34's cli.train run on the committed JPEG scene
+JPEG_POINTS = 50_000  # its COLMAP model's points3D.bin (surface_points)
+JPEG_TIMING_CALLS = 21  # one-thread decodes of the 1080p file (the median is printed)
+JPEG_FOLDER_CALLS = 5  # pool decodes of the 8-view folder
+
+
+def jpeg_path(args, device, summary, iterations=None) -> dict:
+    """Section 34: the native IO tier's own JPEG decoder on this machine
+    (no libjpeg), every committed JPEG against its digest, the decode
+    times, a COLMAP model written around the committed views loaded
+    through ``Scene``, and ``cli.train`` on it for ``iterations`` steps
+    (default ``JPEG_ITERATIONS``). Returns the run's K1-K4 launches
+    ({"train": {...}})."""
+    import hashlib
+    import statistics
+
+    import torch
+
+    from gaussian_transformer_tpu_torch import native
+    from gaussian_transformer_tpu_torch.cli import train as cli_train
+    from gaussian_transformer_tpu_torch.render import render
+    from gaussian_transformer_tpu_torch.scene import Scene
+    from gaussian_transformer_tpu_torch.scene.camera_utils import image_to_array
+    from gaussian_transformer_tpu_torch.scene.gaussians import GaussianScene
+    from gaussian_transformer_tpu_torch.tools.synthetic import write_colmap_binary
+
+    on_card = device.type == "cuda"
+    smi = smi_line(device)
+    iterations = iterations or JPEG_ITERATIONS
+    testdata = JPEG_DIR.parent
+    views = json.loads((JPEG_DIR / "views.json").read_text())
+    digests = json.loads((JPEG_DIR / "digests.json").read_text())
+    W, H, fovx = views["width"], views["height"], views["fovx"]
+
+    print("== 34. JPEG scenes: the tier's own JPEG decoder on this machine, the committed JPEGs against their "
+          "digests, decode times, a JPEG COLMAP scene through Scene and cli.train")
+    header = os.path.exists("/usr/include/jpeglib.h")
+    _, build_ms = timed(native.build)
+    codecs, missing = native.codecs(), native.missing()
+    print(f"jpeglib.h here: {header}; the tier built in {build_ms:.0f} ms: codecs() {list(codecs)}, "
+          f"missing() {missing}")
+    check("jpeg" in codecs, "the tier decodes JPEG with its own decoder (no libjpeg)")
+
+    files = {n: testdata / n if n == "fixture.jpg" else JPEG_DIR / n for n in digests}
+    decoded = native.decode_folder([str(p) for p in files.values()])
+    for name, path in files.items():
+        arr = decoded[str(path)]
+        got = hashlib.sha256(arr.tobytes()).hexdigest()
+        check(got == digests[name], f"{name} ({arr.shape[1]}x{arr.shape[0]}, {path.stat().st_size} B) decodes "
+                                    f"to its digest {digests[name][:16]}")
+    check(np.array_equal(decoded[str(files["fixture.jpg"])], np.load(testdata / "fixture_rgb.npy")),
+          "fixture.jpg decodes to fixture_rgb.npy bit for bit")
+
+    big = JPEG_DIR / views["timing"]["file"]
+    bw, bh = native.image_size(str(big))
+    native.load_images([str(big)], bw, bh, threads=1)
+    one = [timed(lambda: native.load_images([str(big)], bw, bh, threads=1))[1] for _ in range(JPEG_TIMING_CALLS)]
+    folder = [str(JPEG_DIR / v["file"]) for v in views["views"]]
+    pool = [timed(lambda: native.load_images(folder, W, H))[1] for _ in range(JPEG_FOLDER_CALLS)]
+    one_ms, pool_ms = statistics.median(one), statistics.median(pool)
+    cpus = os.cpu_count()
+    print(f"[{smi}] host CPUs {cpus}: {big.name} ({bw}x{bh}, 4:2:0 q95, {big.stat().st_size} B) on one thread: "
+          f"median {one_ms:.3f} ms of {len(one)} calls (min {min(one):.3f}, max {max(one):.3f}), "
+          f"{bw * bh / one_ms / 1e3:.2f} MP/s; the {len(folder)}-view folder ({W}x{H}) on the pool ({cpus} "
+          f"threads): median {pool_ms:.3f} ms of {len(pool)} calls, {len(folder) / pool_ms * 1e3:.1f} images/s")
+    summary.update(jpeg_decode={"cpus": cpus, "smi": smi, "one_thread_ms": one, "one_thread_median_ms": one_ms,
+                                "mp_per_s": bw * bh / one_ms / 1e3, "folder_ms": pool, "folder_median_ms": pool_ms,
+                                "images_per_s": len(folder) / pool_ms * 1e3})
+
+    root = Path(args.work) / "jpeg_scene"
+    shutil.rmtree(root, ignore_errors=True)
+    xyz, rgb = surface_points(JPEG_POINTS, args.seed + 16)
+    write_colmap_binary(root / "data", [(v["c2w"], JPEG_DIR / v["file"]) for v in views["views"]], W, H, fovx,
+                        xyz, rgb, seed=args.seed)
+    random.seed(args.seed)
+    ns = Namespace(sh_degree=1, source_path=str(root / "data"), model_path=str(root / "load"), images="images",
+                   resolution=1, white_background=False, eval=False)
+    loaded, load_ms = timed(lambda: Scene(ns, sh_degree=1, shuffle=False, device=device))
+    cams = sorted(loaded.get_train_cameras(), key=lambda c: c.image_name)
+    check([c.image_name for c in cams] == [Path(v["file"]).stem for v in views["views"]] and all(
+        torch.equal(c.original_image.cpu(), torch.from_numpy(image_to_array(decoded[str(JPEG_DIR / v["file"])],
+                                                                            (W, H))))
+        for c, v in zip(cams, views["views"])),
+        f"the JPEG COLMAP folder loads through Scene on the {device.type}: each camera's original_image is "
+        f"camera_utils' array of the digest-checked decode")
+    print(f"Scene load of the JPEG COLMAP folder ({len(cams)} views at {W}x{H}, {JPEG_POINTS} points): "
+          f"{load_ms:.0f} ms")
+
+    def train_psnr(gaussians) -> float:
+        with torch.no_grad():
+            return float(np.mean([psnr_db(torch.clamp(render(c, gaussians)["render"], 0, 1), c.original_image)
+                                  for c in cams]))
+
+    before = train_psnr(loaded.gaussians)
+    del loaded
+    model = root / "model"
+    counters = kernel_counters()
+    zero_counts(counters)
+    dev_arg = [] if on_card else ["--device", str(device)]
+    t0 = time.time()
+    res = cli_train.main(["-s", str(root / "data"), "-m", str(model), "-r", "1", "--iterations", str(iterations),
+                          "--save_iterations", str(iterations), "--test_iterations", str(iterations),
+                          "--quiet"] + dev_arg)
+    t_train = time.time() - t0
+    launches = read_counts(counters)
+    losses = [h["loss"] for h in res["history"]]
+    print(f"cli.train on the JPEG scene, {iterations} steps (--eval off): {t_train:.1f} s; launches {launches}; "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    check(len(losses) == iterations and all(math.isfinite(v) for v in losses), "every loss is finite")
+    if on_card:
+        check(launches["K2"] == iterations and launches["K4"] == iterations and min(launches.values()) > 0,
+              f"K1-K4 ran on the JPEG scene, K2 and K4 once per step ({iterations})")
+    trained = GaussianScene.load_ply(str(model / "point_cloud" / f"iteration_{iterations}" / "point_cloud.ply"), 1,
+                                     device=device)
+    after = train_psnr(trained)
+    print(f"PSNR on the {len(cams)} training views: {before:.3f} dB before, {after:.3f} dB after {iterations} steps")
+    check(after > before, f"training on the JPEG scene raised the PSNR ({before:.3f} -> {after:.3f} dB)")
+    summary.update(jpeg_scene={"load_ms": load_ms, "train_s": t_train, "iterations": iterations,
+                               "psnr_before": before, "psnr_after": after, "launches": launches,
+                               "loss_first": losses[0], "loss_last": losses[-1]})
+    return {"train": launches}
 
 
 def main(argv=None) -> int:
@@ -4475,6 +4587,7 @@ def main(argv=None) -> int:
                           {k: v for k, v in flat_launches.items() if k.startswith("autoencoder")})
         torch.cuda.empty_cache()
         add_path_launches(summary["kernels"], "gate_launches", gate_path(args, device, summary))
+        add_path_launches(summary["kernels"], "jpeg_launches", summary["jpeg_launches"])
         add_path_launches(summary["kernels"], "viewer_launches",
                           {**summary["viewer_launches"], "stacked_stream": summary["stacked_stream_launches"]})
         add_path_launches(summary["kernels"], "tier_launches",

@@ -4,18 +4,25 @@ COLMAP binary parsers, float32 PLY vertex tables and a thread-pool
 JPEG/PNG decoder with a bilinear resize: the same C ABI and the same
 Python functions as the JAX package's native tier, in the port's own copy.
 
+JPEGs decode with the tier's own decoder (``jpeg.cpp``: baseline and
+progressive Huffman files, restart markers, 4:4:4/4:2:2/4:2:0 and
+grayscale, bit for bit with libjpeg-turbo's defaults), so JPEG needs no
+library: wherever the tier builds, ``codecs()`` holds ``"jpeg"``. A file it
+cannot decode raises ``IOError`` naming the file and the feature
+(arithmetic coding, 12-bit, lossless, CMYK, other sampling factors).
+
 At first use the library is built with ``g++ -O3 -fPIC -std=c++17 -shared
-... -ljpeg -lpng -lpthread`` into ``build/torch_native/`` at the repository
-root, under a name keyed by a hash of the source and the flags. The build
-writes a temporary file and renames it into place, so processes that build
-at once never load a half-written library. Before it, two small probe
-programs check that libjpeg and libpng compile and link; a codec that does
-not is left out of the build (``GT_NO_JPEG``/``GT_NO_PNG``), the parsers are
-built all the same, and ``missing()`` says why. A scene load then decodes
-PNGs with ``utils/png.py`` and raises ``CodecUnavailable`` for a JPEG,
-naming the missing library. Without a compiler the tier is unavailable
-(``available()`` is False, ``unavailable_reason()`` says why) and the
-callers use their Python readers.
+gt_native.cpp jpeg.cpp ... -lpng -lpthread`` into ``build/torch_native/`` at
+the repository root, under a name keyed by a hash of the sources and the
+flags. The build writes a temporary file and renames it into place, so
+processes that build at once never load a half-written library. Before it,
+a small probe program checks that libpng compiles and links; where it does
+not, PNG is left out of the build (``GT_NO_PNG``), the rest is built all
+the same, ``missing()`` says why, and a scene load decodes PNGs with
+``utils/png.py``. Without a compiler the tier is unavailable
+(``available()`` is False, ``unavailable_reason()`` says why): the callers
+use their Python readers for the bins and PNGs, and a JPEG raises
+``CodecUnavailable`` naming that reason.
 """
 
 from __future__ import annotations
@@ -31,14 +38,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "gt_native.cpp"
+SOURCES = [Path(__file__).resolve().parent / name for name in ("gt_native.cpp", "jpeg.cpp")]
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_native"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
 CODECS = ("jpeg", "png")
-# A program per codec that needs its header and its library, and the link flag.
+# A program per optional codec that needs its header and its library, and
+# the link flag. JPEG has none: the tier decodes it itself (jpeg.cpp).
 _PROBES = {
-    "jpeg": ("#include <cstdio>\n#include <jpeglib.h>\n"
-             "int main() { jpeg_error_mgr e; jpeg_std_error(&e); return 0; }\n", "-ljpeg"),
     "png": ("#include <png.h>\nint main() { return png_access_version_number() == 0; }\n", "-lpng"),
 }
 
@@ -59,7 +65,8 @@ def compiler() -> Optional[str]:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    key = b"".join(src.read_bytes() for src in SOURCES) + " ".join(CXX_FLAGS).encode()
+    digest = hashlib.sha256(key).hexdigest()[:16]
     return BUILD_DIR / f"libgt_native-{digest}.so"
 
 
@@ -83,7 +90,7 @@ def probe_codecs(cxx: str) -> Dict[str, Optional[str]]:
 
 
 def build(verbose: bool = False) -> bool:
-    """(Re)build the library now, with the codecs that compile and link
+    """(Re)build the library now, with PNG where libpng compiles and links
     here. Returns ``available()``."""
     global _lib, _tried, _why
     _lib, _tried, _why = None, True, None
@@ -94,7 +101,7 @@ def build(verbose: bool = False) -> bool:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     missing = probe_codecs(cxx)
     defines, libs = [], []
-    for codec in CODECS:
+    for codec in _PROBES:
         if missing[codec] is None:
             libs.append(_PROBES[codec][1])
         else:
@@ -105,7 +112,7 @@ def build(verbose: bool = False) -> bool:
     note = note.replace("\\", "/").replace('"', "'")
     out = library_path()
     tmp = out.with_name(f"{out.name}.{os.getpid()}-{uuid.uuid4().hex[:8]}.tmp")
-    cmd = [cxx, *CXX_FLAGS, *defines, f'-DGT_BUILD_NOTE="{note}"', "-o", str(tmp), str(SOURCE),
+    cmd = [cxx, *CXX_FLAGS, *defines, f'-DGT_BUILD_NOTE="{note}"', "-o", str(tmp), *map(str, SOURCES),
            *libs, "-lpthread"]
     proc = subprocess.run(cmd, capture_output=not verbose, text=True)
     if proc.returncode != 0:
@@ -167,6 +174,7 @@ def _bind(lib) -> None:
         c.POINTER(c.c_uint8), c.POINTER(c.c_int32),
     ]
     lib.gt_image_size.argtypes = [c.c_char_p, c.POINTER(c.c_int), c.POINTER(c.c_int)]
+    lib.gt_image_error.argtypes = [c.c_char_p, c.c_char_p, c.c_int]
 
 
 def available() -> bool:
@@ -205,13 +213,22 @@ def codec_of(path: str) -> str:
 
 
 def require_codec(path: str) -> None:
-    """Raise ``CodecUnavailable`` naming the missing library when the tier
-    cannot decode ``path``."""
+    """Raise ``CodecUnavailable`` when the tier cannot decode ``path``'s
+    codec: a JPEG only when the tier itself is unavailable (its reason), a
+    PNG also when it was built without libpng."""
     codec = codec_of(path)
     if codec not in codecs():
-        lib = {"jpeg": "libjpeg (jpeglib.h, -ljpeg)", "png": "libpng (png.h, -lpng)"}[codec]
-        raise CodecUnavailable(f"{path}: decoding a {codec.upper()} needs {lib} in the native IO tier "
+        what = "the native IO tier's JPEG decoder" if codec == "jpeg" else "libpng (png.h, -lpng)"
+        raise CodecUnavailable(f"{path}: decoding a {codec.upper()} needs {what} "
                                f"(gaussian_transformer_tpu_torch/native): {missing()[codec]}")
+
+
+def decode_error(path: str) -> str:
+    """Why ``path`` does not decode ("" when it does): for a JPEG, the
+    feature the tier's decoder lacks or the fault it found."""
+    msg = ctypes.create_string_buffer(512)
+    _lib_or_raise().gt_image_error(path.encode(), msg, len(msg))
+    return msg.value.decode(errors="replace")
 
 
 def _lib_or_raise():
@@ -327,9 +344,13 @@ def load_images(paths: List[str], width: int, height: int, threads: int = 0) -> 
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         status.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )
-    if rc != 0 or np.any(status != 0):
-        bad = [paths[i] for i in np.nonzero(status)[0]]
-        raise IOError(f"gt_load_images failed (rc={rc}, bad={bad[:3]})")
+    if rc != 0:
+        raise IOError(f"gt_load_images failed (rc={rc})")
+    bad = np.nonzero(status)[0]
+    if len(bad):
+        why = [f"{paths[i]}: {decode_error(paths[i]) if codec_of(paths[i]) == 'jpeg' else 'decode failed'}"
+               for i in bad[:3]]
+        raise IOError(f"gt_load_images: {len(bad)} image(s) did not decode: " + "; ".join(why))
     return out
 
 

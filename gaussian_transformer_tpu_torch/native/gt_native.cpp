@@ -5,9 +5,10 @@
 //   * a binary-little-endian float32 PLY vertex-table reader and writer
 //   * a thread-pool JPEG/PNG decoder with a bilinear resize
 // The C ABI is the JAX package's native tier's (native/gt_native.cpp at the
-// repository root), plus gt_codecs() and gt_build_note(): the image codecs
-// are optional, so that the parsers build where libjpeg or libpng is absent.
-// Build flags GT_NO_JPEG / GT_NO_PNG leave a codec out; GT_BUILD_NOTE is a
+// repository root), plus gt_codecs(), gt_build_note() and gt_image_error().
+// JPEGs go through the tier's own decoder (jpeg.cpp, compiled into the same
+// library), so they need no library. PNG decoding needs libpng and is
+// optional: the build flag GT_NO_PNG leaves it out, and GT_BUILD_NOTE is a
 // string saying why. Python binds it through ctypes (native/__init__.py).
 
 #include <cstdint>
@@ -22,9 +23,6 @@
 #include <setjmp.h>
 #include <strings.h>
 
-#ifndef GT_NO_JPEG
-#include <jpeglib.h>
-#endif
 #ifndef GT_NO_PNG
 #include <png.h>
 #endif
@@ -32,23 +30,24 @@
 #define GT_BUILD_NOTE ""
 #endif
 
+// jpeg.cpp
+uint8_t* gt_jpeg_decode(const uint8_t* data, size_t size, int* w, int* h, int* status, std::string* why);
+int gt_jpeg_size(const uint8_t* data, size_t size, int* w, int* h);
+
 extern "C" {
 
 void gt_free(void* p) { free(p); }
 
-// Bit 0: JPEG decoding built in; bit 1: PNG decoding built in.
+// Bit 0: JPEG decoding (always built in); bit 1: PNG decoding built in.
 int gt_codecs(void) {
-  int c = 0;
-#ifndef GT_NO_JPEG
-  c |= 1;
-#endif
+  int c = 1;
 #ifndef GT_NO_PNG
   c |= 2;
 #endif
   return c;
 }
 
-// Why a codec was left out ("" when both are built in).
+// Why PNG was left out ("" when it is built in).
 const char* gt_build_note(void) { return GT_BUILD_NOTE; }
 
 // ---------------------------------------------------------------- COLMAP ----
@@ -222,53 +221,17 @@ int gt_write_ply_f32(const char* path, const char* names, const float* data,
 
 // ---------------------------------------------------------------- images ----
 
-#ifndef GT_NO_JPEG
-struct JpegErr {
-  jpeg_error_mgr mgr;
-  jmp_buf jb;
-};
-
-static void jpeg_err_exit(j_common_ptr cinfo) {
-  JpegErr* e = (JpegErr*)cinfo->err;
-  longjmp(e->jb, 1);
-}
-
-// Decode one JPEG to RGB8; returns malloc'd buffer.
-static uint8_t* decode_jpeg(const char* path, int* w, int* h) {
-  FILE* f = fopen(path, "rb");
-  if (!f) return nullptr;
-  jpeg_decompress_struct cinfo;
-  JpegErr jerr;
-  cinfo.err = jpeg_std_error(&jerr.mgr);
-  jerr.mgr.error_exit = jpeg_err_exit;
-  uint8_t* out = nullptr;
-  if (setjmp(jerr.jb)) {
-    jpeg_destroy_decompress(&cinfo);
-    fclose(f);
-    free(out);
+// Decode one JPEG to RGB8 with jpeg.cpp; returns a malloc'd buffer, or null
+// with *status (< 0) and, when `why` is given, the reason.
+static uint8_t* decode_jpeg(const char* path, int* w, int* h, int* status, std::string* why = nullptr) {
+  std::vector<uint8_t> buf;
+  if (!slurp(path, buf)) {
+    *status = -1;
+    if (why) *why = "cannot read the file";
     return nullptr;
   }
-  jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, f);
-  jpeg_read_header(&cinfo, TRUE);
-  cinfo.out_color_space = JCS_RGB;
-  jpeg_start_decompress(&cinfo);
-  *w = cinfo.output_width;
-  *h = cinfo.output_height;
-  out = (uint8_t*)malloc((size_t)(*w) * (*h) * 3);
-  while (cinfo.output_scanline < cinfo.output_height) {
-    uint8_t* row = out + (size_t)cinfo.output_scanline * (*w) * 3;
-    jpeg_read_scanlines(&cinfo, &row, 1);
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  fclose(f);
-  return out;
+  return gt_jpeg_decode(buf.data(), buf.size(), w, h, status, why);
 }
-
-#else
-static uint8_t* decode_jpeg(const char*, int*, int*) { return nullptr; }
-#endif
 
 #ifndef GT_NO_PNG
 static uint8_t* decode_png(const char* path, int* w, int* h) {
@@ -328,7 +291,7 @@ static void resize_rgb(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw,
 
 // Load n images (JPEG/PNG by extension) into one [n, out_h, out_w, 3] u8
 // buffer with a thread pool. paths = '\n'-joined. Returns 0 and per-image
-// status (0 ok) in status_out.
+// status (0 ok; a JPEG's jpeg.cpp status, -1 otherwise) in status_out.
 int gt_load_images(const char* paths, int n, int out_w, int out_h, int threads,
                    uint8_t* dst, int32_t* status_out) {
   std::vector<std::string> files;
@@ -351,9 +314,10 @@ int gt_load_images(const char* paths, int n, int out_w, int out_h, int threads,
       const std::string& p = files[i];
       int w = 0, h = 0;
       uint8_t* buf = nullptr;
+      int status = -1;
       bool is_png = p.size() > 4 && strcasecmp(p.c_str() + p.size() - 4, ".png") == 0;
-      buf = is_png ? decode_png(p.c_str(), &w, &h) : decode_jpeg(p.c_str(), &w, &h);
-      if (!buf) { status_out[i] = -1; continue; }
+      buf = is_png ? decode_png(p.c_str(), &w, &h) : decode_jpeg(p.c_str(), &w, &h, &status);
+      if (!buf) { status_out[i] = status; continue; }
       if (w == out_w && h == out_h) {
         memcpy(dst + i * stride, buf, stride);
       } else {
@@ -385,29 +349,28 @@ int gt_image_size(const char* path, int* w, int* h) {
     *h = (hdr[20] << 24) | (hdr[21] << 16) | (hdr[22] << 8) | hdr[23];
     return 0;
   }
-#ifdef GT_NO_JPEG
-  return -4;
-#else
+  // The JPEG's SOFn, from the file's head (the whole file if it is further).
   FILE* f = fopen(path, "rb");
   if (!f) return -1;
-  jpeg_decompress_struct cinfo;
-  JpegErr jerr;
-  cinfo.err = jpeg_std_error(&jerr.mgr);
-  jerr.mgr.error_exit = jpeg_err_exit;
-  if (setjmp(jerr.jb)) {
-    jpeg_destroy_decompress(&cinfo);
-    fclose(f);
-    return -3;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, f);
-  jpeg_read_header(&cinfo, TRUE);
-  *w = cinfo.image_width;
-  *h = cinfo.image_height;
-  jpeg_destroy_decompress(&cinfo);
+  std::vector<uint8_t> head(1 << 16);
+  head.resize(fread(head.data(), 1, head.size(), f));
   fclose(f);
-  return 0;
-#endif
+  if (gt_jpeg_size(head.data(), head.size(), w, h) == 0) return 0;
+  std::vector<uint8_t> buf;
+  if (head.size() < (1 << 16) || !slurp(path, buf)) return -3;
+  return gt_jpeg_size(buf.data(), buf.size(), w, h) == 0 ? 0 : -3;
+}
+
+// Why a JPEG does not decode: writes the reason into msg (at most len
+// bytes, "" when it decodes) and returns its jpeg.cpp status (0 when it
+// decodes).
+int gt_image_error(const char* path, char* msg, int len) {
+  int w = 0, h = 0, status = 0;
+  std::string why;
+  uint8_t* out = decode_jpeg(path, &w, &h, &status, &why);
+  free(out);
+  snprintf(msg, (size_t)len, "%s", why.c_str());
+  return status;
 }
 
 }  // extern "C"

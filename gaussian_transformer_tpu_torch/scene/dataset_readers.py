@@ -6,14 +6,17 @@ camera under --eval, points3D.bin -> PLY conversion on first load, NeRF++
 camera-extent normalization, random 100k-point init for Blender scenes.
 
 Images are decoded into uint8 [H, W, C] arrays (no Pillow). A COLMAP image
-folder, JPEG and PNG alike, is decoded by the native IO tier (``native/``:
-libjpeg and libpng on a thread pool, grouped by size), which returns RGB
-(an RGBA PNG loses its alpha, as in the JAX package's native path). A
-codec the tier lacks falls to ``utils/png.py`` for a PNG (alpha kept) and
-raises ``native.CodecUnavailable``, naming the missing library, for a JPEG.
-The Blender reader composites each image's alpha over the background, so
-it decodes PNGs with ``utils/png.py`` (RGBA kept, as Pillow's
-``convert("RGBA")``) and JPEGs with the native tier.
+folder is decoded by the native IO tier (``native/``) on a thread pool,
+grouped by size, as RGB: a JPEG always, with the tier's own decoder (bit
+for bit with the JAX package's libjpeg), and a PNG where the tier has
+libpng (an RGBA PNG loses its alpha, as in the JAX package's native path).
+Without libpng a PNG goes through ``utils/png.py`` (alpha kept). A JPEG
+raises ``native.CodecUnavailable`` only where the tier itself cannot be
+built (no C++ compiler), naming why, and ``IOError`` naming the file and
+the feature where its decoder cannot read it. The Blender reader
+composites each image's alpha over the background, so it decodes PNGs
+with ``utils/png.py`` (RGBA kept, as Pillow's ``convert("RGBA")``) and
+JPEGs with the native tier.
 """
 
 from __future__ import annotations
@@ -82,10 +85,10 @@ def _read_image(path: str) -> np.ndarray:
 
 
 def decode_images(paths) -> dict:
-    """{path: uint8 [H, W, C]} for an image folder: every file whose codec
-    the native tier has on its thread pool (RGB), the other PNGs through
-    ``utils/png.py``; a JPEG the tier cannot decode raises
-    ``native.CodecUnavailable``."""
+    """{path: uint8 [H, W, C]} for an image folder: every JPEG, and every
+    PNG where the tier has libpng, on the native tier's thread pool (RGB);
+    the other PNGs through ``utils/png.py``. A JPEG raises
+    ``native.CodecUnavailable`` only when the tier is unavailable."""
     built = native.codecs()
     on_pool = [p for p in paths if native.codec_of(p) in built]
     out = native.decode_folder(on_pool) if on_pool else {}

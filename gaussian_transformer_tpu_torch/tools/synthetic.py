@@ -105,9 +105,13 @@ def write_colmap_binary(root, views, width: int, height: int, fovx: float, xyz, 
     PINHOLE camera of ``fovx``), ``images.bin`` (one record per view, with a
     few seeded 2D observations each, which the readers skip),
     ``points3D.bin`` (``xyz`` [N, 3] float64, ``rgb`` [N, 3] uint8, seeded
-    errors and tracks), and the views' images as PNGs in ``root/images``.
-    ``views``: [(camera-to-world, uint8 [H, W, 3])]. Returns the image
+    errors and tracks), and the views' images in ``root/images``.
+    ``views``: [(camera-to-world, image)], where an image is a uint8
+    [H, W, 3] array (written as ``<i:03d>.png``) or the path of an image
+    file that already exists (a JPEG, say: named by its file name, and
+    copied into ``root/images`` unless it is there). Returns the image
     names."""
+    import shutil
     import struct
     from pathlib import Path
 
@@ -128,8 +132,13 @@ def write_colmap_binary(root, views, width: int, height: int, fovx: float, xyz, 
         f.write(struct.pack("<Q", len(views)))
         for i, (c2w, image) in enumerate(views):
             R, t = colmap_w2c(c2w)
-            name = f"{i:03d}.png"
-            write_png(str(root / images / name), image)
+            if isinstance(image, (str, Path)):
+                name = Path(image).name
+                if not (root / images / name).exists():
+                    shutil.copyfile(image, root / images / name)
+            else:
+                name = f"{i:03d}.png"
+                write_png(str(root / images / name), image)
             f.write(struct.pack("<I", i + 1))
             f.write(struct.pack("<dddd", *rotmat2qvec(R)))
             f.write(struct.pack("<ddd", *t))

@@ -3,14 +3,17 @@ the JAX package's native tier and the port's own Python readers, bit for
 bit: COLMAP images.bin and points3D.bin, float32 PLY reads and writes (the
 files byte for byte), PNG and JPEG decodes (JPEGs written here with PIL,
 in the tests only). Also: which channels of an RGBA PNG reach ``Camera``,
-the named error for a JPEG when the tier cannot decode one, a concurrent
-first build from two processes, and a COLMAP folder of JPEGs loaded
-through ``Scene`` as the JAX package loads it.
+the named error for a JPEG when the tier cannot be built, a build on a
+machine without libjpeg (JPEGs decode all the same: the tier has its own
+decoder, ``native/jpeg.cpp``; ``tests/test_torch_jpeg.py`` holds it to
+libjpeg in depth), a concurrent first build from two processes, and a
+COLMAP folder of JPEGs loaded through ``Scene`` as the JAX package loads
+it.
 
 The committed JPEG fixture (``native/testdata/fixture.jpg`` and the RGB
 array the JAX native tier decodes from it, ``fixture_rgb.npy``) is
 written by ``python -m tests.test_torch_native --write-fixture``; the
-tier's decode is held to the array bit for bit here (one libjpeg)."""
+tier's decode is held to the array bit for bit here."""
 
 import argparse
 import math
@@ -186,8 +189,7 @@ def test_jpeg_decode_matches_the_jax_tier_and_pil(tmp_path):
         w, h = jax_native.image_size(p)
         assert native.image_size(p) == (w, h) == (56, 40)
         np.testing.assert_array_equal(got[p], jax_native.load_images([p], w, h)[0])
-        pil = np.asarray(Image.open(p).convert("RGB"))
-        assert np.abs(got[p].astype(int) - pil).max() <= 1
+        np.testing.assert_array_equal(got[p], np.asarray(Image.open(p).convert("RGB")))
     # The resize path (a target size other than the file's) is the JAX tier's too.
     np.testing.assert_array_equal(native.load_images(paths, 30, 20), jax_native.load_images(paths, 30, 20))
 
@@ -259,8 +261,8 @@ def test_rgba_png_reaches_camera_as_rgb_with_the_tier_built(tmp_path):
 
 def test_colmap_jpeg_folder_loads_through_scene_as_in_jax(tmp_path):
     """A COLMAP folder of JPEGs: the port's Scene holds the JAX Scene's
-    images bit for bit (both decode with libjpeg), its cameras and its point
-    cloud."""
+    images bit for bit (the tier's own decoder against libjpeg), its
+    cameras and its point cloud."""
     _colmap_scene(tmp_path / "data", ".jpg", channels=3, seed=1)
     scene = _port_scene(tmp_path / "data", tmp_path / "m1")
     jscene = _jax_scene(tmp_path / "data", tmp_path / "m2")
@@ -273,7 +275,7 @@ def test_colmap_jpeg_folder_loads_through_scene_as_in_jax(tmp_path):
     np.testing.assert_array_equal(scene.gaussians.xyz.detach().numpy()[:300], np.asarray(jscene.gaussians.xyz)[:300])
 
 
-# ----------------------------------------- a tier without JPEG, or none ---
+# ------------------------------- a machine without libjpeg, or without g++ ---
 
 
 @pytest.fixture
@@ -290,7 +292,9 @@ def test_no_compiler_names_the_missing_tier_and_pngs_still_load(tmp_path, fresh_
     fresh_tier.setenv("CXX", str(tmp_path / "no-such-g++"))
     _colmap_scene(tmp_path / "jpg", ".jpg", channels=3)
     assert not native.available() and "no-such-g++" in native.unavailable_reason()
-    with pytest.raises(native.CodecUnavailable, match=r"JPEG needs libjpeg.*native IO tier unavailable"):
+    with pytest.raises(native.CodecUnavailable,
+                       match=r"JPEG needs the native IO tier's JPEG decoder .*native IO tier unavailable: "
+                             r"no C\+\+ compiler \(.*no-such-g\+\+ not found\)"):
         _port_scene(tmp_path / "jpg", tmp_path / "m1")
     # PNGs load through utils/png.py, and the bins through the Python parsers.
     views = _colmap_scene(tmp_path / "png", ".png", channels=3)
@@ -300,25 +304,45 @@ def test_no_compiler_names_the_missing_tier_and_pngs_still_load(tmp_path, fresh_
 
 
 def test_build_without_libjpeg_keeps_the_parsers_and_names_the_header(tmp_path, fresh_tier):
-    """A build where jpeglib.h does not compile: the parsers and PNG are
-    built, a JPEG raises ``CodecUnavailable`` naming libjpeg and the
-    compiler's reason, and an RGBA PNG keeps its alpha once the tier lacks
-    libpng too."""
-    probes = dict(native._PROBES)
-    probes["jpeg"] = ("#include <cstdio>\n#include <jpeglib_missing_here.h>\nint main() { return 0; }\n", "-ljpeg")
-    fresh_tier.setattr(native, "_PROBES", probes)
-    assert native.available() and native.codecs() == ("png",)
-    assert "jpeglib_missing_here.h" in native.missing()["jpeg"]
+    """A machine without libjpeg (a compiler that fails on jpeglib.h and
+    -ljpeg, as the card's machine has neither): the tier builds, with no
+    -ljpeg in any command, and decodes JPEGs bit for bit with the JAX
+    tier's libjpeg. Where png.h does not compile, PNG is left out, its
+    probe's missing header is named, JPEGs still decode, and an RGBA PNG
+    keeps its alpha (``utils/png.py``)."""
+    log = tmp_path / "cxx.log"
+    cxx = tmp_path / "g++"
+    cxx.write_text("#!/bin/bash\n"
+                   f"echo \"$*\" >> {log}\n"
+                   "stdin=''; src=''\n"
+                   "for a in \"$@\"; do\n"
+                   "  if [ \"$a\" = - ]; then stdin=$(cat); src+=$stdin;\n"
+                   "  elif [ -f \"$a\" ]; then src+=$(cat \"$a\"); fi\n"
+                   "done\n"
+                   "if [[ \" $* \" == *' -ljpeg '* || $src == *'include <jpeglib.h>'* ]]; then\n"
+                   "  echo 'fatal error: jpeglib.h: No such file or directory' >&2; exit 1; fi\n"
+                   f"exec {native.compiler()} \"$@\" <<< \"$stdin\"\n")
+    cxx.chmod(0o755)
+    fresh_tier.setenv("CXX", str(cxx))
+    assert native.available(), native.unavailable_reason()
+    assert native.codecs() == ("jpeg", "png") and native.missing() == {}
+    commands = log.read_text().splitlines()
+    assert any("jpeg.cpp" in c for c in commands) and not any("-ljpeg" in c.split() for c in commands), commands
     _colmap_scene(tmp_path / "jpg", ".jpg", channels=3)
-    with pytest.raises(native.CodecUnavailable, match=r"jpeglib_missing_here\.h"):
-        dataset_readers.decode_images([str(tmp_path / "jpg/images/000.jpg")])
+    p = str(tmp_path / "jpg/images/000.jpg")
+    np.testing.assert_array_equal(dataset_readers.decode_images([p])[p],
+                                  jax_native.load_images([p], *jax_native.image_size(p))[0])
     path = str(tmp_path / "jpg/sparse/0/points3D.bin")
     np.testing.assert_array_equal(colmap.read_points3D_binary(path)[0],
                                   colmap.read_points3D_binary(path, native_io=False)[0])
 
-    probes["png"] = ("#include <png_missing_here.h>\nint main() { return 0; }\n", "-lpng")
+    fresh_tier.setattr(native, "_PROBES",
+                       {"png": ("#include <png_missing_here.h>\nint main() { return 0; }\n", "-lpng")})
     native.build()
-    assert native.codecs() == () and set(native.missing()) == {"jpeg", "png"}
+    assert native.codecs() == ("jpeg",) and set(native.missing()) == {"png"}
+    assert "png_missing_here.h" in native.missing()["png"]
+    np.testing.assert_array_equal(dataset_readers.decode_images([p])[p],
+                                  jax_native.load_images([p], *jax_native.image_size(p))[0])
     views = _colmap_scene(tmp_path / "rgba", ".png", channels=4)
     p = str(tmp_path / "rgba/images/000.png")
     np.testing.assert_array_equal(dataset_readers.decode_images([p])[p], views[0][1])  # RGBA kept
