@@ -294,8 +294,16 @@ through the sharded paths, not scaling:
 29. After section 18, on its model and first batch: ``make_dp_train_step``
     under FSDP2 on a (data 1, fsdp 1) mesh against ``make_train_step`` on
     the same window and dropout key (loss 1e-5 relative, parameters 1e-2 x
-    lr), their ms and peak memory; then ``cli.train_stacked --dp 1 --fsdp
-    1`` for one epoch at one layer.
+    lr), their ms and peak memory; then (29a) ``cli.train_stacked --dp 1
+    --fsdp 1`` for one epoch at one layer. 29b: ``cli.train_stacked --fsdp
+    1 --orbax`` at full width and one layer (1,107,817,984 parameters) for
+    two epochs to a snapshot at epoch 1, then again on the run dir: it resumes at epoch 2,
+    every parameter and Adam moment (and the step count) equal to the
+    first run's, gathered whole, bit for bit, and the snapshot restores
+    into an unsharded model likewise; the snapshot's bytes, the ms the save
+    held training, the write's and the restores' seconds, the disk's free
+    bytes before the write and the host's available memory; the run dir is
+    removed.
 30. After section 22, on section 19's scene: a full-width flat loss and
     backward with ``ring_attention`` over a one-rank group against the same
     with blockwise attention (loss 1e-5 relative, gradients 1e-4 of the
@@ -304,7 +312,8 @@ through the sharded paths, not scaling:
     largest); a heartbeat.
 
 The kernels line's K1-K4 entries carry these runs' launches as
-``tier_launches``.
+``tier_launches`` (29b's two runs as ``stacked_cli_fsdp_orbax`` and
+``stacked_cli_fsdp_orbax_resume``).
 
 The viewer bridge (``viewer/network_gui.py``), the native IO tier
 (``native/``) and ``cli.full_eval``:
@@ -323,9 +332,18 @@ The viewer bridge (``viewer/network_gui.py``), the native IO tier
 32. After section 29, on a fresh model of section 16's weights and its
     first batch: ``pump_stacked`` with train=False streams the cached
     decode, one frame a token, each equal to ``LiveViewerStream.compose``
-    of the same carry (K1 once a frame); a train=True tick serves the
+    of the same carry (K1 once a frame); (32a) a train=True tick serves the
     teacher-forced composite and leaves ``model.training`` True; the ms a
-    streamed frame beside section 16's cached decode ms a token.
+    streamed frame beside section 16's cached decode ms a token. 32b: the
+    same on a fresh model under FSDP2 (a one-rank mesh), served by the
+    collective pump (``pump_stacked(..., group=)`` on a gloo group): each
+    streamed frame and the train-mode frame against section 32's within
+    2e-5, K1 once a frame, ``model.training`` True after; the ms a frame
+    beside section 32's; with the listener bound and no client, the pump
+    alone makes no host synchronisation and launches no kernel, and one
+    train step with and without the pump before it makes the same host
+    synchronisations by call site (the kernels printed, of a second step
+    without the pump too: an FSDP2 step's own count varies between runs).
 33. The machine's libjpeg/libpng/g++ probe, the tier's build (PNG where
     libpng compiles and links, else the reason), its readers against the
     Python ones bit for bit on a COLMAP binary model of section 6's views
@@ -347,7 +365,8 @@ The viewer bridge (``viewer/network_gui.py``), the native IO tier
     ``--eval`` off and the PSNR on the training views must rise.
 
 The kernels line's K1-K4 entries carry the launches of sections 31-32 as
-``viewer_launches`` and those of section 34's ``cli.train`` as
+``viewer_launches`` (32b's as ``stream_fsdp`` and ``teacher_forced_fsdp``)
+and those of section 34's ``cli.train`` as
 ``jpeg_launches``.
 
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
@@ -746,6 +765,26 @@ def step_profile(fn, top: int = 15):
     return table, kernel_us / 1e3, start.elapsed_time(end), len(kernels)
 
 
+def kernel_count(fn) -> dict:
+    """The CUDA kernels one call of ``fn`` launches (torch.profiler; ``fn``
+    already warm): ``launches``, the host's kernel launch calls (the CUDA
+    runtime and driver events, every thread), and ``device_events``, the
+    device-side records (kernels, copies, annotations). Only the first is
+    exact: on a step of ~26,800 launches the device records vary by tens
+    between runs whose host launches and op sequences are the same."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return {"launches": sum(e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cu")
+                            and "LaunchKernel" in e.name for e in events),
+            "device_events": sum(e.device_type == torch.autograd.DeviceType.CUDA for e in events)}
+
+
 def train_step_profile(ckpt: Path, cam, gt, cfg, device, top: int = 25) -> str:
     """Device time by op over one warm train step of the trained state in
     ``ckpt`` on ``cam`` (torch.profiler), at the trainer's render budgets
@@ -775,10 +814,6 @@ def train_step_syncs(ckpt: Path, cam, gt, cfg, device, before=None) -> dict:
     debug mode set to warn), by call site: {"file:line <- caller <- caller": count},
     the innermost frames in the port; ``before()``, if given, is called
     just before each step."""
-    import collections
-    import traceback
-    import warnings
-
     import torch
 
     from gaussian_transformer_tpu_torch.train.splat import OptConfig, restore, train_step
@@ -790,22 +825,45 @@ def train_step_syncs(ckpt: Path, cam, gt, cfg, device, before=None) -> dict:
     before()
     scene, adam, stats, _ = train_step(scene, adam, stats, cam, bg, it, slrs, OptConfig(), cfg)
     torch.cuda.synchronize()
+
+    def step():
+        before()
+        train_step(scene, adam, stats, cam, bg, it + 1, slrs, OptConfig(), cfg)
+
+    return syncs_by_site(step)
+
+
+def syncs_by_site(fn) -> dict:
+    """The host synchronisations one call of ``fn`` makes (PyTorch's sync
+    debug mode set to warn), by call site: {"file:line <- caller <- caller":
+    count}, the innermost frames in the port."""
+    import collections
+    import threading
+    import traceback
+    import warnings
+
+    import torch
+
     sites = collections.Counter()
 
     def record(message, category, filename, lineno, file=None, line=None):
-        frames = [f for f in traceback.extract_stack()[:-1] if "gaussian_transformer_tpu_torch" in f.filename]
+        stack = traceback.extract_stack()[:-1]
+        frames = [f for f in stack if "gaussian_transformer_tpu_torch" in f.filename]
         where = " <- ".join(f"{f.filename.split('gaussian_transformer_tpu_torch/')[-1]}:{f.lineno}"
                             for f in frames[::-1][:3])
+        if not frames:  # outside the port: the innermost frames and the thread
+            where = f"[{threading.current_thread().name}] " + " <- ".join(
+                f"{Path(f.filename).name}:{f.lineno}" for f in stack[::-1][1:4])
         sites[where] += 1
 
     with warnings.catch_warnings():  # restores showwarning on exit
         warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("warn")  # its first call in a process warns once: not fn's
+        shown, warnings.showwarning = warnings.showwarning, record
         try:
-            before()
-            train_step(scene, adam, stats, cam, bg, it + 1, slrs, OptConfig(), cfg)
+            fn()
         finally:
+            warnings.showwarning = shown
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     return dict(sites)
@@ -2184,6 +2242,10 @@ STACKED_PARAMS = 1_905_446_400  # STACK 8, d_model 6656, N 2 (the stacked campai
 STACKED_STACK, STACKED_LAYERS = 8, 2
 STACKED_GAUSSIANS, STACKED_VIEWS = 17_618, 32
 STACKED_W, STACKED_H = 320, 240
+# Section 29b's depth: at full width (d_model 6656) with one layer, 1,107,817,984
+# parameters and a 13.3 GB snapshot. Two layers (22.9 GB) cost the script
+# ~30 s more, which its 1,200 s limit does not leave.
+ORBAX_LAYERS = 1
 SERVING_REPS = 20  # cached decodes timed one by one, before and after a profiler window
 TOKEN_NOISE = 0.01  # N(0, sigma) on the targets of the open-gate step and of section 18
 DECODE_REL = 1e-4  # teacher-forced cached decode vs the decoder's rows, of max |row|
@@ -2562,10 +2624,14 @@ def stacked_path(args, device, summary, stack=STACKED_STACK, layers=STACKED_LAYE
         peak("18")
 
     stacked_tier_path(args, device, summary, data, model_dir, work, tscene, batch, stack, layers)
-    # Section 32 and 16b: section 16's model again.
+    orbax_fsdp_path(args, device, summary, data, model_dir, work, stack, min(layers, ORBAX_LAYERS))
+    # Sections 32, 32b and 16b: section 16's model again.
     model = stacked.make_stacked_model(stack, layers, 0, seed=0, device=device).eval()
-    summary["stacked_stream_launches"] = stacked_viewer_path(args, device, summary, model, tscene, batch,
-                                                             stack)["stream"]
+    viewer = stacked_viewer_path(args, device, summary, model, tscene, batch, stack)
+    summary["stacked_stream_launches"] = viewer["stream"]
+    summary["stacked_stream_fsdp_launches"] = fsdp_viewer_path(args, device, summary, tscene, batch, stack, layers,
+                                                               viewer)
+    del viewer
     model.eval()
     if on_card:
         # Last, as a torch.profiler window slows the host's launches for the
@@ -3748,7 +3814,7 @@ def stacked_tier_path(args, device, summary, data, model_dir, work, tscene, batc
     if on_card:
         torch.cuda.empty_cache()
 
-    print("== 29b. main path: cli.train_stacked --dp 1 --fsdp 1, one epoch at 1 layer")
+    print("== 29a. main path: cli.train_stacked --dp 1 --fsdp 1, one epoch at 1 layer")
     dev_arg = [] if on_card else ["--device", str(device)]
     t0 = time.time()
     res = timed("stacked_cli_dp_fsdp", lambda: cli_stacked.main(
@@ -3764,6 +3830,125 @@ def stacked_tier_path(args, device, summary, data, model_dir, work, tscene, batc
     del res
     gc.collect()
     return summary["tier_stacked_launches"]
+
+
+def host_available_bytes() -> int:
+    """The host's available memory (``MemAvailable`` of /proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("MemAvailable:"))
+
+
+def state_mismatches(model_a, opt_a, model_b, opt_b) -> tuple:
+    """(tensors compared, names of those that differ) over two models'
+    parameters and their Adam state, each whole (``full_tensor``), bit for
+    bit (``torch.equal``)."""
+    import torch
+
+    from gaussian_transformer_tpu_torch.parallel.fsdp import full_tensor
+
+    n, bad = 0, []
+    for (name, p), (name_b, q) in zip(model_a.named_parameters(), model_b.named_parameters()):
+        pairs = [("", p.detach(), q.detach())]
+        sa, sb = opt_a.state.get(p, {}), opt_b.state.get(q, {})
+        if set(sa) != set(sb) or name != name_b:
+            bad.append(name)
+            continue
+        pairs += [(f".{k}", sa[k], sb[k]) for k in sorted(sa)]
+        for k, x, y in pairs:
+            n += 1
+            x, y = full_tensor(x), full_tensor(y)
+            if x.device != y.device:
+                y = y.to(x.device)
+            if not torch.equal(x, y):
+                bad.append(name + k)
+    return n, bad
+
+
+def orbax_fsdp_path(args, device, summary, data, model_dir, work, stack, layers) -> dict:
+    """Section 29b: ``cli.train_stacked --fsdp 1 --orbax`` at the width of
+    sections 16-18 in the tier's group: two epochs to a snapshot at epoch 1,
+    then the same run again, which resumes at epoch 2 and trains no
+    further; its parameters and Adam state against the first run's (the
+    state gathered at the save) bit for bit, and the snapshot restored into
+    an unsharded model likewise. Prints the snapshot's bytes, the ms the
+    save held training, the write's and the restores' seconds, the disk's
+    free bytes before the write and the host's available memory. Returns
+    the K1-K4 launches of the two runs."""
+    import gc
+    import shutil
+
+    import torch
+
+    from gaussian_transformer_tpu_torch.cli import train_stacked as cli_stacked
+    from gaussian_transformer_tpu_torch.train import orbax_ckpt, stacked
+
+    on_card = device.type == "cuda"
+    smi = smi_line() if on_card else "cpu"
+    tier_group(device)
+    run = work / "run_orbax"
+    shutil.rmtree(run, ignore_errors=True)
+    print(f"== 29b. cli.train_stacked --fsdp 1 --orbax (STACK {stack}, {layers} layers): two epochs to a snapshot at "
+          f"epoch 1, then a resume")
+    counters = kernel_counters()
+    argv = ["-s", str(data), "-m", str(model_dir), "--eval", "--stack", str(stack), "--layers", str(layers),
+            "--run_name", str(run), "--quiet", "--fsdp", "1", "--orbax", "--checkpoint_every", "1", "--epochs", "2",
+            "--ip", "127.0.0.1", "--port", "0"] + ([] if on_card else ["--device", str(device)])
+    free_before, host_before = shutil.disk_usage(work).free, host_available_bytes()
+    zero_counts(counters)
+    t0 = time.time()
+    first = cli_stacked.main(argv)
+    t_first = time.time() - t0
+    launches = {"stacked_cli_fsdp_orbax": read_counts(counters)}
+    snap = first["snapshots"]
+    state_file = run / "orbax" / "1" / orbax_ckpt.STATE_FILE
+    n_bytes = state_file.stat().st_size if state_file.exists() else 0
+    check(first["first_epoch"] == 0 and list(snap["save_ms"]) == [1] and list(snap["write_s"]) == [1]
+          and n_bytes > 0, "the first run saved one snapshot, at epoch 1")
+    zero_counts(counters)
+    host_mid = host_available_bytes()
+    t0 = time.time()
+    second = cli_stacked.main(argv)
+    t_second = time.time() - t0
+    launches["stacked_cli_fsdp_orbax_resume"] = read_counts(counters)
+    check(second["first_epoch"] == 2 and second["snapshots"]["restored"] == 1 and not second["history"],
+          "the second run resumed from the snapshot at epoch 2 and trained no further")
+    n_cmp, bad = state_mismatches(second["model"], second["optimizer"], first["model"], first["optimizer"])
+    print(f"resumed vs the state gathered at the save: {n_cmp} tensors (parameters, Adam's exp_avg, exp_avg_sq and "
+          f"step), {len(bad)} differ {bad[:5]}")
+    check(n_cmp > 0 and not bad, "every restored parameter and Adam moment equals the saved state bit for bit")
+    del first
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    plain = stacked.make_stacked_model(stack, layers, 0, seed=1, device=device)
+    plain_opt = stacked.make_optimizer(plain)
+    t0 = time.perf_counter()
+    step = orbax_ckpt.restore_state(orbax_ckpt.make_manager(str(run)), plain, plain_opt)
+    if on_card:
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    n_plain, bad_plain = state_mismatches(plain, plain_opt, second["model"], second["optimizer"])
+    print(f"the snapshot restored into an unsharded model: step {step}, {n_plain} tensors, {len(bad_plain)} differ "
+          f"{bad_plain[:5]}")
+    check(step == 1 and n_plain == n_cmp and not bad_plain,
+          "the snapshot restores into an unsharded model bit for bit")
+    out = {"bytes": n_bytes, "save_ms": snap["save_ms"][1], "write_s": snap["write_s"][1],
+           "restore_s": second["snapshots"]["restore_s"], "restore_unsharded_s": plain_s, "disk_free_before": free_before,
+           "host_available_before": host_before, "host_available_after_save": host_mid, "first_run_s": t_first,
+           "second_run_s": t_second, "launches": launches, "smi": smi}
+    print(f"[{smi}] snapshot {n_bytes} bytes ({n_bytes / 1e9:.2f} GB); the save held training {out['save_ms']:.1f} ms "
+          f"(gather + copy to the host); the write {out['write_s']:.2f} s (writer thread); the resume's restore "
+          f"{out['restore_s']:.2f} s, into an unsharded model {plain_s:.2f} s (the file read warm: just written); "
+          f"disk free before the write {free_before} bytes; host memory available {host_before} bytes before, "
+          f"{host_mid} after the first run; the runs {t_first:.1f} s and {t_second:.1f} s")
+    del second, plain, plain_opt
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    shutil.rmtree(run, ignore_errors=True)
+    summary["tier_orbax"] = out
+    summary["tier_orbax_launches"] = launches
+    return launches
 
 
 def flat_tier_path(args, device, summary, d_model=FLAT_D, layers=FLAT_LAYERS) -> dict:
@@ -3869,6 +4054,7 @@ def flat_tier_path(args, device, summary, d_model=FLAT_D, layers=FLAT_LAYERS) ->
 VIEWER_REQUESTS = 20  # served frames timed in section 31
 VIEWER_TRAIN_ITERS = 30  # cli.train iterations with a client attached
 VIEWER_TRAIN_FRAMES = 20  # frames the client asks for during them
+VIEWER_IMAGE_ATOL = 2e-5  # section 32b's frames under FSDP2 vs section 32's (the repo's image rule)
 # full_eval's synthetic roots: one scene per list (a child process per
 # render and one for the metrics), at this size.
 FULL_EVAL_SCENES = {"mipnerf360_outdoor_scenes": ["bicycle"], "mipnerf360_indoor_scenes": ["room"],
@@ -4116,11 +4302,14 @@ class RecordingStream:
     decoded rows, their count) and the request's camera and flags."""
 
     def __init__(self, inner):
-        self.inner, self.rendered = inner, []
+        self.inner, self.rendered, self.images = inner, [], []
 
     @property
     def n_steps(self):
         return self.inner.n_steps
+
+    def decoding(self):
+        return self.inner.decoding()
 
     def start(self):
         return self.inner.start()
@@ -4130,12 +4319,15 @@ class RecordingStream:
 
     def render(self, carry, cam, smod, show_prompt, show_pred):
         self.rendered.append((carry[0].clone(), carry[2], cam, smod, show_prompt, show_pred))
-        return self.inner.render(carry, cam, smod, show_prompt, show_pred)
+        self.images.append(self.inner.render(carry, cam, smod, show_prompt, show_pred))
+        return self.images[-1]
 
 
 def stacked_viewer_path(args, device, summary, model, tscene, batch, stack) -> dict:
     """Section 32: the stacked live stream on section 16's model and first
-    batch. Returns the K1 launches of the stream (by run)."""
+    batch. Returns the K1 launches of the stream (``stream``), its frames
+    (``frames``: each streamed image, ``teacher_forced``: the train-mode
+    tick's) and the streamed frames' ms (``frame_ms``), for section 32b."""
     import torch
 
     from gaussian_transformer_tpu_torch.render import RenderConfig
@@ -4175,9 +4367,9 @@ def stacked_viewer_path(args, device, summary, model, tscene, batch, stack) -> d
           "each streamed frame equals LiveViewerStream.compose of the same carry")
     check([i for _, i, *_ in rec.rendered] == list(range(1, Lt + 1)), "the frames follow the decode steps 1..Lt")
     frame_ms = [ms for _, _, ms in client.replies[:Lt]]
-    out = {"stream": stream_launches}
+    out = {"stream": stream_launches, "frames": rec.images, "frame_ms": frame_ms}
 
-    print("== 32b. one train=True tick: the teacher-forced composite of the batch, the model in train mode after")
+    print("== 32a. one train=True tick: the teacher-forced composite of the batch, the model in train mode after")
     model.train()
     fn = stacked.make_viewer_train_fn(stream)
     client = SibrClient(port, [sibr_request(cam, train=True, keep_alive=True, shs_python=True)], W * H * 3)
@@ -4189,14 +4381,15 @@ def stacked_viewer_path(args, device, summary, model, tscene, batch, stack) -> d
         model.eval()
         gen = model.generator(model.decode(model.encode(batch.src, batch.src_mask), batch.src_mask, batch.trg,
                                            batch.trg_mask))
-        expect = bytes(network_gui.image_to_bytes(stream.compose(gen, gen.shape[1], cam, 1.0, True, True)))
+        out["teacher_forced"] = stream.compose(gen, gen.shape[1], cam, 1.0, True, True)
+        expect = bytes(network_gui.image_to_bytes(out["teacher_forced"]))
     check(len(client.replies) == 1 and client.replies[0][0] == expect,
           "the train-mode frame is the teacher-forced decode's composite")
     summary.update(stacked_stream_frame_ms=frame_ms)
     if on_card:
         med = float(np.median(frame_ms))
         tok = summary.get("stacked_cached_ms_per_token")
-        with torch.no_grad():
+        with torch.no_grad(), stream.decoding():
             carry = stream.start()
             for _ in range(Lt // 2):
                 carry = stream.step(carry)
@@ -4207,6 +4400,125 @@ def stacked_viewer_path(args, device, summary, model, tscene, batch, stack) -> d
               f"at token {Lt // 2}: decode step {spread(step_ms)}, composite render {spread(comp_ms)}")
         summary.update(stacked_stream_frame_ms_median=med, stacked_stream_step_ms=step_ms,
                        stacked_stream_render_ms=comp_ms)
+    return out
+
+
+def fsdp_viewer_path(args, device, summary, tscene, batch, stack, layers, viewer) -> dict:
+    """Section 32b: section 32's stream on a fresh model of section 16's
+    weights under FSDP2 (``shard_model`` on a one-rank mesh), served by the
+    collective pump (``pump_stacked(..., group=)`` on a gloo group of its
+    own): the streamed frames and the train-mode tick's frame against
+    section 32's (``viewer``: the unsharded model's) within 2e-5, K1 once a
+    frame, the model left in train mode; with the listener bound and no
+    client, the pump alone makes no host synchronisation and launches no
+    kernel, and one train step with and without it before makes the same
+    host synchronisations by call site. Returns the K1-K4 launches of the
+    stream and of the train-mode tick."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_transformer_tpu_torch.parallel.fsdp import make_fsdp_mesh, shard_model
+    from gaussian_transformer_tpu_torch.render import RenderConfig
+    from gaussian_transformer_tpu_torch.train import stacked
+    from gaussian_transformer_tpu_torch.viewer import network_gui
+
+    on_card = device.type == "cuda"
+    smi = smi_line(device)
+    tier_group(device)
+    group = dist.new_group(backend="gloo")
+    counters = kernel_counters()
+    cam = batch.cameras[0]
+    W, H = cam.image_width, cam.image_height
+    Lt = batch.trg_y.shape[1]
+    print(f"== 32b. the stacked live stream under FSDP2 (one-rank mesh), served by every rank's pump over a gloo group: "
+          f"{Lt} frames, then a train-mode tick")
+    model = stacked.make_stacked_model(stack, layers, 0, seed=0, device=device)
+    shard_model(model, make_fsdp_mesh(1))
+    stream = stacked.LiveViewerStream(model, tscene.handler, RenderConfig(), stack)
+    stream.set_batch(batch)
+    rec = RecordingStream(stream)
+    reqs = [sibr_request(cam, train=False, keep_alive=True, shs_python=True) for _ in range(Lt)]
+    reqs.append(sibr_request(cam, train=True))
+    port = free_port()
+    network_gui.init("127.0.0.1", port)
+    model.eval()
+    zero_counts(counters)
+    client = SibrClient(port, reqs, W * H * 3)
+    serve_until(client, lambda: network_gui.pump_stacked(lambda *a: None, rec, "stacked", device=device, group=group))
+    out = {"stream_fsdp": read_counts(counters)}
+    network_gui.conn = None
+    frames = [img for img, _, _ in client.replies]
+    check(len(rec.images) == Lt and len(frames) == Lt + 1,
+          f"one frame per decoded token ({len(rec.images)} rendered of {Lt}), then the last again ({len(frames)})")
+    if on_card:
+        check(out["stream_fsdp"]["K1"] == Lt, f"K1 once per streamed frame ({out['stream_fsdp']})")
+    err = max(float((a - b).abs().max()) for a, b in zip(rec.images, viewer["frames"]))
+    sent = all(f == bytes(network_gui.image_to_bytes(img)) for f, img in zip(frames, rec.images))
+    print(f"streamed frames under FSDP2 vs section 32's of the unsharded model: max abs diff {err:.3e} (tolerance "
+          f"{VIEWER_IMAGE_ATOL}); the replies are the frames' bytes: {sent}")
+    check(err <= VIEWER_IMAGE_ATOL and sent and frames[Lt] == frames[Lt - 1],
+          "each streamed frame equals section 32's within the image rule, and is what was sent")
+    frame_ms = [ms for _, _, ms in client.replies[:Lt]]
+
+    model.train()
+    fn = stacked.make_viewer_train_fn(stream)
+    served = []
+
+    def train_fn(*a):
+        served.append(fn(*a))
+        return served[-1]
+
+    zero_counts(counters)
+    client = SibrClient(port, [sibr_request(cam, train=True, keep_alive=True, shs_python=True)], W * H * 3)
+    serve_until(client, lambda: network_gui.pump_stacked(train_fn, stream, "stacked", device=device, group=group))
+    out["teacher_forced_fsdp"] = read_counts(counters)
+    network_gui.conn = None
+    check(model.training, "model.training is True after the train-mode tick")
+    tf_err = float((served[0] - viewer["teacher_forced"]).abs().max()) if served else float("inf")
+    print(f"the train-mode tick's frame vs section 32a's: max abs diff {tf_err:.3e} (tolerance {VIEWER_IMAGE_ATOL})")
+    check(len(served) == 1 and len(client.replies) == 1 and tf_err <= VIEWER_IMAGE_ATOL
+          and client.replies[0][0] == bytes(network_gui.image_to_bytes(served[0])),
+          "the train-mode frame is the teacher-forced composite of the unsharded model's, within the image rule")
+    summary.update(stacked_stream_fsdp_frame_ms=frame_ms, stacked_stream_fsdp_err=err,
+                   stacked_stream_fsdp_teacher_forced_err=tf_err)
+    if on_card:
+        print(f"[{smi}] streamed frame under FSDP2 (request sent to last byte received): {spread(frame_ms)}; section "
+              f"32's (unsharded, one process): {spread(viewer['frame_ms'])}")
+        # A bound listener and no client: the collective pump before a step
+        # adds no host synchronisation and no kernel (31c's check), counted
+        # by the host's launch calls (kernel_count).
+        optimizer = stacked.make_optimizer(model)
+        step_fn = stacked.make_train_step(model, tscene.handler, RenderConfig(), optimizer, stack)
+        # lr 0: every step the same (weights, dropout masks, the chamfer gate), so only the pump differs
+        run_step = lambda: step_fn(batch.src, batch.trg_y, batch.cameras, 0.0, batch.src_mask, (42, 32))
+        pump = lambda: network_gui.pump_stacked(fn, stream, "stacked", device=device, group=group)
+        with_pump = lambda: (pump(), run_step())
+        run_step()
+        run_step()  # Adam's state and the allocator's blocks settled
+        torch.cuda.synchronize()
+        syncs = {"pump alone": syncs_by_site(pump), "no pump": syncs_by_site(run_step),
+                 "pump, no client": syncs_by_site(with_pump)}
+        kernels_n = {"pump alone": kernel_count(pump), "no pump": kernel_count(run_step),
+                     "pump, no client": kernel_count(with_pump), "no pump again": kernel_count(run_step)}
+        print("host synchronisations by call site of the pump alone and of one --fsdp 1 step without and with it: "
+              + json.dumps(syncs))
+        print(f"CUDA kernels (torch.profiler) of the pump alone and of one --fsdp 1 step without it, with it and "
+              f"without it again: {kernels_n}")
+        check(not syncs["pump alone"] and syncs["no pump"] == syncs["pump, no client"],
+              "the collective pump adds no host synchronisation")
+        check(kernels_n["pump alone"]["launches"] == 0
+              and kernels_n["no pump"]["launches"] == kernels_n["pump, no client"]["launches"]
+              == kernels_n["no pump again"]["launches"], "the collective pump adds no launch")
+        summary.update(stacked_stream_fsdp_step_syncs=syncs, stacked_stream_fsdp_step_kernels=kernels_n)
+        del optimizer, step_fn, run_step, with_pump
+    network_gui.listener.close()
+    dist.destroy_process_group(group)
+    del model, stream, rec, fn, served
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4589,10 +4901,11 @@ def main(argv=None) -> int:
         add_path_launches(summary["kernels"], "gate_launches", gate_path(args, device, summary))
         add_path_launches(summary["kernels"], "jpeg_launches", summary["jpeg_launches"])
         add_path_launches(summary["kernels"], "viewer_launches",
-                          {**summary["viewer_launches"], "stacked_stream": summary["stacked_stream_launches"]})
+                          {**summary["viewer_launches"], "stacked_stream": summary["stacked_stream_launches"],
+                           **summary["stacked_stream_fsdp_launches"]})
         add_path_launches(summary["kernels"], "tier_launches",
                           {**summary["tier_3dgs_launches"], **summary["tier_stacked_launches"],
-                           **summary["tier_flat_launches"]})
+                           **summary["tier_orbax_launches"], **summary["tier_flat_launches"]})
         trace_path(args, device, summary)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

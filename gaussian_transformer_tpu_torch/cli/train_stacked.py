@@ -1,5 +1,5 @@
 """Stacked-transformer training CLI (port of the root
-``train_stacked_transformer.py``, single device).
+``train_stacked_transformer.py``).
 
 Loads the latest trained PLY of a model dir at SH degree 1, box-sorts it
 once, and trains the fat-token encoder-decoder (``--stack 8``: token dim
@@ -25,8 +25,12 @@ call, then ``model.train()`` again); when it pauses training
 (train=False), the cached greedy decode of the last batch streams live,
 one frame per decoded token, until it asks to train again. Its request's
 ``shs_python`` flag shows the prediction and ``keep_alive`` the prompt;
-with neither, the target. With ``--dp``/``--fsdp`` the viewer gets
-empty replies (the decode would need every rank).
+with neither, the target. Under ``--fsdp`` alone every rank serves it
+(``network_gui.pump_stacked`` with a gloo group of its own): rank 0 reads
+each request and shares it before any rank computes, every rank runs the
+same decode and renders (each forward all-gathers), and rank 0 alone
+sends. Under ``--dp`` (with or without ``--fsdp``) the viewer gets empty
+replies: each rank trains its own window.
 
 Several cards, one process each under ``torchrun --nproc_per_node <dp x
 fsdp>`` (a product other than ``WORLD_SIZE`` raises):
@@ -38,10 +42,10 @@ fsdp>`` (a product other than ``WORLD_SIZE`` raises):
     (``parallel/fsdp.py``, FSDP2), every rank on the same batches;
   * both: N windows x M-way shards on a ("data", "fsdp") mesh.
 
-Rank 0 alone writes checkpoints (gathered whole, so the unsharded trainer
-reads them), TensorBoard scalars and the log; ``--device cpu`` runs the
-ranks on gloo. ``--orbax`` snapshots hold whole tensors and are refused
-with ``--fsdp``.
+Rank 0 alone writes checkpoints and snapshots (gathered whole, so the
+unsharded trainer reads them, and a snapshot of any world size resumes at
+any other), TensorBoard scalars and the log; every rank enters the gather
+and the restore. ``--device cpu`` runs the ranks on gloo.
 
     python -m gaussian_transformer_tpu_torch.cli.train_stacked -s <data> -m <model> [--epochs N]
     torchrun --nproc_per_node 8 -m gaussian_transformer_tpu_torch.cli.train_stacked -s <data> -m <model> --dp 8
@@ -56,6 +60,7 @@ import time
 from argparse import ArgumentParser
 
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from gaussian_transformer_tpu_torch.config import ModelParams, OptimizationParams, PipelineParams
@@ -114,8 +119,11 @@ def main(argv=None):
     """Run the CLI on ``argv`` (default: ``sys.argv[1:]``). Returns a summary:
     ``run_name``, ``first_epoch``, ``model``, ``optimizer``, ``tscene``,
     ``history`` (one dict per step: epoch, loss, chamfer, img_loss, ntokens,
-    src_len, trg_len, and ``ms`` on the card) and ``epochs`` (one dict per
-    epoch: epoch, loss per token, lr after the scheduler step)."""
+    src_len, trg_len, and ``ms`` on the card), ``epochs`` (one dict per
+    epoch: epoch, loss per token, lr after the scheduler step) and
+    ``snapshots`` (``--orbax``: the epoch restored and the seconds it took,
+    the ms each save held training by epoch, the seconds each write took
+    by epoch, rank 0's)."""
     lp, args = _parse(argv)
     device = resolve_device(args.device)
     parallel = bool(args.dp or args.fsdp)
@@ -124,8 +132,6 @@ def main(argv=None):
         if n != world_size():
             raise ValueError(f"--dp {args.dp} x --fsdp {args.fsdp} needs {n} processes, WORLD_SIZE is "
                              f"{world_size()}: launch with torchrun --nproc_per_node {n}")
-        if args.orbax and args.fsdp:
-            raise ValueError("--orbax with --fsdp: the snapshots hold whole tensors; use the checkpoints")
         init_distributed(device)
         seed_host_random_alike()  # every rank shuffles the cameras alike
     log = print if is_lead() else (lambda *a, **k: None)
@@ -133,7 +139,12 @@ def main(argv=None):
         torch.autograd.set_detect_anomaly(True)
 
     log("Optimizing " + args.model_path)
+    # Under --fsdp alone every rank serves the viewer; its requests travel
+    # on a gloo group of their own, so a tick adds no CUDA synchronisation.
+    viewer_group = dist.new_group(backend="gloo") if args.fsdp and not args.dp else None
     viewer_ok = is_lead() and network_gui.bind_viewer(args.ip, args.port)
+    if viewer_group is not None:
+        viewer_ok = network_gui.share(viewer_ok, viewer_group)
     dataset = lp.extract(args)
     render_cfg = RenderConfig()
     scene = Scene(dataset, load_iteration=-1, sh_degree=1, device=device)
@@ -159,14 +170,15 @@ def main(argv=None):
     )
     first_epoch = 0
     orbax_mgr = None
+    snapshots = {"restored": None, "restore_s": None, "save_ms": {}, "write_s": {}}
     if args.orbax:
         orbax_mgr = orbax_ckpt.make_manager(run_name)
-        snap = orbax_ckpt.restore(orbax_mgr, {"params": None, "opt_state": None})
-        if snap is not None:
-            model.load_state_dict(snap["params"])
-            optimizer.load_state_dict(snap["opt_state"])
-            first_epoch = orbax_mgr.latest_step() + 1
-            log(f"resumed from orbax epoch {first_epoch - 1}")
+        t0 = time.perf_counter()
+        step = orbax_ckpt.restore_state(orbax_mgr, model, optimizer)
+        if step is not None:
+            snapshots.update(restored=step, restore_s=time.perf_counter() - t0)
+            first_epoch = step + 1
+            log(f"resumed from orbax epoch {step}")
     if first_epoch == 0 and os.path.exists(run_name):
         max_iter = search_for_max_iteration(run_name)
         if max_iter is not None:
@@ -210,10 +222,11 @@ def main(argv=None):
             for batch in batch_iter:
                 if batch is None:
                     continue
-                if not parallel:
+                if not args.dp:
                     stream.set_batch(batch)
                 if viewer_ok:
-                    network_gui.pump_stacked(viewer_train_fn, stream, dataset.source_path, device=device)
+                    network_gui.pump_stacked(viewer_train_fn, stream, dataset.source_path, device=device,
+                                             group=viewer_group)
                 if on_card:
                     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                     ev[0].record()
@@ -243,9 +256,9 @@ def main(argv=None):
                 tb_writer.add_scalar("dropout", tscene.dropout, epoch)
             if epoch % args.checkpoint_every == 0 and epoch > first_epoch:
                 if orbax_mgr is not None:
-                    if is_lead():
-                        orbax_ckpt.save(orbax_mgr, epoch, {"params": model.state_dict(),
-                                                           "opt_state": optimizer.state_dict()})
+                    t0 = time.perf_counter()
+                    orbax_ckpt.save_state(orbax_mgr, epoch, model, optimizer)  # every rank: the gather
+                    snapshots["save_ms"][epoch] = (time.perf_counter() - t0) * 1e3
                 else:
                     save_checkpoint(run_name, epoch, model, optimizer)
         except (RuntimeError, FloatingPointError) as e:
@@ -254,11 +267,16 @@ def main(argv=None):
             save_checkpoint(run_name, epoch, model, optimizer)
     if orbax_mgr is not None:
         orbax_mgr.wait_until_finished()
+        snapshots["write_s"] = dict(orbax_mgr.write_s)
+        if parallel:
+            dist.barrier()  # the snapshot is on disk before any rank goes on
+    if viewer_group is not None:
+        dist.destroy_process_group(viewer_group)
     if tb_writer:
         tb_writer.close()
     log("\nTraining complete.")
     return {"run_name": run_name, "first_epoch": first_epoch, "model": model, "optimizer": optimizer,
-            "tscene": tscene, "history": history, "epochs": epochs}
+            "tscene": tscene, "history": history, "epochs": epochs, "snapshots": snapshots}
 
 
 if __name__ == "__main__":

@@ -17,11 +17,14 @@ their moments as DTensors beside the shards (``foreach=False``, since the
 replicated leaves are plain tensors). The campaign's Adafactor is never
 sharded, in the JAX package or here. ``full_tensor`` gathers a shard into
 the whole tensor (a collective: every rank calls it), which is how the
-trainers write checkpoints that the unsharded trainers read.
+trainers write checkpoints and snapshots that the unsharded trainers read.
+``unsharded`` gathers a sharded model's parameters for a block that reads
+them outside the layers' forwards (the viewer's cached decode).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -119,3 +122,21 @@ def like(full: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     if isinstance(ref, DTensor):
         return distribute_tensor(full.to(ref.device), ref.device_mesh, ref.placements)
     return full
+
+
+@contextlib.contextmanager
+def unsharded(model: nn.Module):
+    """Every FSDP2 module of ``model`` unsharded (its parameters all-gathered
+    whole and registered as plain tensors) for the block, resharded after;
+    a collective, entered by every rank. Nothing happens for a model
+    ``shard_model`` did not touch."""
+    from torch.distributed.fsdp import FSDPModule
+
+    modules = [m for m in model.modules() if isinstance(m, FSDPModule)]
+    for m in modules:
+        m.unshard()
+    try:
+        yield
+    finally:
+        for m in modules:
+            m.reshard()

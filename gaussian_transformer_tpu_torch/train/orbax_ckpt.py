@@ -34,12 +34,14 @@ from __future__ import annotations
 import os
 import shutil
 import threading
+import time
 import uuid
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 STATE_FILE = "state.pt"
 TMP_PREFIX = ".tmp-"
@@ -52,7 +54,12 @@ def available() -> bool:
 
 
 def _to_host(tree: Any) -> Any:
-    """The tree with every tensor (and numpy array) as a CPU tensor copy."""
+    """The tree with every tensor (and numpy array) as a CPU tensor copy. A
+    DTensor raises: its local shard is not the tensor (``save_state``
+    gathers it)."""
+    if isinstance(tree, DTensor):
+        raise TypeError("a DTensor in a snapshot tree: only this rank's shard would be saved; "
+                        "save a sharded module with save_state, which gathers every shard whole")
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=True)
     if isinstance(tree, np.ndarray):
@@ -75,6 +82,7 @@ class SnapshotManager:
         self._lock = threading.Lock()
         self._pending: List[Future] = []
         self._pending_steps: set = set()
+        self.write_s: dict = {}  # step -> seconds its write took (the writer thread's clock)
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="snapshot") if async_save else None
         for name in os.listdir(root):
             if name.startswith(TMP_PREFIX):  # torn by a killed run
@@ -109,6 +117,7 @@ class SnapshotManager:
         return steps[-1] if steps else None
 
     def _write(self, step: int, host_tree: Any) -> None:
+        t0 = time.perf_counter()
         tmp = os.path.join(self.root, f"{TMP_PREFIX}{step}-{uuid.uuid4().hex}")
         os.makedirs(tmp)
         with open(os.path.join(tmp, STATE_FILE), "wb") as f:
@@ -123,6 +132,7 @@ class SnapshotManager:
             self._pending_steps.discard(step)
             for old in self._scan()[:-self.max_to_keep]:
                 shutil.rmtree(os.path.join(self.root, str(old)), ignore_errors=True)
+        self.write_s[step] = time.perf_counter() - t0
 
     def _reap(self, wait: bool) -> None:
         """Drop finished writes; re-raise the first error a write raised."""
@@ -132,8 +142,11 @@ class SnapshotManager:
             f.result()
 
     def save(self, step: int, tree: Any) -> None:
+        self._submit(step, _to_host(tree))
+
+    def _submit(self, step: int, host_tree: Any) -> None:
+        """Write ``host_tree`` (its tensors already host copies) at ``step``."""
         self._reap(wait=False)
-        host_tree = _to_host(tree)
         with self._lock:
             self._pending_steps.add(int(step))
         if self._pool is None:
@@ -142,9 +155,10 @@ class SnapshotManager:
             self._pending.append(self._pool.submit(self._write, int(step), host_tree))
 
     def restore(self, step: int) -> Any:
+        """The snapshot at ``step``; its tensors map the file (read as they
+        are used)."""
         path = os.path.join(self.root, str(step), STATE_FILE)
-        with open(path, "rb") as f:
-            return torch.load(f, map_location="cpu", weights_only=True)
+        return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
 
     def wait_until_finished(self) -> None:
         self._reap(wait=True)
@@ -179,3 +193,84 @@ def restore_raw(mgr: SnapshotManager, step: Optional[int] = None) -> Any:
     if step is None:
         return None
     return mgr.restore(step)
+
+
+def _rank0_step(step: Optional[int]) -> Optional[int]:
+    """Rank 0's ``step`` on every rank (the snapshot every rank restores)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return step
+    box = [step]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def save_state(mgr: SnapshotManager, step: int, model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> None:
+    """Snapshot ``model`` and ``optimizer`` at ``step`` with whole tensors. A
+    collective under ``torch.distributed``: every rank calls it, in the same
+    order, and each FSDP2 shard is gathered whole (``full_tensor``); rank 0
+    copies each tensor to the host as it is gathered and hands the tree to
+    the writer thread, the other ranks keep nothing. Returns once the host
+    copy is taken. Without shards (one process, ``--dp``) nothing is
+    gathered and only rank 0 copies."""
+    from gaussian_transformer_tpu_torch.parallel.fsdp import full_tensor
+    from gaussian_transformer_tpu_torch.parallel.mesh import is_lead
+
+    lead = is_lead()
+
+    def host(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        whole = full_tensor(t.detach())
+        return whole.to("cpu", copy=True) if lead else None
+
+    params = {k: host(v) for k, v in model.state_dict().items()}
+    sd = optimizer.state_dict()
+    opt_state = {"state": {i: {k: host(v) for k, v in st.items()} for i, st in sd["state"].items()},
+                 "param_groups": sd["param_groups"]}
+    if lead:
+        mgr._submit(int(step), {"params": params, "opt_state": opt_state})
+
+
+@torch.no_grad()
+def restore_state(mgr: SnapshotManager, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                  step: Optional[int] = None) -> Optional[int]:
+    """Load the latest (or given) snapshot of ``save_state``'s format, from
+    any world size, into ``model`` and ``optimizer`` in place; returns its
+    step, or None when there is none. A collective under
+    ``torch.distributed``: every rank calls it and restores rank 0's step.
+    Each whole tensor is laid out as the live one (``like``: this rank's
+    shard of a DTensor); an optimizer state tensor of its parameter's shape
+    (Adam's moments) likewise, any other entry (``step``) as saved. The
+    optimizer keeps its own ``foreach`` (it follows the sharding)."""
+    from gaussian_transformer_tpu_torch.parallel.fsdp import like
+
+    mgr.wait_until_finished()
+    step = _rank0_step(mgr.latest_step() if step is None else step)
+    if step is None:
+        return None
+    tree = mgr.restore(step)
+    live = dict(model.named_parameters())
+    live.update(model.named_buffers())
+    saved = tree["params"]
+    if set(saved) != set(live):
+        raise ValueError(f"snapshot {step} does not fit the model: missing {sorted(set(live) - set(saved))}, "
+                         f"unexpected {sorted(set(saved) - set(live))}")
+    for name, ref in live.items():  # one order on every rank: like() is a collective on a DTensor
+        ref.copy_(like(saved[name].to(ref.device, ref.dtype), ref))
+
+    sd = tree["opt_state"]
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+
+    def laid_out(v, p):
+        if isinstance(v, torch.Tensor) and tuple(v.shape) == tuple(p.shape) and v.dim() > 0:
+            return like(v.to(p.device, p.dtype, copy=True), p)
+        return v
+
+    state = {i: {k: laid_out(v, params[int(i)]) for k, v in st.items()} for i, st in sd["state"].items()}
+    foreach = [g.get("foreach") for g in optimizer.param_groups]
+    optimizer.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
+    for g, f in zip(optimizer.param_groups, foreach):
+        g["foreach"] = f
+    return step

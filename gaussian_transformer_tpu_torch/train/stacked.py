@@ -360,9 +360,13 @@ class LiveViewerStream:
     ``torch.no_grad()``.
 
     ``viewer/network_gui.py pump_stacked`` drives ``start``/``step``/
-    ``render`` and reads ``n_steps``; the trainer hands over each step's
-    batch with ``set_batch`` (the model is the live module, so its weights
-    are always the current ones)."""
+    ``render`` inside ``decoding()`` and reads ``n_steps``; the trainer
+    hands over each step's batch with ``set_batch`` (the model is the live
+    module, so its weights are always the current ones). On an
+    FSDP2-sharded model ``decoding()`` gathers the parameters whole once for
+    the stream (``parallel/fsdp.py unsharded``: the cached decode reads the
+    layers' weights outside their forwards), a collective every rank
+    enters; ``start`` and ``step`` run inside it."""
 
     def __init__(self, model: EncoderDecoder, handler: GaussianHandler, render_cfg: RenderConfig,
                  stack: int = STACK):
@@ -373,6 +377,13 @@ class LiveViewerStream:
     def set_batch(self, batch: StackedBatch) -> None:
         self.batch = batch
         self.n_steps = int(batch.trg_y.shape[1])
+
+    def decoding(self):
+        """The block in which ``start`` and ``step`` run: the model's
+        parameters whole for it (gathered once when it is FSDP2-sharded)."""
+        from gaussian_transformer_tpu_torch.parallel.fsdp import unsharded
+
+        return unsharded(self.model)
 
     @torch.no_grad()
     def start(self):

@@ -14,6 +14,14 @@ ASCII source path.
 the caller's Gaussians). ``image_to_bytes`` converts a [3, H, W] render to
 uint8 where it lies and copies only the bytes to the host (at 1080p 6.2 MB
 in place of 24.9 MB of float32).
+
+``pump_stacked(..., group=)`` serves one viewer from every rank of a
+``torch.distributed`` group (the stacked trainer under FSDP2, where each
+forward is a collective) through the one loop that serves a single
+process: rank 0 alone owns the socket, reads each request and shares it
+(``share``) before any rank computes, every rank runs the same calls in
+the same order, and rank 0 alone sends. A socket error on rank 0 drops
+the connection and ends the tick on every rank.
 """
 
 from __future__ import annotations
@@ -97,11 +105,14 @@ def send(message_bytes, verify: str) -> None:
 
 
 def receive(device=None):
-    """Parse one request into (MiniCam on ``device``, train, shs_python,
-    rot_scale_python, keep_alive, scaling_modifier); all None for a request
-    of zero resolution."""
-    message = read()
+    """Read one request and parse it into (MiniCam on ``device``, train,
+    shs_python, rot_scale_python, keep_alive, scaling_modifier); all None
+    for a request of zero resolution."""
+    return parse(read(), device)
 
+
+def parse(message: dict, device=None):
+    """``receive``'s parse of one request's JSON object."""
     width = message["resolution_x"]
     height = message["resolution_y"]
 
@@ -148,7 +159,7 @@ def image_to_bytes(image) -> memoryview:
     return memoryview(arr.cpu().numpy())
 
 
-def pump_stacked(render_train_fn, stream, source_path: str = "", device=None) -> None:
+def pump_stacked(render_train_fn, stream, source_path: str = "", device=None, group=None) -> None:
     """One stacked-trainer viewer tick. The stacked protocol repurposes two
     request slots: ``shs_python`` carries show_pred and ``keep_alive``
     carries show_prompt.
@@ -157,39 +168,95 @@ def pump_stacked(render_train_fn, stream, source_path: str = "", device=None) ->
     the teacher-forced composite served while training continues
     (train=True).
 
-    ``stream``: None, or an object with ``.start() -> carry``,
-    ``.step(carry) -> carry``, ``.render(carry, cam, smod, show_prompt,
-    show_pred) -> image`` and ``.n_steps``. When the viewer pauses training
-    (train=False) the decode runs live: each step's partial reconstruction
-    is rendered and sent at once, and a request is read between steps so
-    the viewer can interrupt. The tick returns to training as soon as the
-    viewer asks for train=True."""
-    global conn
-    if conn is None:
+    ``stream``: None, or an object with ``.decoding()`` (a context for the
+    decode), ``.start() -> carry``, ``.step(carry) -> carry``,
+    ``.render(carry, cam, smod, show_prompt, show_pred) -> image`` and
+    ``.n_steps``. When the viewer pauses training (train=False) the decode
+    runs live: each step's partial reconstruction is rendered and sent at
+    once, and a request is read between steps so the viewer can interrupt.
+    The tick returns to training as soon as the viewer asks for train=True.
+
+    ``group``: every rank of this ``torch.distributed`` group calls the
+    tick; rank 0 alone owns the socket, and each request is shared with
+    every rank (``share``) before any rank computes, so all ranks make the
+    same calls in the same order; rank 0 alone sends. None: this process
+    alone. A socket error, or a request that does not parse, drops the
+    connection and ends the tick (on every rank); an error of
+    ``render_train_fn`` or ``stream`` is raised."""
+    import torch.distributed as dist
+
+    lead = group is None or dist.get_rank(group) == 0
+    if lead and conn is None:
         try_connect()
-    while conn is not None:
-        try:
-            net_image_bytes = None
-            cam, do_training, show_pred, _, show_prompt, smod = receive(device)
-            if cam is not None and (do_training or stream is None or stream.n_steps == 0):
-                image = render_train_fn(cam, smod, show_prompt, show_pred)
-                if image is not None:
-                    net_image_bytes = image_to_bytes(image)
-            elif cam is not None:
+
+    def next_request():
+        message = _next_request() if lead else None
+        return message if group is None else share(message, group)
+
+    while True:
+        message = next_request()
+        if message is None:
+            return
+        net_image_bytes = None
+        cam, do_training, show_pred, _, show_prompt, smod = parse(message, device)
+        if cam is not None and (do_training or stream is None or stream.n_steps == 0):
+            image = render_train_fn(cam, smod, show_prompt, show_pred)
+            if image is not None and lead:
+                net_image_bytes = image_to_bytes(image)
+        elif cam is not None:
+            with stream.decoding():
                 carry = stream.start()
                 for _ in range(stream.n_steps):
                     carry = stream.step(carry)
                     image = stream.render(carry, cam, smod, show_prompt, show_pred)
-                    net_image_bytes = image_to_bytes(image)
-                    send(net_image_bytes, source_path)
-                    cam, do_training, show_pred, _, show_prompt, smod = receive(device)
+                    if lead:
+                        net_image_bytes = image_to_bytes(image)
+                        _reply(net_image_bytes, source_path)
+                    message = next_request()
+                    if message is None:
+                        return
+                    cam, do_training, show_pred, _, show_prompt, smod = parse(message, device)
                     if cam is None or do_training:
                         break
-            send(net_image_bytes, source_path)
-            if do_training:
-                break
-        except Exception:
-            conn = None
+        if lead:
+            _reply(net_image_bytes, source_path)
+        if do_training:
+            return
+
+
+def share(obj, group):
+    """``obj`` of rank 0 of ``group`` on every rank of it (a collective)."""
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+    return box[0]
+
+
+def _next_request():
+    """The next request as its JSON object, or None: no connection, or a
+    read or a parse that failed (the connection is dropped)."""
+    global conn
+    if conn is None:
+        return None
+    try:
+        message = read()
+        parse(message, "cpu")  # checked on the host: a request that does not parse is never served
+        return message
+    except Exception:
+        conn = None
+        return None
+
+
+def _reply(message_bytes, verify: str) -> None:
+    """``send``; a failure drops the connection."""
+    global conn
+    if conn is None:
+        return
+    try:
+        send(message_bytes, verify)
+    except Exception:
+        conn = None
 
 
 def pump(render_fn, source_path: str = "", keep_alive_default: bool = False, device=None) -> None:

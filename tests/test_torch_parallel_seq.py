@@ -29,7 +29,6 @@ Cost: three spawns (4 ranks, 2 ranks, and 2 ranks for the CLIs; ~15-40 s
 each) and ~40 s of JAX compiles.
 """
 
-import math
 import types
 
 import jax
@@ -40,7 +39,6 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
-import chip_smoke
 from gaussian_transformer_tpu.models.transformer import init_model as jax_init_model
 from gaussian_transformer_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from gaussian_transformer_tpu.parallel.ring import ring_attention as jax_ring
@@ -50,7 +48,6 @@ from gaussian_transformer_tpu.train import flat as jf
 from gaussian_transformer_tpu.train import stacked as js
 from gaussian_transformer_tpu_torch.cli import train_stacked as stacked_cli
 from gaussian_transformer_tpu_torch.cli import train_transformer as flat_cli
-from gaussian_transformer_tpu_torch.convert import scene_from_numpy
 from gaussian_transformer_tpu_torch.models import transformer as tf
 from gaussian_transformer_tpu_torch.render import RenderConfig
 from gaussian_transformer_tpu_torch.train import flat as pf
@@ -58,7 +55,7 @@ from gaussian_transformer_tpu_torch.train import stacked as ps
 
 from tests.test_stacked import STACK_S, make_tscene, small_model
 from tests.test_train import _synthetic_scene_and_cams
-from tests.torch_dist_workers import Spawned
+from tests.torch_dist_workers import Spawned, write_stacked_model_dir
 from tests.torch_port_support import SCENE_FIELDS, torch_camera, torch_scene
 
 LR, EPS = 5e-4, 1e-4
@@ -342,14 +339,7 @@ def test_flat_ring_step_matches_the_jax_dense_step(flat_case, runs):
 def model_dir(tmp_path_factory):
     """A trained-looking SH-1 scene of 400 Gaussians as a model dir with a
     Blender dataset of four 40x30 train views and one test view."""
-    root = tmp_path_factory.mktemp("cli")
-    fields = chip_smoke.synthetic_scene(400, 4)
-    fields["features_rest"] = fields["features_rest"][:, :3]
-    scene = scene_from_numpy(fields, 1, "cpu")
-    chip_smoke.write_train_dataset(root / "data", scene, chip_smoke.surface_points(300, 4), 4, 1, 40, 30,
-                                   math.radians(50.0), torch.device("cpu"))
-    scene.save_ply(str(root / "model" / "point_cloud" / "iteration_5" / "point_cloud.ply"))
-    return root
+    return write_stacked_model_dir(tmp_path_factory.mktemp("cli"))
 
 
 @pytest.fixture(scope="module")

@@ -244,6 +244,9 @@ class StepStream:
     def __init__(self, h, w):
         self.h, self.w = h, w
 
+    def decoding(self):
+        return contextlib.nullcontext()
+
     def start(self):
         return 0
 
@@ -294,6 +297,32 @@ def test_pump_stacked_streams_and_is_interrupted_like_the_jax_one():
     step1, step2 = level(np.float32(1 / 255.0 + 0.5)), level(np.float32(2 / 255.0 + 0.25))
     assert first == [step1, step2, step2, level(train_image[0, 0, 0])], first
     assert ticks["torch"] == ticks["jax"] == [(True, True)]
+
+
+def test_pump_stacked_raises_what_the_stream_raises():
+    """A decode that raises is raised by the tick, as it is on every rank of
+    a group (``pump_stacked(..., group=)``): it is not taken for a socket
+    error, and the connection stays up."""
+    H, W = 5, 7
+
+    class Failing(StepStream):
+        def step(self, carry):
+            raise RuntimeError("decode failed")
+
+    port = free_port()
+    gui.init("127.0.0.1", port)
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+            s.sendall(request(W, H, np.eye(4), np.eye(4), train=False, keep_alive=True))
+            deadline = time.time() + 10
+            while gui.conn is None and time.time() < deadline:
+                gui.try_connect()
+            with pytest.raises(RuntimeError, match="decode failed"):
+                gui.pump_stacked(lambda *a: None, Failing(H, W), "/s", device="cpu")
+            assert gui.conn is not None
+    finally:
+        gui.conn = None
+        gui.listener.close()
 
 
 def test_pump_without_a_client_is_one_accept():

@@ -392,9 +392,7 @@ def cli_pair(inp) -> dict:
 
     root = str(inp["root"])
     res = {}
-    out = train_stacked.main(["-s", f"{root}/data", "-m", f"{root}/model", "--eval", "--stack", "2", "--layers", "1",
-                              "--batch_size", "2", "--run_name", f"{root}/run", "--checkpoint_every", "1",
-                              "--epochs", "2", "--quiet", "--device", "cpu", "--dp", "2"])
+    out = train_stacked.main(stacked_argv(root, "--run_name", f"{root}/run", "--epochs", "2", "--dp", "2"))
     res["stacked.loss"] = np.array([h["loss"] for h in out["history"]])
     res["stacked.epoch_loss"] = np.array([e["loss"] for e in out["epochs"]])
     train_transformer.MIN_LEN = 100  # this scene's cameras see 100-400 Gaussians
@@ -408,9 +406,7 @@ def cli_pair(inp) -> dict:
     out = train_transformer.main(["-s", f"{root}/data", "-m", f"{root}/model", "--eval", "--d_model", "32",
                                   "--layers", "1", "--epochs", "1", "--quiet", "--device", "cpu", "--fsdp", "2"])
     res["flat_fsdp.loss"] = np.array([h["loss"] for h in out["history"]])
-    stacked = ["-s", f"{root}/data", "-m", f"{root}/model", "--eval", "--stack", "2", "--layers", "1",
-               "--batch_size", "2", "--run_name", f"{root}/run_fsdp", "--checkpoint_every", "1", "--quiet",
-               "--device", "cpu", "--fsdp", "2"]
+    stacked = stacked_argv(root, "--run_name", f"{root}/run_fsdp", "--fsdp", "2")
     train_stacked.main(stacked + ["--epochs", "2"])
     out = train_stacked.main(stacked + ["--epochs", "3"])  # resumes from checkpoint_1
     res["stacked_fsdp.first_epoch"] = np.array(out["first_epoch"])
@@ -418,7 +414,225 @@ def cli_pair(inp) -> dict:
     return res
 
 
-WORKERS = {"tier_3dgs": tier_3dgs, "tier_seq": tier_seq, "cli_pair": cli_pair}
+def write_stacked_model_dir(root, views: int = 4, width: int = 40, height: int = 30):
+    """A trained-looking SH-1 scene of 400 Gaussians as a model dir with a
+    Blender dataset of ``views`` train views and one test view (the
+    parent's side; ``chip_smoke.py``'s helpers)."""
+    import math
+
+    import torch
+
+    import chip_smoke
+    from gaussian_transformer_tpu_torch.convert import scene_from_numpy
+
+    root = Path(root)
+    fields = chip_smoke.synthetic_scene(400, 4)
+    fields["features_rest"] = fields["features_rest"][:, :3]
+    scene = scene_from_numpy(fields, 1, "cpu")
+    chip_smoke.write_train_dataset(root / "data", scene, chip_smoke.surface_points(300, 4), views, 1, width, height,
+                                   math.radians(50.0), torch.device("cpu"))
+    scene.save_ply(str(root / "model" / "point_cloud" / "iteration_5" / "point_cloud.ply"))
+    return root
+
+
+def stacked_argv(root, *extra) -> list:
+    """``cli.train_stacked``'s arguments for the small model on ``root``'s
+    model dir (STACK 2, one layer, batch 2, on the CPU)."""
+    return ["-s", f"{root}/data", "-m", f"{root}/model", "--eval", "--stack", "2", "--layers", "1",
+            "--batch_size", "2", "--checkpoint_every", "1", "--quiet", "--device", "cpu", *extra]
+
+
+def whole_state(prefix: str, model, optimizer) -> dict:
+    """Every parameter and its Adam state whole, by parameter name (a
+    collective on a sharded model: every rank calls it)."""
+    from gaussian_transformer_tpu_torch.parallel.fsdp import full_tensor
+
+    out = {}
+    for n, p in model.named_parameters():
+        out[f"{prefix}.p.{n}"] = full_tensor(p.detach()).cpu().numpy().copy()
+        st = optimizer.state.get(p, {})
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            if k in st:
+                out[f"{prefix}.{k}.{n}"] = full_tensor(st[k]).cpu().numpy().copy()
+    return out
+
+
+def _shard_small_leaves(train_stacked) -> None:
+    """The CLI's ``shard_model`` at ``min_size`` 1024, so that STACK 2's
+    leaves (104 x 104) are sharded, not left whole."""
+    import functools
+
+    from gaussian_transformer_tpu_torch.parallel.fsdp import shard_model
+
+    train_stacked.shard_model = functools.partial(shard_model, min_size=1024)
+
+
+def _n_sharded(model) -> int:
+    from torch.distributed.tensor import DTensor
+
+    return sum(isinstance(p, DTensor) for p in model.parameters())
+
+
+def orbax_cli(inp) -> dict:
+    """``cli.train_stacked --orbax`` with ``inp["argv"]`` (``--fsdp 2``, or
+    ``--dp 2 --fsdp 2``; leaves sharded from 1024 elements) on this world:
+    to a snapshot at epoch 1 (the state
+    then, gathered whole), again on the same run (it resumes at 2 and
+    trains no further: the state restored), and on ``inp["from1"]``, a
+    one-process run's snapshot at epoch 1 (the state restored)."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.modules["torch.utils.tensorboard"] = None  # TensorBoard is optional
+    from gaussian_transformer_tpu_torch.cli import train_stacked
+
+    _shard_small_leaves(train_stacked)
+    root, run = str(inp["root"]), os.path.join(os.getcwd(), "run")
+    argv = stacked_argv(root, "--orbax", "--ip", "127.0.0.1", "--port", "0", *[str(a) for a in inp["argv"]])
+    res = {}
+    for tag, run_name in (("saved", run), ("restored", run), ("from1", str(inp["from1"]))):
+        out = train_stacked.main(argv + ["--run_name", run_name, "--epochs", "2"])
+        res.update(whole_state(tag, out["model"], out["optimizer"]))
+        res[f"{tag}.first_epoch"] = np.array(out["first_epoch"])
+        res[f"{tag}.steps"] = np.array(len(out["history"]))
+        res[f"{tag}.snapshots"] = np.array(sorted(out["snapshots"]["save_ms"]))
+        res[f"{tag}.sharded"] = np.array(_n_sharded(out["model"]))
+    res["run"] = np.array(run)
+    return res
+
+
+def viewer_fsdp(inp) -> dict:
+    """``cli.train_stacked --fsdp`` (leaves sharded from 1024 elements) with
+    the viewer bound on rank 0 and a SIBR client thread there: it sends ``inp["req.<i>"]`` one at a time,
+    reads each reply, then closes the connection (mid-stream when the last
+    request asked for a decode). Every rank records what the viewer
+    computed: each stream's and each teacher-forced frame's weights (whole)
+    and batch, each streamed frame's rows, flags and image, the
+    teacher-forced rows and image, and the mode the model was left in."""
+    import threading
+
+    import torch
+
+    torch.set_num_threads(1)
+    sys.modules["torch.utils.tensorboard"] = None
+    from gaussian_transformer_tpu_torch.cli import train_stacked
+    from gaussian_transformer_tpu_torch.parallel.fsdp import full_tensor
+    from gaussian_transformer_tpu_torch.train import stacked as ps
+
+    res, events = {}, []
+
+    def record(kind, stream):
+        b = stream.batch
+        ev = {"kind": kind, "frames": []}
+        # A copy first: numpy() would pin the storage of a parameter FSDP2
+        # holds gathered (inside LiveViewerStream.decoding), which it frees after.
+        ev.update({f"w.{n}": full_tensor(p.detach()).clone().numpy() for n, p in stream.model.named_parameters()})
+        ev.update({f"b.{k}": getattr(b, k).numpy().copy() for k in ("src", "src_mask", "trg", "trg_mask", "trg_y")})
+        events.append(ev)
+        return ev
+
+    class Recording(ps.LiveViewerStream):
+        def start(self):
+            record("stream", self)
+            return super().start()
+
+        def render(self, carry, cam, smod, show_prompt, show_pred):
+            image = super().render(carry, cam, smod, show_prompt, show_pred)
+            events[-1]["frames"].append((carry[2], carry[0].clone().numpy(), float(smod), bool(show_prompt),
+                                         bool(show_pred), image.numpy().copy()))
+            return image
+
+    def recording_train_fn(stream):
+        inner = ps.make_viewer_train_fn(stream)
+
+        def fn(cam, smod, show_prompt, show_pred):
+            ev = record("teacher_forced", stream)
+            model, b = stream.model, stream.batch
+            model.eval()
+            with torch.no_grad():
+                ev["rows"] = model.generator(model.decode(model.encode(b.src, b.src_mask), b.src_mask, b.trg,
+                                                          b.trg_mask)).numpy()
+            model.train()
+            image = inner(cam, smod, show_prompt, show_pred)
+            ev.update(image=image.numpy().copy(), training=model.training, smod=float(smod),
+                      flags=(bool(show_prompt), bool(show_pred)))
+            return image
+
+        return fn
+
+    train_stacked.LiveViewerStream = Recording
+    train_stacked.make_viewer_train_fn = recording_train_fn
+    _shard_small_leaves(train_stacked)
+    port = int(inp["port"])
+    requests = [bytes(inp[f"req.{i}"]) for i in range(int(inp["n_req"]))]
+    replies, errors = [], []
+
+    def client():
+        import socket
+
+        def recv(s, n):
+            out = bytearray()
+            while len(out) < n:
+                chunk = s.recv(n - len(out))
+                if not chunk:
+                    raise ConnectionError("closed mid-reply")
+                out += chunk
+            return bytes(out)
+
+        try:
+            deadline = time.time() + 120
+            while True:
+                try:
+                    s = socket.create_connection(("127.0.0.1", port), timeout=120)
+                    break
+                except ConnectionRefusedError:
+                    if time.time() > deadline:
+                        raise
+                    time.sleep(0.05)
+            with s:
+                for req in requests:
+                    s.sendall(req)
+                    img = recv(s, int(inp["image_bytes"]))
+                    replies.append((img, recv(s, int.from_bytes(recv(s, 4), "little")).decode("ascii")))
+        except Exception as e:  # reported through the results
+            errors.append(repr(e))
+
+    th = None
+    if int(os.environ["RANK"]) == 0:  # the process group is not joined yet
+        th = threading.Thread(target=client, daemon=True)
+        th.start()
+    out = train_stacked.main(stacked_argv(str(inp["root"]), "--fsdp", str(inp["fsdp"]), "--ip", "127.0.0.1",
+                                          "--port", str(port), "--run_name", os.path.join(os.getcwd(), "run"),
+                                          "--epochs", str(int(inp["epochs"]))))
+    if th is not None:
+        th.join(30)
+        res["client.errors"] = np.array(errors + [""])
+        for i, (img, verify) in enumerate(replies):
+            res[f"reply.{i}"] = np.frombuffer(img, np.uint8)
+            res[f"reply.{i}.verify"] = np.array(verify)
+        res["n_replies"] = np.array(len(replies))
+    res["loss"] = np.array([h["loss"] for h in out["history"]])
+    res["training"] = np.array(out["model"].training)
+    res["sharded"] = np.array(_n_sharded(out["model"]))
+    handler = out["tscene"].handler
+    res.update({f"handler.{k}": getattr(handler, k).numpy() for k in ("world_min", "world_max", "scaling_min",
+                                                                         "scaling_max")})
+    res["n_events"] = np.array(len(events))
+    for e, ev in enumerate(events):
+        for k, v in ev.items():
+            if k == "frames":
+                res[f"ev{e}.n_frames"] = np.array(len(v))
+                for j, (n_valid, ys, smod, p, q, img) in enumerate(v):
+                    res.update({f"ev{e}.f{j}.n_valid": np.array(n_valid), f"ev{e}.f{j}.ys": ys,
+                                f"ev{e}.f{j}.smod": np.array(smod), f"ev{e}.f{j}.flags": np.array([p, q]),
+                                f"ev{e}.f{j}.image": img})
+            else:
+                res[f"ev{e}.{k}"] = np.array(v)
+    return res
+
+
+WORKERS = {"tier_3dgs": tier_3dgs, "tier_seq": tier_seq, "cli_pair": cli_pair, "orbax_cli": orbax_cli,
+           "viewer_fsdp": viewer_fsdp}
 
 
 def main(argv):
