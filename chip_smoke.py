@@ -344,10 +344,10 @@ The viewer bridge (``viewer/network_gui.py``), the native IO tier
     train step with and without the pump before it makes the same host
     synchronisations by call site (the kernels printed, of a second step
     without the pump too: an FSDP2 step's own count varies between runs).
-33. The machine's libjpeg/libpng/g++ probe, the tier's build (PNG where
-    libpng compiles and links, else the reason), its readers against the
+33. The machine's libjpeg/libpng/g++ probe, the tier's build (PNG with its
+    own decoder), its readers against the
     Python ones bit for bit on a COLMAP binary model of section 6's views
-    (images.bin, points3D.bin, the PNG decode when libpng is built) and on
+    (images.bin, points3D.bin, the PNG decode) and on
     section 2's PLY (read and write), each timed; the COLMAP folder through
     ``Scene``. 33b: ``cli.full_eval --skip_training`` over synthetic roots,
     one scene per list, its renders and metrics in child processes on the
@@ -363,11 +363,25 @@ The viewer bridge (``viewer/network_gui.py``), the native IO tier
     ``Scene`` on the card with each camera's image equal to the
     digest-checked decode; ``cli.train`` trains it for 300 steps with
     ``--eval`` off and the PSNR on the training views must rise.
+35. Every image the JAX package reads: whether ``png.h``, ``zlib.h`` and
+    ``jpeglib.h`` exist here, ``codecs()`` ``['jpeg', 'png']`` from a
+    build command with no ``-lpng``, ``-lz`` or ``-ljpeg``; every committed
+    PNG (``native/testdata/png``: a Blender scene of 800x800 RGBA views,
+    one Adam7, one palette + tRNS; a 1080p view; small files of every PNG
+    mode) in both outputs (RGB, RGBA) and every JPEG mode file
+    (``native/testdata/jpeg_modes``: arithmetic, 4:4:0, 4:1:1, 3x1, no
+    DHT, block smoothing) against the digests of libpng, Pillow and
+    libjpeg; the Blender scene through ``Scene`` at ``-r 1`` and ``-r 2``
+    with each camera's image at the digest of the JAX reader's composite
+    and Pillow resize; ``cli.train`` on it for 300 steps with ``--eval``,
+    the PSNR on its training views rising; times: the 1080p PNG on one
+    thread in the tier and in ``utils/png.py``, the Blender folder on the
+    pool (images/s), ``image_to_array``'s resize of a 1080p view.
 
 The kernels line's K1-K4 entries carry the launches of sections 31-32 as
 ``viewer_launches`` (32b's as ``stream_fsdp`` and ``teacher_forced_fsdp``)
-and those of section 34's ``cli.train`` as
-``jpeg_launches``.
+and those of section 34's and 35's ``cli.train`` as
+``jpeg_launches`` and ``image_launches``.
 
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
 before and after its window. The K3, K4, K7 and K8 entries of the kernels
@@ -1064,6 +1078,7 @@ def run(args, device) -> dict:
     summary["viewer_launches"] = viewer_path(args, device, summary, scene, fovx, splits["test"], train_cfg)
     native_io_path(args, device, summary)
     summary["jpeg_launches"] = jpeg_path(args, device, summary)
+    summary["image_launches"] = image_path(args, device, summary)
     summary.update(kernels_line)
     return summary
 
@@ -4617,10 +4632,9 @@ def native_io_path(args, device, summary) -> None:
     codecs, missing = native.codecs(), native.missing()
     print(f"native tier: available {native.available()} ({native.unavailable_reason() or 'built'}), codecs "
           f"{list(codecs)}, built in {build_ms:.0f} ms; missing: {missing or 'none'}")
-    if os.path.exists("/usr/include/png.h"):
-        check("png" in codecs, "png: its header is there, so the tier decodes it")
-    else:
-        print(f"png: png.h is missing here; the tier is built without it ({missing.get('png')})")
+    print(f"png.h here: {os.path.exists('/usr/include/png.h')}; the tier decodes PNG with its own decoder "
+          f"(native/png.cpp, no libpng)")
+    check("png" in codecs, "png: the tier decodes it, with or without png.h")
     check(native.available(), f"the tier's parsers build ({native.unavailable_reason()})")
     summary.update(io_probe=probe, native_codecs=list(codecs), native_missing=missing, native_build_ms=build_ms)
 
@@ -4669,11 +4683,8 @@ def native_io_path(args, device, summary) -> None:
     del table
     pngs = [str(root / "colmap" / "images" / f"{i:03d}.png") for i in range(len(views))]
     p_png, times["PNG decode utils/png.py"] = timed(lambda: {p: read_png(p) for p in pngs})
-    if "png" in codecs:
-        n_png, times["PNG decode native"] = timed(lambda: native.decode_folder(pngs))
-        same([n_png[p] for p in pngs], [p_png[p] for p in pngs], f"PNG decode ({len(pngs)} views at {W}x{H})")
-    else:
-        print(f"PNG decode: the tier has no libpng, so PNGs go through utils/png.py ({missing['png']})")
+    n_png, times["PNG decode native"] = timed(lambda: native.decode_folder(pngs))
+    same([n_png[p] for p in pngs], [p_png[p] for p in pngs], f"PNG decode ({len(pngs)} views at {W}x{H})")
     print(f"[{smi}] IO times (ms, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
     random.seed(args.seed)
     ns = Namespace(sh_degree=3, source_path=str(root / "colmap"), model_path=str(root / "colmap_model"),
@@ -4846,6 +4857,160 @@ def jpeg_path(args, device, summary, iterations=None) -> dict:
     return {"train": launches}
 
 
+# --------------------------------------------------------------- images ---
+
+PNG_DIR = ROOT / "gaussian_transformer_tpu_torch" / "native" / "testdata" / "png"
+JPEG_MODES_DIR = ROOT / "gaussian_transformer_tpu_torch" / "native" / "testdata" / "jpeg_modes"
+IMAGE_ITERATIONS = 300  # section 35's cli.train run on the committed Blender scene
+IMAGE_POINTS = 20_000  # its points3d.ply (surface_points)
+IMAGE_TIMING_CALLS = 11  # one-thread tier decodes of the 1080p PNG (the median is printed)
+IMAGE_FOLDER_CALLS = 5  # pool decodes of the Blender folder
+IMAGE_RESIZE_CALLS = 5  # image_to_array resizes of a 1080p view
+
+
+def image_path(args, device, summary, iterations=None) -> dict:
+    """Section 35: every image the JAX package reads, read alike here: the
+    machine's headers, the tier's build with no image library, every
+    committed PNG (both outputs) and JPEG mode file against its digest,
+    the committed Blender scene through ``Scene`` at ``-r 1`` and ``-r 2``
+    against the digests of the JAX reader's composite and Pillow resize,
+    ``cli.train`` on it for ``iterations`` steps (default
+    ``IMAGE_ITERATIONS``) with ``--eval``, and the decode and resize times.
+    Returns the run's K1-K4 launches ({"train": {...}})."""
+    import statistics
+
+    import torch
+
+    from gaussian_transformer_tpu_torch import native
+    from gaussian_transformer_tpu_torch.cli import train as cli_train
+    from gaussian_transformer_tpu_torch.render import render
+    from gaussian_transformer_tpu_torch.scene import Scene
+    from gaussian_transformer_tpu_torch.scene.camera_utils import image_to_array
+    from gaussian_transformer_tpu_torch.scene.gaussians import GaussianScene
+    from gaussian_transformer_tpu_torch.scene.ply import store_point_cloud
+    from gaussian_transformer_tpu_torch.utils import png as pypng
+
+    on_card = device.type == "cuda"
+    smi = smi_line(device)
+    iterations = iterations or IMAGE_ITERATIONS
+    t_section = time.perf_counter()
+    print("== 35. every image the JAX package reads: the tier's own PNG and JPEG decoders with no image library, "
+          "the committed PNGs and JPEG modes against their digests, a Blender scene through Scene at -r 1 and "
+          "-r 2 and cli.train, decode and resize times")
+    headers = {h: os.path.exists(f"/usr/include/{h}") for h in ("png.h", "zlib.h", "jpeglib.h")}
+    cmd = native.build_command(native.compiler() or "g++", native.library_path())
+    print(f"headers here: {headers}; the tier's build: {' '.join(Path(c).name for c in cmd)}")
+    check(not any(flag in cmd for flag in ("-lpng", "-lz", "-ljpeg")), "the build links no image library")
+    check(list(native.codecs()) == ["jpeg", "png"] and native.missing() == {},
+          f"codecs() {list(native.codecs())}: both decoders built in")
+    summary.update(image_headers=headers)
+
+    def digest(arr) -> str:
+        return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+    record = json.loads((PNG_DIR / "digests.json").read_text())
+    files = {name: str(PNG_DIR / name) for name in record["files"]}
+    check(sorted(files) == sorted(str(p.relative_to(PNG_DIR)) for p in PNG_DIR.rglob("*.png")),
+          f"digests.json lists every committed PNG ({len(files)})")
+    rgb, rgba = native.decode_folder(list(files.values())), native.decode_folder(list(files.values()), rgba=True)
+    bad = [n for n, p in files.items()
+           if digest(rgb[p]) != record["files"][n]["rgb"] or digest(rgba[p]) != record["files"][n]["rgba"]]
+    check(not bad, f"{len(files)} committed PNGs decode to libpng's RGB and Pillow's RGBA digests (off: {bad})")
+    modes = json.loads((JPEG_MODES_DIR / "digests.json").read_text())
+    got = native.decode_folder([str(JPEG_MODES_DIR / n) for n in modes])
+    bad = [n for n in modes if digest(got[str(JPEG_MODES_DIR / n)]) != modes[n]]
+    check(not bad, f"{len(modes)} JPEG mode files ({', '.join(sorted(modes))}) decode to libjpeg's digests "
+                   f"(off: {bad})")
+
+    root = Path(args.work) / "image_scene"
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "data"
+    shutil.copytree(PNG_DIR / "blender", data)
+    xyz, colours = surface_points(IMAGE_POINTS, args.seed + 35)
+    store_point_cloud(str(data / "points3d.ply"), xyz, colours)
+    loads = {}
+    for r in (1, 2):
+        random.seed(args.seed)
+        ns = Namespace(sh_degree=1, source_path=str(data), model_path=str(root / f"load_r{r}"), images="images",
+                       resolution=r, white_background=False, eval=True)
+        loaded, loads[r] = timed(lambda: Scene(ns, sh_degree=1, shuffle=False, device=device))
+        want = record["scene"][f"r{r}"]
+        cams = [("train", c) for c in loaded.get_train_cameras()] + [("test", c) for c in loaded.get_test_cameras()]
+        off = [f"{s}/{c.image_name}" for s, c in cams
+               if digest(c.original_image.cpu().numpy()) != want[f"{s}/{c.image_name}"]]
+        side = 800 // r
+        check(len(cams) == len(want) and not off and all(tuple(c.original_image.shape) == (3, side, side)
+                                                         for _, c in cams),
+              f"-r {r}: the Blender scene loads through Scene on the {device.type}, {len(cams)} views at "
+              f"{side}x{side}, each at the digest of the JAX reader's composite and Pillow resize (off: {off})")
+        if r == 1:
+            scene_r1, cams_r1 = loaded, [c for s, c in cams if s == "train"]
+        del loaded, cams
+    print(f"Scene load of the Blender scene (5 views at 800x800, {IMAGE_POINTS} points): -r 1 {loads[1]:.0f} ms, "
+          f"-r 2 {loads[2]:.0f} ms")
+
+    def train_psnr(gaussians) -> float:
+        with torch.no_grad():
+            return float(np.mean([psnr_db(torch.clamp(render(c, gaussians)["render"], 0, 1), c.original_image)
+                                  for c in cams_r1]))
+
+    before = train_psnr(scene_r1.gaussians)
+    del scene_r1
+    model = root / "model"
+    counters = kernel_counters()
+    zero_counts(counters)
+    dev_arg = [] if on_card else ["--device", str(device)]
+    t0 = time.time()
+    res = cli_train.main(["-s", str(data), "-m", str(model), "-r", "1", "--eval", "--iterations", str(iterations),
+                          "--save_iterations", str(iterations), "--test_iterations", str(iterations),
+                          "--quiet"] + dev_arg)
+    t_train = time.time() - t0
+    launches = read_counts(counters)
+    losses = [h["loss"] for h in res["history"]]
+    print(f"cli.train on the Blender scene, {iterations} steps (--eval): {t_train:.1f} s; launches {launches}; "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    check(len(losses) == iterations and all(math.isfinite(v) for v in losses), "every loss is finite")
+    if on_card:
+        check(launches["K2"] == iterations and launches["K4"] == iterations and min(launches.values()) > 0,
+              f"K1-K4 ran on the Blender scene, K2 and K4 once per step ({iterations})")
+    trained = GaussianScene.load_ply(str(model / "point_cloud" / f"iteration_{iterations}" / "point_cloud.ply"), 1,
+                                     device=device)
+    after = train_psnr(trained)
+    print(f"PSNR on the {len(cams_r1)} training views: {before:.3f} dB before, {after:.3f} dB after "
+          f"{iterations} steps")
+    check(after > before, f"training on the Blender scene raised the PSNR ({before:.3f} -> {after:.3f} dB)")
+    del trained, cams_r1
+
+    big = PNG_DIR / "1080p.png"
+    bw, bh = native.image_size(str(big))
+    native.load_images([str(big)], bw, bh, threads=1)
+    one = [timed(lambda: native.load_images([str(big)], bw, bh, threads=1))[1] for _ in range(IMAGE_TIMING_CALLS)]
+    py_arr, py_ms = timed(lambda: pypng.read_png_rgb(str(big)))
+    check(digest(py_arr) == record["files"]["1080p.png"]["rgb"], "utils/png.py reads the 1080p PNG to its digest")
+    folder = [files[n] for n in record["files"] if n.startswith("blender/")]
+    pool = [timed(lambda: native.load_images(folder, 800, 800, rgba=True))[1] for _ in range(IMAGE_FOLDER_CALLS)]
+    view = rgb[files["1080p.png"]]
+    resize = [timed(lambda: image_to_array(view, (bw // 2, bh // 2)))[1] for _ in range(IMAGE_RESIZE_CALLS)]
+    one_ms, pool_ms, resize_ms = statistics.median(one), statistics.median(pool), statistics.median(resize)
+    cpus = os.cpu_count()
+    print(f"[{smi}] host CPUs {cpus}: 1080p.png ({bw}x{bh} RGB, libpng's adaptive filters, {big.stat().st_size} B) "
+          f"on one thread: tier median {one_ms:.3f} ms of {len(one)} calls (min {min(one):.3f}, max {max(one):.3f}), "
+          f"{bw * bh / one_ms / 1e3:.2f} MP/s; utils/png.py {py_ms:.1f} ms (one call); the {len(folder)}-view "
+          f"Blender folder (800x800 RGBA) on the pool: median {pool_ms:.3f} ms of {len(pool)} calls, "
+          f"{len(folder) / pool_ms * 1e3:.1f} images/s; image_to_array's resize of the 1080p view to "
+          f"{bw // 2}x{bh // 2}: median {resize_ms:.1f} ms of {len(resize)} calls")
+    section_s = time.perf_counter() - t_section
+    print(f"section 35: {section_s:.1f} s")
+    summary.update(image_path={"cpus": cpus, "smi": smi, "png_one_thread_ms": one, "png_one_thread_median_ms": one_ms,
+                               "png_mp_per_s": bw * bh / one_ms / 1e3, "png_python_ms": py_ms,
+                               "folder_ms": pool, "folder_median_ms": pool_ms,
+                               "images_per_s": len(folder) / pool_ms * 1e3, "resize_ms": resize,
+                               "resize_median_ms": resize_ms, "scene_load_ms": loads, "train_s": t_train,
+                               "iterations": iterations, "psnr_before": before, "psnr_after": after,
+                               "launches": launches, "section_s": section_s})
+    return {"train": launches}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4900,6 +5065,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         add_path_launches(summary["kernels"], "gate_launches", gate_path(args, device, summary))
         add_path_launches(summary["kernels"], "jpeg_launches", summary["jpeg_launches"])
+        add_path_launches(summary["kernels"], "image_launches", summary["image_launches"])
         add_path_launches(summary["kernels"], "viewer_launches",
                           {**summary["viewer_launches"], "stacked_stream": summary["stacked_stream_launches"],
                            **summary["stacked_stream_fsdp_launches"]})

@@ -2,26 +2,31 @@
 
 COLMAP binary parsers, float32 PLY vertex tables and a thread-pool
 JPEG/PNG decoder with a bilinear resize: the same C ABI and the same
-Python functions as the JAX package's native tier, in the port's own copy.
+Python functions as the JAX package's native tier, in the port's own copy,
+plus an RGBA output (``load_images(..., rgba=True)``).
 
-JPEGs decode with the tier's own decoder (``jpeg.cpp``: baseline and
-progressive Huffman files, restart markers, 4:4:4/4:2:2/4:2:0 and
-grayscale, bit for bit with libjpeg-turbo's defaults), so JPEG needs no
-library: wherever the tier builds, ``codecs()`` holds ``"jpeg"``. A file it
-cannot decode raises ``IOError`` naming the file and the feature
-(arithmetic coding, 12-bit, lossless, CMYK, other sampling factors).
+Images decode with the tier's own decoders, so they need no library (no
+libjpeg, libpng or zlib): wherever the tier builds, ``codecs()`` holds
+``"jpeg"`` and ``"png"``.
+* ``jpeg.cpp``: baseline, progressive and arithmetic-coded files, restart
+  markers, every sampling that libjpeg-turbo decodes, Annex K's tables
+  where a file has no DHT, block smoothing, bit for bit with libjpeg-turbo
+  2.1.5's defaults.
+* ``png.cpp``: every colour type and bit depth, all filters, Adam7, PLTE
+  and tRNS, with its own inflate. Its RGB output is the JAX tier's libpng
+  path; its RGBA output is Pillow's ``convert("RGBA")``.
+A file it cannot decode raises ``IOError`` naming the file and the feature
+or fault (for a JPEG: 12-bit, lossless, hierarchical, 2 or 4 components,
+fractional sampling, as the JAX tier's libjpeg refuses them).
 
 At first use the library is built with ``g++ -O3 -fPIC -std=c++17 -shared
-gt_native.cpp jpeg.cpp ... -lpng -lpthread`` into ``build/torch_native/`` at
+gt_native.cpp jpeg.cpp png.cpp -lpthread`` into ``build/torch_native/`` at
 the repository root, under a name keyed by a hash of the sources and the
 flags. The build writes a temporary file and renames it into place, so
-processes that build at once never load a half-written library. Before it,
-a small probe program checks that libpng compiles and links; where it does
-not, PNG is left out of the build (``GT_NO_PNG``), the rest is built all
-the same, ``missing()`` says why, and a scene load decodes PNGs with
-``utils/png.py``. Without a compiler the tier is unavailable
-(``available()`` is False, ``unavailable_reason()`` says why): the callers
-use their Python readers for the bins and PNGs, and a JPEG raises
+processes that build at once never load a half-written library. Without a
+compiler the tier is unavailable (``available()`` is False,
+``unavailable_reason()`` says why): the callers use their Python readers
+for the bins and PNGs (``utils/png.py``), and a JPEG raises
 ``CodecUnavailable`` naming that reason.
 """
 
@@ -38,15 +43,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-SOURCES = [Path(__file__).resolve().parent / name for name in ("gt_native.cpp", "jpeg.cpp")]
+SOURCES = [Path(__file__).resolve().parent / name for name in ("gt_native.cpp", "jpeg.cpp", "png.cpp")]
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_native"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
 CODECS = ("jpeg", "png")
-# A program per optional codec that needs its header and its library, and
-# the link flag. JPEG has none: the tier decodes it itself (jpeg.cpp).
-_PROBES = {
-    "png": ("#include <png.h>\nint main() { return png_access_version_number() == 0; }\n", "-lpng"),
-}
 
 
 class CodecUnavailable(RuntimeError):
@@ -77,21 +77,13 @@ def _first_error(stderr: str) -> str:
     return line.split("error: ", 1)[-1]
 
 
-def probe_codecs(cxx: str) -> Dict[str, Optional[str]]:
-    """{codec: None if it compiles and links, else the compiler's reason}."""
-    out = {}
-    for codec, (code, lib) in _PROBES.items():
-        exe = BUILD_DIR / f"probe-{codec}-{os.getpid()}-{uuid.uuid4().hex[:8]}"
-        proc = subprocess.run([cxx, "-x", "c++", "-", "-o", str(exe), lib], input=code,
-                              capture_output=True, text=True)
-        exe.unlink(missing_ok=True)
-        out[codec] = None if proc.returncode == 0 else f"{_first_error(proc.stderr)} ({cxx} {lib})"
-    return out
+def build_command(cxx: str, out) -> List[str]:
+    """The compiler's command line: the sources and pthreads, no library."""
+    return [cxx, *CXX_FLAGS, "-o", str(out), *map(str, SOURCES), "-lpthread"]
 
 
 def build(verbose: bool = False) -> bool:
-    """(Re)build the library now, with PNG where libpng compiles and links
-    here. Returns ``available()``."""
+    """(Re)build the library now. Returns ``available()``."""
     global _lib, _tried, _why
     _lib, _tried, _why = None, True, None
     cxx = compiler()
@@ -99,22 +91,9 @@ def build(verbose: bool = False) -> bool:
         _why = f"no C++ compiler ({os.environ.get('CXX') or 'g++'} not found)"
         return False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    missing = probe_codecs(cxx)
-    defines, libs = [], []
-    for codec in _PROBES:
-        if missing[codec] is None:
-            libs.append(_PROBES[codec][1])
-        else:
-            defines.append(f"-DGT_NO_{codec.upper()}")
-    # "<codec>: <reason>; ..." (a C string literal: no quote, backslash or
-    # separator inside a reason).
-    note = "; ".join(f"{c}: {r.replace(';', ',')}" for c, r in missing.items() if r is not None)
-    note = note.replace("\\", "/").replace('"', "'")
     out = library_path()
     tmp = out.with_name(f"{out.name}.{os.getpid()}-{uuid.uuid4().hex[:8]}.tmp")
-    cmd = [cxx, *CXX_FLAGS, *defines, f'-DGT_BUILD_NOTE="{note}"', "-o", str(tmp), *map(str, SOURCES),
-           *libs, "-lpthread"]
-    proc = subprocess.run(cmd, capture_output=not verbose, text=True)
+    proc = subprocess.run(build_command(cxx, tmp), capture_output=not verbose, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         _why = f"{cxx} exit {proc.returncode}: {_first_error(proc.stderr or '')}"
@@ -154,7 +133,6 @@ def _bind(lib) -> None:
     c = ctypes
     lib.gt_free.argtypes = [c.c_void_p]
     lib.gt_codecs.restype = c.c_int
-    lib.gt_build_note.restype = c.c_char_p
     lib.gt_read_points3d_bin.argtypes = [
         c.c_char_p, c.POINTER(c.POINTER(c.c_double)), c.POINTER(c.POINTER(c.c_uint8)),
         c.POINTER(c.POINTER(c.c_double)), c.POINTER(c.c_uint64),
@@ -169,10 +147,11 @@ def _bind(lib) -> None:
         c.POINTER(c.c_uint64), c.POINTER(c.c_uint32),
     ]
     lib.gt_write_ply_f32.argtypes = [c.c_char_p, c.c_char_p, c.POINTER(c.c_float), c.c_uint64, c.c_uint32]
-    lib.gt_load_images.argtypes = [
-        c.c_char_p, c.c_int, c.c_int, c.c_int, c.c_int,
-        c.POINTER(c.c_uint8), c.POINTER(c.c_int32),
-    ]
+    for fn in (lib.gt_load_images, lib.gt_load_images_rgba):
+        fn.argtypes = [
+            c.c_char_p, c.c_int, c.c_int, c.c_int, c.c_int,
+            c.POINTER(c.c_uint8), c.POINTER(c.c_int32),
+        ]
     lib.gt_image_size.argtypes = [c.c_char_p, c.POINTER(c.c_int), c.POINTER(c.c_int)]
     lib.gt_image_error.argtypes = [c.c_char_p, c.c_char_p, c.c_int]
 
@@ -198,12 +177,11 @@ def codecs() -> Tuple[str, ...]:
 
 
 def missing() -> Dict[str, str]:
-    """{codec: why it was left out} for the codecs the tier lacks."""
-    lib = _load()
-    if lib is None:
+    """{codec: why it is missing}: every codec when the tier is
+    unavailable, none when it is built."""
+    if _load() is None:
         return {c: f"native IO tier unavailable: {_why}" for c in CODECS}
-    notes = dict(part.split(": ", 1) for part in lib.gt_build_note().decode().split("; ") if part)
-    return {c: notes.get(c, "left out of the build") for c in CODECS if c not in codecs()}
+    return {}
 
 
 def codec_of(path: str) -> str:
@@ -214,18 +192,17 @@ def codec_of(path: str) -> str:
 
 def require_codec(path: str) -> None:
     """Raise ``CodecUnavailable`` when the tier cannot decode ``path``'s
-    codec: a JPEG only when the tier itself is unavailable (its reason), a
-    PNG also when it was built without libpng."""
+    codec, that is when the tier itself is unavailable (its reason)."""
     codec = codec_of(path)
     if codec not in codecs():
-        what = "the native IO tier's JPEG decoder" if codec == "jpeg" else "libpng (png.h, -lpng)"
-        raise CodecUnavailable(f"{path}: decoding a {codec.upper()} needs {what} "
-                               f"(gaussian_transformer_tpu_torch/native): {missing()[codec]}")
+        raise CodecUnavailable(f"{path}: decoding a {codec.upper()} needs the native IO tier's "
+                               f"{codec.upper()} decoder (gaussian_transformer_tpu_torch/native): "
+                               f"{missing()[codec]}")
 
 
 def decode_error(path: str) -> str:
-    """Why ``path`` does not decode ("" when it does): for a JPEG, the
-    feature the tier's decoder lacks or the fault it found."""
+    """Why ``path`` does not decode ("" when it does): the feature the
+    tier's decoder lacks or the fault it found."""
     msg = ctypes.create_string_buffer(512)
     _lib_or_raise().gt_image_error(path.encode(), msg, len(msg))
     return msg.value.decode(errors="replace")
@@ -330,16 +307,19 @@ def image_size(path: str) -> Tuple[int, int]:
     return int(w.value), int(h.value)
 
 
-def load_images(paths: List[str], width: int, height: int, threads: int = 0) -> np.ndarray:
+def load_images(paths: List[str], width: int, height: int, threads: int = 0, rgba: bool = False) -> np.ndarray:
     """Decode + resize a batch of JPEG/PNG files on a thread pool ->
-    [N, height, width, 3] uint8 (an RGBA PNG loses its alpha)."""
+    [N, height, width, 3] uint8 as the JAX tier's libpng/libjpeg give it
+    (an RGBA PNG loses its alpha), or with ``rgba`` [N, height, width, 4]
+    as Pillow's ``convert("RGBA")`` gives it. A file that does not decode
+    raises ``IOError`` naming it and why."""
     lib = _lib_or_raise()
     for p in paths:
         require_codec(p)
     n = len(paths)
-    out = np.empty((n, height, width, 3), np.uint8)
+    out = np.empty((n, height, width, 4 if rgba else 3), np.uint8)
     status = np.zeros(n, np.int32)
-    rc = lib.gt_load_images(
+    rc = (lib.gt_load_images_rgba if rgba else lib.gt_load_images)(
         "\n".join(paths).encode(), n, width, height, threads,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         status.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
@@ -348,21 +328,20 @@ def load_images(paths: List[str], width: int, height: int, threads: int = 0) -> 
         raise IOError(f"gt_load_images failed (rc={rc})")
     bad = np.nonzero(status)[0]
     if len(bad):
-        why = [f"{paths[i]}: {decode_error(paths[i]) if codec_of(paths[i]) == 'jpeg' else 'decode failed'}"
-               for i in bad[:3]]
+        why = [f"{paths[i]}: {decode_error(paths[i]) or 'decode failed'}" for i in bad[:3]]
         raise IOError(f"gt_load_images: {len(bad)} image(s) did not decode: " + "; ".join(why))
     return out
 
 
-def decode_folder(paths: List[str], threads: int = 0) -> Dict[str, np.ndarray]:
+def decode_folder(paths: List[str], threads: int = 0, rgba: bool = False) -> Dict[str, np.ndarray]:
     """Decode every image of ``paths`` at its own size, grouped by size on
-    the thread pool: {path: uint8 [H, W, 3]}."""
+    the thread pool: {path: uint8 [H, W, 3]} (``rgba``: [H, W, 4])."""
     by_size: Dict[Tuple[int, int], List[str]] = {}
     for p in paths:
         require_codec(p)
         by_size.setdefault(image_size(p), []).append(p)
     out = {}
     for (w, h), group in by_size.items():
-        for p, arr in zip(group, load_images(group, w, h, threads)):
+        for p, arr in zip(group, load_images(group, w, h, threads, rgba)):
             out[p] = arr
     return out

@@ -3,13 +3,14 @@
 // C++ replacements for the single-threaded Python IO of a scene load:
 //   * COLMAP points3D.bin / images.bin parsers (one read, one pass over it)
 //   * a binary-little-endian float32 PLY vertex-table reader and writer
-//   * a thread-pool JPEG/PNG decoder with a bilinear resize
+//   * a thread-pool JPEG/PNG decoder with a bilinear resize, to RGB (the
+//     JAX tier's output) or RGBA (gt_load_images_rgba)
 // The C ABI is the JAX package's native tier's (native/gt_native.cpp at the
-// repository root), plus gt_codecs(), gt_build_note() and gt_image_error().
-// JPEGs go through the tier's own decoder (jpeg.cpp, compiled into the same
-// library), so they need no library. PNG decoding needs libpng and is
-// optional: the build flag GT_NO_PNG leaves it out, and GT_BUILD_NOTE is a
-// string saying why. Python binds it through ctypes (native/__init__.py).
+// repository root), plus gt_codecs(), gt_load_images_rgba() and
+// gt_image_error(). Images go through the tier's own decoders, compiled
+// into the same library (jpeg.cpp, png.cpp), so they need no library: no
+// libjpeg, libpng or zlib. Python binds it through ctypes
+// (native/__init__.py).
 
 #include <cstdint>
 #include <cstdio>
@@ -20,35 +21,21 @@
 #include <thread>
 #include <atomic>
 
-#include <setjmp.h>
 #include <strings.h>
-
-#ifndef GT_NO_PNG
-#include <png.h>
-#endif
-#ifndef GT_BUILD_NOTE
-#define GT_BUILD_NOTE ""
-#endif
 
 // jpeg.cpp
 uint8_t* gt_jpeg_decode(const uint8_t* data, size_t size, int* w, int* h, int* status, std::string* why);
 int gt_jpeg_size(const uint8_t* data, size_t size, int* w, int* h);
+// png.cpp
+uint8_t* gt_png_decode(const uint8_t* data, size_t size, int channels, int* w, int* h, int* status,
+                       std::string* why);
 
 extern "C" {
 
 void gt_free(void* p) { free(p); }
 
-// Bit 0: JPEG decoding (always built in); bit 1: PNG decoding built in.
-int gt_codecs(void) {
-  int c = 1;
-#ifndef GT_NO_PNG
-  c |= 2;
-#endif
-  return c;
-}
-
-// Why PNG was left out ("" when it is built in).
-const char* gt_build_note(void) { return GT_BUILD_NOTE; }
+// Bit 0: JPEG decoding; bit 1: PNG decoding. Both are always built in.
+int gt_codecs(void) { return 3; }
 
 // ---------------------------------------------------------------- COLMAP ----
 
@@ -221,53 +208,42 @@ int gt_write_ply_f32(const char* path, const char* names, const float* data,
 
 // ---------------------------------------------------------------- images ----
 
-// Decode one JPEG to RGB8 with jpeg.cpp; returns a malloc'd buffer, or null
-// with *status (< 0) and, when `why` is given, the reason.
-static uint8_t* decode_jpeg(const char* path, int* w, int* h, int* status, std::string* why = nullptr) {
+static bool is_png(const char* path) {
+  size_t len = strlen(path);
+  return len > 4 && strcasecmp(path + len - 4, ".png") == 0;
+}
+
+// Decode one image (PNG by extension, JPEG otherwise) to 3 (RGB) or 4
+// (RGBA) channels; returns a malloc'd buffer, or null with *status (< 0)
+// and, when `why` is given, the reason.
+static uint8_t* decode_image(const char* path, int channels, int* w, int* h, int* status,
+                             std::string* why = nullptr) {
   std::vector<uint8_t> buf;
   if (!slurp(path, buf)) {
     *status = -1;
     if (why) *why = "cannot read the file";
     return nullptr;
   }
-  return gt_jpeg_decode(buf.data(), buf.size(), w, h, status, why);
-}
-
-#ifndef GT_NO_PNG
-static uint8_t* decode_png(const char* path, int* w, int* h) {
-  FILE* f = fopen(path, "rb");
-  if (!f) return nullptr;
-  png_structp png = png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr, nullptr, nullptr);
-  png_infop info = png_create_info_struct(png);
-  if (setjmp(png_jmpbuf(png))) {
-    png_destroy_read_struct(&png, &info, nullptr);
-    fclose(f);
-    return nullptr;
+  if (is_png(path)) return gt_png_decode(buf.data(), buf.size(), channels, w, h, status, why);
+  uint8_t* rgb = gt_jpeg_decode(buf.data(), buf.size(), w, h, status, why);
+  if (!rgb || channels == 3) return rgb;
+  size_t n = (size_t)(*w) * (*h);  // a JPEG as RGBA: opaque, as Pillow's convert("RGBA")
+  uint8_t* rgba = (uint8_t*)malloc(n * 4);
+  if (rgba)
+    for (size_t i = 0; i < n; i++) {
+      memcpy(rgba + 4 * i, rgb + 3 * i, 3);
+      rgba[4 * i + 3] = 255;
+    }
+  free(rgb);
+  if (!rgba) {
+    *status = -1;
+    if (why) *why = "out of memory";
   }
-  png_init_io(png, f);
-  png_read_info(png, info);
-  png_set_expand(png);
-  png_set_strip_16(png);
-  png_set_strip_alpha(png);
-  png_set_gray_to_rgb(png);
-  png_read_update_info(png, info);
-  *w = png_get_image_width(png, info);
-  *h = png_get_image_height(png, info);
-  uint8_t* out = (uint8_t*)malloc((size_t)(*w) * (*h) * 3);
-  std::vector<png_bytep> rows(*h);
-  for (int y = 0; y < *h; y++) rows[y] = out + (size_t)y * (*w) * 3;
-  png_read_image(png, rows.data());
-  png_destroy_read_struct(&png, &info, nullptr);
-  fclose(f);
-  return out;
+  return rgba;
 }
 
-#else
-static uint8_t* decode_png(const char*, int*, int*) { return nullptr; }
-#endif
-
-// Bilinear resize RGB8.
-static void resize_rgb(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh) {
+// Bilinear resize of c-channel 8-bit images.
+static void resize(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw, int dh, int c) {
   for (int y = 0; y < dh; y++) {
     float fy = (y + 0.5f) * sh / dh - 0.5f;
     int y0 = fy < 0 ? 0 : (int)fy;
@@ -280,20 +256,20 @@ static void resize_rgb(const uint8_t* src, int sw, int sh, uint8_t* dst, int dw,
       int x1 = x0 + 1 < sw ? x0 + 1 : sw - 1;
       float wx = fx - x0;
       if (wx < 0) wx = 0;
-      for (int c = 0; c < 3; c++) {
-        float a = src[(y0 * (size_t)sw + x0) * 3 + c] * (1 - wx) + src[(y0 * (size_t)sw + x1) * 3 + c] * wx;
-        float b = src[(y1 * (size_t)sw + x0) * 3 + c] * (1 - wx) + src[(y1 * (size_t)sw + x1) * 3 + c] * wx;
-        dst[(y * (size_t)dw + x) * 3 + c] = (uint8_t)(a * (1 - wy) + b * wy + 0.5f);
+      for (int k = 0; k < c; k++) {
+        float a = src[(y0 * (size_t)sw + x0) * c + k] * (1 - wx) + src[(y0 * (size_t)sw + x1) * c + k] * wx;
+        float b = src[(y1 * (size_t)sw + x0) * c + k] * (1 - wx) + src[(y1 * (size_t)sw + x1) * c + k] * wx;
+        dst[(y * (size_t)dw + x) * c + k] = (uint8_t)(a * (1 - wy) + b * wy + 0.5f);
       }
     }
   }
 }
 
-// Load n images (JPEG/PNG by extension) into one [n, out_h, out_w, 3] u8
-// buffer with a thread pool. paths = '\n'-joined. Returns 0 and per-image
-// status (0 ok; a JPEG's jpeg.cpp status, -1 otherwise) in status_out.
-int gt_load_images(const char* paths, int n, int out_w, int out_h, int threads,
-                   uint8_t* dst, int32_t* status_out) {
+// Load n images (JPEG/PNG by extension) into one [n, out_h, out_w, channels]
+// u8 buffer with a thread pool. paths = '\n'-joined. Returns 0 and per-image
+// status (0 ok; else the decoder's status) in status_out.
+static int load_images(const char* paths, int n, int out_w, int out_h, int threads, int channels, uint8_t* dst,
+                       int32_t* status_out) {
   std::vector<std::string> files;
   {
     const char* p = paths;
@@ -304,24 +280,20 @@ int gt_load_images(const char* paths, int n, int out_w, int out_h, int threads,
       p = e + 1;
     }
   }
-  if ((int)files.size() != n) return -1;
+  if ((int)files.size() != n || (channels != 3 && channels != 4)) return -1;
   std::atomic<int> next(0);
-  size_t stride = (size_t)out_w * out_h * 3;
+  size_t stride = (size_t)out_w * out_h * channels;
   auto worker = [&]() {
     for (;;) {
       int i = next.fetch_add(1);
       if (i >= n) return;
-      const std::string& p = files[i];
-      int w = 0, h = 0;
-      uint8_t* buf = nullptr;
-      int status = -1;
-      bool is_png = p.size() > 4 && strcasecmp(p.c_str() + p.size() - 4, ".png") == 0;
-      buf = is_png ? decode_png(p.c_str(), &w, &h) : decode_jpeg(p.c_str(), &w, &h, &status);
+      int w = 0, h = 0, status = -1;
+      uint8_t* buf = decode_image(files[i].c_str(), channels, &w, &h, &status);
       if (!buf) { status_out[i] = status; continue; }
       if (w == out_w && h == out_h) {
         memcpy(dst + i * stride, buf, stride);
       } else {
-        resize_rgb(buf, w, h, dst + i * stride, out_w, out_h);
+        resize(buf, w, h, dst + i * stride, out_w, out_h, channels);
       }
       free(buf);
       status_out[i] = 0;
@@ -329,17 +301,27 @@ int gt_load_images(const char* paths, int n, int out_w, int out_h, int threads,
   };
   int nt = threads > 0 ? threads : (int)std::thread::hardware_concurrency();
   if (nt < 1) nt = 1;
+  if (nt > n) nt = n > 0 ? n : 1;
   std::vector<std::thread> pool;
   for (int t = 0; t < nt; t++) pool.emplace_back(worker);
   for (auto& t : pool) t.join();
   return 0;
 }
 
+// RGB, as the JAX tier's libpng/libjpeg path gives it (an RGBA PNG loses its alpha).
+int gt_load_images(const char* paths, int n, int out_w, int out_h, int threads, uint8_t* dst, int32_t* status_out) {
+  return load_images(paths, n, out_w, out_h, threads, 3, dst, status_out);
+}
+
+// RGBA, as Pillow's Image.open(p).convert("RGBA") gives it.
+int gt_load_images_rgba(const char* paths, int n, int out_w, int out_h, int threads, uint8_t* dst,
+                        int32_t* status_out) {
+  return load_images(paths, n, out_w, out_h, threads, 4, dst, status_out);
+}
+
 // Probe an image's dimensions without full decode (JPEG header / PNG IHDR).
 int gt_image_size(const char* path, int* w, int* h) {
-  size_t len = strlen(path);
-  bool is_png = len > 4 && strcasecmp(path + len - 4, ".png") == 0;
-  if (is_png) {
+  if (is_png(path)) {
     FILE* f = fopen(path, "rb");
     if (!f) return -1;
     uint8_t hdr[26];
@@ -361,13 +343,13 @@ int gt_image_size(const char* path, int* w, int* h) {
   return gt_jpeg_size(buf.data(), buf.size(), w, h) == 0 ? 0 : -3;
 }
 
-// Why a JPEG does not decode: writes the reason into msg (at most len
-// bytes, "" when it decodes) and returns its jpeg.cpp status (0 when it
+// Why an image does not decode: writes the reason into msg (at most len
+// bytes, "" when it decodes) and returns its decoder's status (0 when it
 // decodes).
 int gt_image_error(const char* path, char* msg, int len) {
   int w = 0, h = 0, status = 0;
   std::string why;
-  uint8_t* out = decode_jpeg(path, &w, &h, &status, &why);
+  uint8_t* out = decode_image(path, 3, &w, &h, &status, &why);
   free(out);
   snprintf(msg, (size_t)len, "%s", why.c_str());
   return status;

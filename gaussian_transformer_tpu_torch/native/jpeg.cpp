@@ -2,32 +2,49 @@
 //
 // It replaces libjpeg in the tier, so that a JPEG decodes wherever g++ is
 // (the H100's machine has no jpeglib.h), and it decodes the same bits as
-// libjpeg-turbo with the settings the JAX package's tier and Pillow use:
-// out_color_space RGB, the islow integer IDCT, fancy upsampling, block
+// libjpeg-turbo 2.1.5 with the settings the JAX package's tier and Pillow
+// use: out_color_space RGB, the islow integer IDCT, fancy upsampling, block
 // smoothing on. Each stage follows the libjpeg-turbo source it names:
 //   * markers (jdmarker.c): SOI, APPn (JFIF in APP0, Adobe in APP14), COM,
-//     DQT (8- and 16-bit), DHT, DRI, SOF0/SOF1/SOF2, SOS, EOI, RSTn;
+//     DQT (8- and 16-bit), DHT, DAC, DRI, SOF0/1/2 and SOF9/10, SOS, EOI,
+//     RSTn;
 //   * Huffman decoding, sequential (jdhuff.c) and progressive (jdphuff.c:
 //     DC first/refine, AC first/refine with EOB runs and correction bits),
 //     into one coefficient buffer per component; restart markers reset the
 //     DC predictors and the EOB run; data cut short reads as zero bits
 //     and leaves every later block of the scan zero, as libjpeg does
-//     ("Premature end of JPEG file" is a warning there, not an error);
-//   * dequantisation and the islow IDCT (jidctint.c) with its range limit
-//     and wrap mask (jdmaster.c prepare_range_limit_table);
-//   * fancy upsampling (jdsample.c: h2v1 and h2v2 triangles with their
-//     biases, plain replication for chroma 2 samples wide or less, edge rows
-//     and columns repeated as jdmainct.c repeats them);
+//     ("Premature end of JPEG file" is a warning there, not an error); a
+//     Huffman slot that a sequential scan uses and no DHT defined takes
+//     Annex K's table (jstdhuff.c, as jdhuff.c applies it: slots 0 and 1;
+//     jdphuff.c does not, so a progressive file still needs its DHTs);
+//   * arithmetic decoding (jdarith.c, jaricom.c), sequential and
+//     progressive, with DAC conditioning and restarts;
+//   * block smoothing of a progressive file whose scans stop before its
+//     low AC coefficients are final (jdcoefct.c smoothing_ok and
+//     decompress_smooth_data, libjpeg-turbo 2.1's 5x5 form with DC
+//     interpolation, each iMCU row with the bits of the scan that last
+//     reached it; libjpeg-turbo 3.1 smooths a cut 4:2:0 file a level or a
+//     few apart from 2.1.5, and this follows 2.1.5, the JAX tier's);
+//   * dequantisation and the islow IDCT (jidctint.c), in the arithmetic of
+//     libjpeg-turbo's x86-64 SIMD version, which the references run (it
+//     differs from jidctint.c's range limit on the extreme coefficients of
+//     a corrupt block);
+//   * upsampling (jdsample.c, as jinit_upsampler picks it with fancy
+//     upsampling on): h2v1 and h2v2 triangles with their biases for
+//     components over 2 samples wide, h1v2_fancy_upsample, and replication
+//     (int_upsample) for every other integral ratio, h, v in 1..4 per
+//     component and at most 10 blocks in an MCU; edge rows and columns
+//     repeated as jdmainct.c repeats them;
 //   * YCbCr->RGB with 16-bit fixed-point tables (jdcolor.c); RGB where an
 //     Adobe marker says transform 0 or the component ids spell "RGB";
 //     grayscale replicated to three channels.
-// What it does not decode returns a status of its own (see Status) and a
-// message naming the feature: arithmetic coding, precision other than 8,
-// lossless and hierarchical frames, 2 or 4 components, sampling factors
-// other than luma h, v in {1, 2} over 1x1 chroma, and a progressive file
-// whose AC scans stop early enough that libjpeg would smooth its blocks.
+// What libjpeg-turbo 2.1.5 refuses it refuses too, with a status of its own
+// (see Status) and a message naming the feature: precision other than 8,
+// lossless and hierarchical frames, 2 or 4 components, and sampling whose
+// ratio to the largest factor is fractional. (Pillow's libjpeg-turbo 3
+// decodes 8-bit lossless files; the tier follows the JAX tier's 2.1.5.)
 //
-// Bounds: Huffman decoding is serial within a scan (one bit stream), so a
+// Bounds: entropy decoding is serial within a scan (one bit stream), so a
 // file decodes on one thread; the thread pool in gt_native.cpp decodes
 // files in parallel. The IDCT, the upsampling and the colour conversion
 // are integer operations on every sample, bound by the host's operations,
@@ -55,13 +72,11 @@ enum Status {
   kOk = 0,
   kUnreadable = -1,
   kCorrupt = -2,
-  kArithmetic = -3,
   kPrecision = -4,
   kLossless = -5,
   kHierarchical = -6,
   kComponents = -7,
   kSampling = -8,
-  kSmoothing = -9,
 };
 
 struct Failure {
@@ -87,7 +102,52 @@ struct Huff {
   uint16_t look[1 << kLook];
 };
 
-void derive(const HuffSpec& spec, bool dc, int index, Huff& t) {
+// jstdhuff.c: Annex K's tables (K.3), which jdhuff.c takes for slots 0
+// and 1 when no DHT defined them.
+const uint8_t kStdBits[4][17] = {
+    {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},      // DC luminance
+    {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0},      // DC chrominance
+    {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},   // AC luminance
+    {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};  // AC chrominance
+const uint8_t kStdDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kStdAcLuma[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22, 0x71,
+    0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37,
+    0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kStdAcChroma[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71, 0x13, 0x22,
+    0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36,
+    0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+HuffSpec standard_table(bool dc, int index) {
+  HuffSpec s;
+  s.defined = true;
+  memcpy(s.bits, kStdBits[(dc ? 0 : 2) + index], 17);
+  if (dc)
+    memcpy(s.vals, kStdDcVals, 12);
+  else
+    memcpy(s.vals, index ? kStdAcChroma : kStdAcLuma, 162);
+  return s;
+}
+
+// `standard`: a sequential scan, whose decoder (jdhuff.c jinit_huff_decoder)
+// installs Annex K's tables in slots 0 and 1 that no DHT defined; the
+// progressive decoder (jdphuff.c) does not.
+void derive(HuffSpec& spec, bool dc, int index, Huff& t, bool standard) {
+  if (index > 3) fail(kCorrupt, "Huffman table index " + std::to_string(index));
+  if (!spec.defined && standard && index < 2) spec = standard_table(dc, index);
   if (!spec.defined)
     fail(kCorrupt, std::string(dc ? "DC" : "AC") + " Huffman table " + std::to_string(index) + " is not defined");
   char size[257];
@@ -146,16 +206,18 @@ struct Reader {
   int marker = 0;      // libjpeg's unread_marker
   bool short_data = false;
 
-  int byte() { return p < end ? *p++ : -1; }
+  // Past the end of the file, libjpeg's source manager supplies a fake EOI
+  // at each refill: the bytes read FF D9 FF D9 ... (a marker segment cut
+  // short reads them as its data, as libjpeg reads them).
+  size_t fake = 0;
+  int byte() { return p < end ? *p++ : (fake++ % 2 ? 0xD9 : 0xFF); }
 
   void fill(int need) {  // jpeg_fill_bit_buffer
     if (marker == 0) {
       while (n < 57) {
         int c = byte();
-        if (c < 0) { marker = 0xD9; break; }
         if (c == 0xFF) {
           do c = byte(); while (c == 0xFF);
-          if (c < 0) { marker = 0xD9; break; }
           if (c != 0) { marker = c; break; }
           c = 0xFF;
         }
@@ -207,9 +269,8 @@ struct Reader {
   void next_marker() {
     for (;;) {
       int c = byte();
-      while (c >= 0 && c != 0xFF) c = byte();
+      while (c != 0xFF) c = byte();
       do c = byte(); while (c == 0xFF);
-      if (c < 0) { marker = 0xD9; return; }
       if (c != 0) { marker = c; return; }
     }
   }
@@ -226,6 +287,7 @@ struct Component {
   bool latched = false;
   int16_t q[64];       // the quantisation table latched at the first scan
   int coef_bits[64];   // progressive: the last Al of each coefficient, -1 before any scan
+  int prev_bits[10];   // coef_bits[0..9] before the component's last scan (libjpeg-turbo 2.1)
   std::vector<int16_t> coef;
   int16_t* block(int by, int bx) { return coef.data() + ((size_t)by * bw + bx) * 64; }
 };
@@ -239,24 +301,25 @@ struct Decoder {
   uint16_t qt[4][64];
   bool qt_defined[4] = {};
   HuffSpec dc_spec[4], ac_spec[4];
+  uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];  // DAC conditioning (jdmarker.c defaults)
   int restart_interval = 0;
-  bool have_sof = false, progressive = false;
+  bool have_sof = false, progressive = false, arith = false;
   int width = 0, height = 0, hmax = 1, vmax = 1;
+  int scans = 0;             // cinfo->input_scan_number
+  int imcu_rows = 0;         // cinfo->total_iMCU_rows
+  int last_good_imcu = 0;    // master->last_good_iMCU_row: the last iMCU row a scan read whole
   std::vector<Component> comps;
 
-  Decoder(const uint8_t* d, size_t n) : data(d), size(n) { in.p = d; in.end = d + n; }
-
-  int u8() {
-    int c = in.byte();
-    if (c < 0) fail(kCorrupt, "the file ends inside a marker segment");
-    return c;
+  Decoder(const uint8_t* d, size_t n) : data(d), size(n) {
+    in.p = d;
+    in.end = d + n;
+    memset(arith_dc_L, 0, sizeof arith_dc_L);
+    memset(arith_dc_U, 1, sizeof arith_dc_U);
+    memset(arith_ac_K, 5, sizeof arith_ac_K);
   }
+
+  int u8() { return in.byte(); }
   int u16() { int a = u8(); return (a << 8) | u8(); }
-
-  void skip(int n) {
-    if ((size_t)(in.end - in.p) < (size_t)n) fail(kCorrupt, "the file ends inside a marker segment");
-    in.p += n;
-  }
 
   // The next marker's code: the first must be SOI.
   int read_marker() {
@@ -286,10 +349,10 @@ struct Decoder {
     if (m == 0xC3 || m == 0xCB) fail(kLossless, "lossless JPEG (SOF" + std::to_string(m - 0xC0) + ")");
     if ((m >= 0xC5 && m <= 0xC7) || (m >= 0xCD && m <= 0xCF))
       fail(kHierarchical, "hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ")");
-    if (m >= 0xC9) fail(kArithmetic, "arithmetic coding (SOF" + std::to_string(m - 0xC0) + ")");
     if (precision != 8) fail(kPrecision, std::to_string(precision) + "-bit samples");
     if (width <= 0 || height <= 0) fail(kCorrupt, "an image of size 0 (or a DNL height)");
-    progressive = m == 0xC2;
+    progressive = m == 0xC2 || m == 0xCA;
+    arith = m >= 0xC9;
     if (nc != 1 && nc != 3)
       fail(kComponents, std::to_string(nc) + " components" + (nc == 4 ? " (CMYK/YCCK)" : ""));
     std::string factors;
@@ -299,17 +362,10 @@ struct Decoder {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    if (nc == 3) {
-      const Component& y = comps[0];
-      bool ok = y.h == hmax && y.v == vmax;
-      for (int i = 1; i < 3; i++) {
-        int rh = hmax / comps[i].h, rv = vmax / comps[i].v;
-        ok = ok && hmax % comps[i].h == 0 && vmax % comps[i].v == 0 && rh <= 2 && rv <= 2 && rh >= rv &&
-             comps[i].h == comps[1].h && comps[i].v == comps[1].v;
-      }
-      if (!ok) fail(kSampling, "sampling factors " + factors + " (the decoder takes luma h, v in {1, 2} "
-                                                          "over 1x1 chroma: 4:4:4, 4:2:2, 4:2:0)");
-    }
+    for (auto& c : comps)  // jdsample.c jinit_upsampler: JERR_FRACT_SAMPLE_NOTIMPL
+      if (hmax % c.h || vmax % c.v)
+        fail(kSampling, "sampling factors " + factors + " (a fractional upsampling ratio, which libjpeg refuses)");
+    imcu_rows = (height + 8 * vmax - 1) / (8 * vmax);
     for (auto& c : comps) {
       c.wib = (int)(((long)width * c.h + 8L * hmax - 1) / (8L * hmax));
       c.hib = (int)(((long)height * c.v + 8L * vmax - 1) / (8L * vmax));
@@ -318,7 +374,25 @@ struct Decoder {
       c.bw = (c.wib + c.h - 1) / c.h * c.h;
       c.bh = (c.hib + c.v - 1) / c.v * c.v;
       for (int& b : c.coef_bits) b = -1;
+      for (int& b : c.prev_bits) b = -1;
     }
+  }
+
+  void dac() {  // jdmarker.c get_dac
+    int len = u16() - 2;
+    while (len > 0) {
+      int index = u8(), val = u8();
+      len -= 2;
+      if (index >= 32) fail(kCorrupt, "bad DAC table index");
+      if (index >= 16) {
+        arith_ac_K[index - 16] = (uint8_t)val;
+      } else {
+        arith_dc_L[index] = (uint8_t)(val & 15);
+        arith_dc_U[index] = (uint8_t)(val >> 4);
+        if (arith_dc_L[index] > arith_dc_U[index]) fail(kCorrupt, "bad DAC value");
+      }
+    }
+    if (len != 0) fail(kCorrupt, "bad DAC length");
   }
 
   void dqt() {
@@ -353,13 +427,14 @@ struct Decoder {
     if (len != 0) fail(kCorrupt, "bad DHT length");
   }
 
-  void app(int m) {
+  void app(int m) {  // jdmarker.c get_interesting_appn / skip_variable
     int len = u16() - 2;
-    if (len < 0) fail(kCorrupt, "bad marker length");
-    const uint8_t* d = in.p;
-    skip(len);
-    if (m == 0xE0 && len >= 14 && memcmp(d, "JFIF\0", 5) == 0) saw_jfif = true;
-    if (m == 0xEE && len >= 12 && memcmp(d, "Adobe", 5) == 0) {
+    uint8_t d[14];
+    int n = len < 0 ? 0 : len < 14 ? len : 14;
+    for (int i = 0; i < n; i++) d[i] = (uint8_t)u8();
+    for (int i = n; i < len; i++) u8();
+    if (m == 0xE0 && n >= 14 && memcmp(d, "JFIF\0", 5) == 0) saw_jfif = true;
+    if (m == 0xEE && n >= 12 && memcmp(d, "Adobe", 5) == 0) {
       saw_adobe = true;
       adobe_transform = d[11];
     }
@@ -382,10 +457,10 @@ struct Decoder {
       sc[i] = &comps[ci];
       sc[i]->dc_tbl = tbl >> 4;
       sc[i]->ac_tbl = tbl & 15;
-      if (sc[i]->dc_tbl > 3 || sc[i]->ac_tbl > 3) fail(kCorrupt, "bad Huffman table index");
     }
     int ss = u8(), se = u8(), a = u8();
     int ah = a >> 4, al = a & 15;
+    scans++;
     for (Component* c : sc) {  // jdinput.c latch_quant_tables
       if (c->latched) continue;
       if (!qt_defined[c->tq]) fail(kCorrupt, "quantisation table " + std::to_string(c->tq) + " is not defined");
@@ -396,7 +471,20 @@ struct Decoder {
     in.buf = 0;
     in.n = 0;
     in.short_data = false;
-    if (progressive)
+    if (progressive) {
+      bool dc = ss == 0;
+      bool bad = dc ? se != 0 : (ss > se || se > 63 || sc.size() != 1);
+      if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+      if (bad) fail(kCorrupt, "bad progressive scan parameters");
+      for (Component* c : sc) {  // jdphuff.c start_pass_phuff_decoder's coef_bits and prev_coef_bits
+        for (int k = std::min(ss, 1); k <= std::max(se, 9); k++)
+          if (k < 10) c->prev_bits[k] = scans > 1 ? c->coef_bits[k] : 0;
+        for (int k = ss; k <= se; k++) c->coef_bits[k] = al;
+      }
+    }
+    if (arith)
+      arith_scan(sc, ss, se, ah, al);
+    else if (progressive)
       progressive_scan(sc, ss, se, ah, al);
     else
       sequential_scan(sc);
@@ -436,10 +524,27 @@ struct Decoder {
     return c->block(my * c->v + k.dy, mx * c->h + k.dx);
   }
 
+  // jdcoefct.c consume_data: as an iMCU row of a scan begins, it becomes
+  // the last good row unless the scan's data has run out
+  // (insufficient_data); the row in which the data ends counts as good. An
+  // interleaved scan's MCU row is an iMCU row; a one-component scan's iMCU
+  // row is v of its block rows.
+  void mcu_row_start(const std::vector<Component*>& sc, int my) {
+    int v = sc.size() > 1 ? 1 : sc[0]->v;
+    if (my % v == 0 && !in.short_data) last_good_imcu = my / v;
+  }
+
   // jdhuff.c/jdphuff.c process_restart and jdmarker.c read_restart_marker.
   int next_restart = 0;
   void restart(int* last_dc, int ndc, int* eobrun) {
     in.n = 0;
+    read_restart_marker();
+    for (int i = 0; i < ndc; i++) last_dc[i] = 0;
+    if (eobrun) *eobrun = 0;
+    if (in.marker == 0) in.short_data = false;
+  }
+
+  void read_restart_marker() {
     if (in.marker == 0) in.next_marker();
     if (in.marker == 0xD0 + next_restart) {
       in.marker = 0;
@@ -457,16 +562,13 @@ struct Decoder {
       }
     }
     next_restart = (next_restart + 1) & 7;
-    for (int i = 0; i < ndc; i++) last_dc[i] = 0;
-    if (eobrun) *eobrun = 0;
-    if (in.marker == 0) in.short_data = false;
   }
 
   void sequential_scan(const std::vector<Component*>& sc) {
     Huff dct[4], act[4];
     for (size_t i = 0; i < sc.size(); i++) {
-      derive(dc_spec[sc[i]->dc_tbl], true, sc[i]->dc_tbl, dct[i]);
-      derive(ac_spec[sc[i]->ac_tbl], false, sc[i]->ac_tbl, act[i]);
+      derive(dc_spec[sc[i]->dc_tbl], true, sc[i]->dc_tbl, dct[i], true);
+      derive(ac_spec[sc[i]->ac_tbl], false, sc[i]->ac_tbl, act[i], true);
     }
     Layout lo = layout(sc);
     int last_dc[4] = {};
@@ -508,15 +610,10 @@ struct Decoder {
 
   void progressive_scan(const std::vector<Component*>& sc, int ss, int se, int ah, int al) {
     bool dc = ss == 0;
-    bool bad = dc ? se != 0 : (ss > se || se > 63 || sc.size() != 1);
-    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
-    if (bad) fail(kCorrupt, "bad progressive scan parameters");
-    for (Component* c : sc)
-      for (int k = ss; k <= se; k++) c->coef_bits[k] = al;
     Huff tbl[4];
     for (size_t i = 0; i < sc.size(); i++) {
-      if (dc && ah == 0) derive(dc_spec[sc[i]->dc_tbl], true, sc[i]->dc_tbl, tbl[i]);
-      if (!dc) derive(ac_spec[sc[i]->ac_tbl], false, sc[i]->ac_tbl, tbl[i]);
+      if (dc && ah == 0) derive(dc_spec[sc[i]->dc_tbl], true, sc[i]->dc_tbl, tbl[i], false);
+      if (!dc) derive(ac_spec[sc[i]->ac_tbl], false, sc[i]->ac_tbl, tbl[i], false);
     }
     Layout lo = layout(sc);
     int last_dc[4] = {};
@@ -525,6 +622,7 @@ struct Decoder {
     next_restart = 0;
     const int p1 = 1 << al, m1 = (int)(~0u << al);
     for (int my = 0; my < lo.mcus_y; my++) {
+      mcu_row_start(sc, my);
       for (int mx = 0; mx < lo.mcus_x; mx++) {
         if (restart_interval && togo == 0) {
           restart(last_dc, 4, &eobrun);
@@ -611,6 +709,250 @@ struct Decoder {
     }
   }
 
+  // ------------------------------------------------------ arithmetic ----
+
+  // jdarith.c's decoder state: C and A registers, the bit counter (-16 at a
+  // start, -1 after an error, which stops the scan's decoding), statistics
+  // bins per table.
+  int64_t ac_c = 0, ac_a = 0;
+  int ac_ct = -16;
+  uint8_t dc_stats[16][64], ac_stats[16][256], fixed_bin[4] = {113, 0, 0, 0};
+
+  int arith_byte() {  // arith_decode's data fetch: a marker supplies zeros from there on
+    if (in.marker) return 0;
+    int data = in.byte();
+    if (data == 0xFF) {
+      do data = in.byte(); while (data == 0xFF);
+      if (data == 0) return 0xFF;
+      in.marker = data;
+      return 0;
+    }
+    return data;
+  }
+
+  int arith_decode(uint8_t* st) {  // jdarith.c arith_decode, sections D.2.4-D.2.6
+    // jaricom.c jpeg_aritab: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS.
+#define V(i, qe, nlps, nmps, sw) (((int64_t)(qe) << 16) | ((int64_t)(nmps) << 8) | ((int64_t)(sw) << 7) | (nlps))
+    static const int64_t kAritab[114] = {
+        V(0, 0x5a1d, 1, 1, 1),     V(1, 0x2586, 14, 2, 0),    V(2, 0x1114, 16, 3, 0),    V(3, 0x080b, 18, 4, 0),
+        V(4, 0x03d8, 20, 5, 0),    V(5, 0x01da, 23, 6, 0),    V(6, 0x00e5, 25, 7, 0),    V(7, 0x006f, 28, 8, 0),
+        V(8, 0x0036, 30, 9, 0),    V(9, 0x001a, 33, 10, 0),   V(10, 0x000d, 35, 11, 0),  V(11, 0x0006, 9, 12, 0),
+        V(12, 0x0003, 10, 13, 0),  V(13, 0x0001, 12, 13, 0),  V(14, 0x5a7f, 15, 15, 1),  V(15, 0x3f25, 36, 16, 0),
+        V(16, 0x2cf2, 38, 17, 0),  V(17, 0x207c, 39, 18, 0),  V(18, 0x17b9, 40, 19, 0),  V(19, 0x1182, 42, 20, 0),
+        V(20, 0x0cef, 43, 21, 0),  V(21, 0x09a1, 45, 22, 0),  V(22, 0x072f, 46, 23, 0),  V(23, 0x055c, 48, 24, 0),
+        V(24, 0x0406, 49, 25, 0),  V(25, 0x0303, 51, 26, 0),  V(26, 0x0240, 52, 27, 0),  V(27, 0x01b1, 54, 28, 0),
+        V(28, 0x0144, 56, 29, 0),  V(29, 0x00f5, 57, 30, 0),  V(30, 0x00b7, 59, 31, 0),  V(31, 0x008a, 60, 32, 0),
+        V(32, 0x0068, 62, 33, 0),  V(33, 0x004e, 63, 34, 0),  V(34, 0x003b, 32, 35, 0),  V(35, 0x002c, 33, 9, 0),
+        V(36, 0x5ae1, 37, 37, 1),  V(37, 0x484c, 64, 38, 0),  V(38, 0x3a0d, 65, 39, 0),  V(39, 0x2ef1, 67, 40, 0),
+        V(40, 0x261f, 68, 41, 0),  V(41, 0x1f33, 69, 42, 0),  V(42, 0x19a8, 70, 43, 0),  V(43, 0x1518, 72, 44, 0),
+        V(44, 0x1177, 73, 45, 0),  V(45, 0x0e74, 74, 46, 0),  V(46, 0x0bfb, 75, 47, 0),  V(47, 0x09f8, 77, 48, 0),
+        V(48, 0x0861, 78, 49, 0),  V(49, 0x0706, 79, 50, 0),  V(50, 0x05cd, 48, 51, 0),  V(51, 0x04de, 50, 52, 0),
+        V(52, 0x040f, 50, 53, 0),  V(53, 0x0363, 51, 54, 0),  V(54, 0x02d4, 52, 55, 0),  V(55, 0x025c, 53, 56, 0),
+        V(56, 0x01f8, 54, 57, 0),  V(57, 0x01a4, 55, 58, 0),  V(58, 0x0160, 56, 59, 0),  V(59, 0x0125, 57, 60, 0),
+        V(60, 0x00f6, 58, 61, 0),  V(61, 0x00cb, 59, 62, 0),  V(62, 0x00ab, 61, 63, 0),  V(63, 0x008f, 61, 32, 0),
+        V(64, 0x5b12, 65, 65, 1),  V(65, 0x4d04, 80, 66, 0),  V(66, 0x412c, 81, 67, 0),  V(67, 0x37d8, 82, 68, 0),
+        V(68, 0x2fe8, 83, 69, 0),  V(69, 0x293c, 84, 70, 0),  V(70, 0x2379, 86, 71, 0),  V(71, 0x1edf, 87, 72, 0),
+        V(72, 0x1aa9, 87, 73, 0),  V(73, 0x174e, 72, 74, 0),  V(74, 0x1424, 72, 75, 0),  V(75, 0x119c, 74, 76, 0),
+        V(76, 0x0f6b, 74, 77, 0),  V(77, 0x0d51, 75, 78, 0),  V(78, 0x0bb6, 77, 79, 0),  V(79, 0x0a40, 77, 48, 0),
+        V(80, 0x5832, 80, 81, 1),  V(81, 0x4d1c, 88, 82, 0),  V(82, 0x438e, 89, 83, 0),  V(83, 0x3bdd, 90, 84, 0),
+        V(84, 0x34ee, 91, 85, 0),  V(85, 0x2eae, 92, 86, 0),  V(86, 0x299a, 93, 87, 0),  V(87, 0x2516, 86, 71, 0),
+        V(88, 0x5570, 88, 89, 1),  V(89, 0x4ca9, 95, 90, 0),  V(90, 0x44d9, 96, 91, 0),  V(91, 0x3e22, 97, 92, 0),
+        V(92, 0x3824, 99, 93, 0),  V(93, 0x32b4, 99, 94, 0),  V(94, 0x2e17, 93, 86, 0),  V(95, 0x56a8, 95, 96, 1),
+        V(96, 0x4f46, 101, 97, 0), V(97, 0x47e5, 102, 98, 0), V(98, 0x41cf, 103, 99, 0), V(99, 0x3c3d, 104, 100, 0),
+        V(100, 0x375e, 99, 93, 0), V(101, 0x5231, 105, 102, 0), V(102, 0x4c0f, 106, 103, 0),
+        V(103, 0x4639, 107, 104, 0), V(104, 0x415e, 103, 99, 0), V(105, 0x5627, 105, 106, 1),
+        V(106, 0x50e7, 108, 107, 0), V(107, 0x4b85, 109, 103, 0), V(108, 0x5597, 110, 109, 0),
+        V(109, 0x504f, 111, 107, 0), V(110, 0x5a10, 110, 111, 1), V(111, 0x5522, 112, 109, 0),
+        V(112, 0x59eb, 112, 111, 1), V(113, 0x5a1d, 113, 113, 0)};
+#undef V
+    while (ac_a < 0x8000) {
+      if (--ac_ct < 0) {
+        ac_c = (ac_c << 8) | arith_byte();
+        if ((ac_ct += 8) < 0)
+          if (++ac_ct == 0) ac_a = 0x8000;  // got 2 initial bytes: A = 0x10000 after the shift below
+      }
+      ac_a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    int nl = (int)(qe & 0xFF);
+    qe >>= 8;
+    int nm = (int)(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = ac_a - qe;
+    ac_a = temp;
+    temp <<= ac_ct;
+    if (ac_c >= temp) {
+      ac_c -= temp;
+      if (ac_a < qe) {
+        ac_a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        ac_a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (ac_a < 0x8000) {
+      if (ac_a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // jdarith.c start_pass / process_restart: the statistics a scan uses are
+  // zeroed, with the DC predictors and contexts, and the decoder restarts.
+  void arith_reset(const std::vector<Component*>& sc, int ss, int ah, int* last_dc, int* dc_context) {
+    for (size_t ci = 0; ci < sc.size(); ci++) {
+      if (!progressive || (ss == 0 && ah == 0)) {
+        memset(dc_stats[sc[ci]->dc_tbl], 0, 64);
+        last_dc[ci] = 0;
+        dc_context[ci] = 0;
+      }
+      if (!progressive || ss) memset(ac_stats[sc[ci]->ac_tbl], 0, 256);
+    }
+    ac_c = 0;
+    ac_a = 0;
+    ac_ct = -16;
+  }
+
+  // Section F.1.4.4.1: one DC difference, with its conditioning category.
+  bool arith_dc(Component* c, int ci, int* last_dc, int* dc_context) {
+    int tbl = c->dc_tbl;
+    uint8_t* st = dc_stats[tbl] + dc_context[ci];
+    if (arith_decode(st) == 0) {
+      dc_context[ci] = 0;
+      return true;
+    }
+    int sign = arith_decode(st + 1);  // Figures F.21-F.24: sign, magnitude category, bits
+    st += 2 + sign;
+    int m = arith_decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;  // X1 (Table F.4)
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+    if (m < (int)((1L << arith_dc_L[tbl]) >> 1))
+      dc_context[ci] = 0;
+    else if (m > (int)((1L << arith_dc_U[tbl]) >> 1))
+      dc_context[ci] = 12 + sign * 4;
+    else
+      dc_context[ci] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last_dc[ci] = (last_dc[ci] + v) & 0xFFFF;
+    return true;
+  }
+
+  void arith_scan(const std::vector<Component*>& sc, int ss, int se, int ah, int al) {
+    for (Component* c : sc)
+      if (c->dc_tbl > 15 || c->ac_tbl > 15) fail(kCorrupt, "bad arithmetic table index");
+    Layout lo = layout(sc);
+    int last_dc[4] = {}, dc_context[4] = {};
+    arith_reset(sc, ss, ah, last_dc, dc_context);
+    int togo = restart_interval;
+    next_restart = 0;
+    const int p1 = 1 << al, m1 = (int)(~0u << al);
+    for (int my = 0; my < lo.mcus_y; my++) {
+      mcu_row_start(sc, my);
+      for (int mx = 0; mx < lo.mcus_x; mx++) {
+        if (restart_interval) {
+          if (togo == 0) {
+            read_restart_marker();
+            arith_reset(sc, ss, ah, last_dc, dc_context);
+            togo = restart_interval;
+          }
+          togo--;
+        }
+        if (ac_ct == -1) continue;  // after an error libjpeg does nothing
+        if (!progressive || (ss == 0 && ah == 0)) {  // decode_mcu / decode_mcu_DC_first
+          for (size_t b = 0; b < lo.blocks.size(); b++) {
+            int ci = lo.blocks[b].comp;
+            Component* c = sc[ci];
+            if (!arith_dc(c, ci, last_dc, dc_context)) { ac_ct = -1; break; }
+            int16_t* blk = mcu_block(sc, lo, (int)b, mx, my);
+            blk[0] = progressive ? (int16_t)(int)((unsigned)last_dc[ci] << al) : (int16_t)last_dc[ci];
+            if (!progressive && !arith_ac_first(c->ac_tbl, blk, 1, 63, 0)) { ac_ct = -1; break; }
+          }
+        } else if (ss == 0) {  // decode_mcu_DC_refine
+          for (size_t b = 0; b < lo.blocks.size(); b++)
+            if (arith_decode(fixed_bin)) mcu_block(sc, lo, (int)b, mx, my)[0] |= (int16_t)p1;
+        } else if (ah == 0) {  // decode_mcu_AC_first
+          if (!arith_ac_first(sc[0]->ac_tbl, mcu_block(sc, lo, 0, mx, my), ss, se, al)) ac_ct = -1;
+        } else {  // decode_mcu_AC_refine
+          if (!arith_ac_refine(sc[0]->ac_tbl, mcu_block(sc, lo, 0, mx, my), ss, se, p1, m1)) ac_ct = -1;
+        }
+      }
+    }
+  }
+
+  // Figure F.20 (decode_mcu's AC loop and decode_mcu_AC_first).
+  bool arith_ac_first(int tbl, int16_t* blk, int ss, int se, int al) {
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (arith_decode(st)) break;  // EOB
+      while (arith_decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) return false;  // spectral overflow
+      }
+      int sign = arith_decode(fixed_bin);
+      st += 2;
+      int m = arith_decode(st);
+      if (m != 0) {
+        if (arith_decode(st)) {
+          m <<= 1;
+          st = ac_stats[tbl] + (k <= arith_ac_K[tbl] ? 189 : 217);
+          while (arith_decode(st)) {
+            if ((m <<= 1) == 0x8000) return false;  // magnitude overflow
+            st += 1;
+          }
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (arith_decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = (int16_t)(int)((unsigned)v << al);
+    }
+    return true;
+  }
+
+  bool arith_ac_refine(int tbl, int16_t* blk, int ss, int se, int p1, int m1) {
+    int kex = se;  // EOBx: the previous stage's end of block
+    for (; kex > 0; kex--)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex)
+        if (arith_decode(st)) break;  // EOB
+      for (;;) {
+        int16_t& c = blk[kNatural[k]];
+        if (c) {  // previously nonzero
+          if (arith_decode(st + 2)) c = (int16_t)(c + (c < 0 ? m1 : p1));
+          break;
+        }
+        if (arith_decode(st + 1)) {  // newly nonzero
+          c = (int16_t)(arith_decode(fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) return false;  // spectral overflow
+      }
+    }
+    return true;
+  }
+
   void parse() {
     if (size < 2 || data[0] != 0xFF || data[1] != 0xD8) fail(kCorrupt, "not a JPEG file (no SOI)");
     in.p = data + 2;
@@ -621,7 +963,7 @@ struct Decoder {
       } else if (m == 0xC4) {
         dht();
       } else if (m == 0xCC) {
-        fail(kArithmetic, "arithmetic coding (DAC)");
+        dac();
       } else if (m == 0xDB) {
         dqt();
       } else if (m == 0xDD) {
@@ -640,155 +982,258 @@ struct Decoder {
       }
     }
     if (!have_sof) fail(kCorrupt, "no SOF marker");
+    if (scans == 0) fail(kCorrupt, "no SOS marker (the file ends before its first scan)");  // JERR_SOF_NO_SOS
+    // A component no scan reached (a file cut short) has no quantisation
+    // table latched: libjpeg's IDCT multipliers stay zero, and it decodes
+    // to mid-gray. No smoothing then either (smoothing_ok).
     for (auto& c : comps)
-      if (!c.latched) fail(kCorrupt, "a component appears in no scan");
-    if (progressive) check_smoothing();
+      if (!c.latched) {
+        memset(c.q, 0, sizeof c.q);
+        c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      }
   }
 
-  // jdcoefct.c smoothing_ok: libjpeg-turbo smooths a progressive image whose
-  // first 10 coefficients (zigzag 0-9) are not all final, once every DC is
-  // known in part. The decoder does not smooth, so it refuses such a file
-  // (in practice one cut short before its last AC scans began).
-  void check_smoothing() {
-    static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+  // jdcoefct.c smoothing_ok (libjpeg-turbo 2.1): smooth a progressive image
+  // whose first 10 coefficients (zigzag 0-9) are not all final, once every
+  // DC is known in part and no quantiser of those 10 is zero.
+  bool smoothing_ok() const {
+    if (!progressive) return false;
     bool useful = false;
     for (auto& c : comps) {
-      for (int p : kPos)
-        if (c.q[p] == 0) return;
-      if (c.coef_bits[0] < 0) return;
+      for (int k = 0; k < 10; k++)
+        if (c.q[kNatural[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
       for (int k = 1; k < 10; k++) useful = useful || c.coef_bits[k] != 0;
     }
-    if (useful)
-      fail(kSmoothing, "a progressive JPEG whose scans stop before its AC coefficients are final "
-                       "(libjpeg's block smoothing is not implemented)");
+    return useful;
   }
+
+  void smooth_component(Component& c, uint8_t* plane, int stride);
 
   // ------------------------------------------------------------ output ----
 
-  static void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride, const uint8_t* limit);
+  static void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride);
   void output(uint8_t* rgb);
 };
 
-// jidctint.c jpeg_idct_islow, in the same integer steps.
+// The islow IDCT as libjpeg-turbo's x86-64 SIMD version computes it
+// (jidctint-avx2.asm / jidctint-sse2.asm, which the JAX tier's and
+// Pillow's libjpeg-turbo run): jidctint.c's integer steps, with the
+// products paired as pmaddwd pairs them, and the SIMD's 16- and 32-bit
+// arithmetic. On coefficients in range it equals jidctint.c bit for bit;
+// on the extreme ones of a corrupt or cut-short block it wraps and
+// saturates as the SIMD does (dequantisation in 16 bits, 16-bit sums
+// before the multiplies, a saturated 16-bit workspace, 32-bit sums, a
+// saturated 8-bit output), where jidctint.c's range limit would wrap.
 constexpr int kConstBits = 13, kPass1Bits = 2;
-constexpr int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373, F1175 = 9633,
+constexpr int32_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373, F1175 = 9633,
                   F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
 
-inline int64_t descale(int64_t x, int n) { return (x + ((int64_t)1 << (n - 1))) >> n; }
+inline int32_t add32(int32_t a, int32_t b) { return (int32_t)((uint32_t)a + (uint32_t)b); }
+inline int32_t sub32(int32_t a, int32_t b) { return (int32_t)((uint32_t)a - (uint32_t)b); }
+inline int32_t wrap16(int32_t x) { return (int16_t)(uint16_t)(uint32_t)x; }
+inline int32_t sat16(int32_t x) { return x < -32768 ? -32768 : x > 32767 ? 32767 : x; }
+inline int32_t descale32(int32_t x, int n) { return add32(x, 1 << (n - 1)) >> n; }
 
-void Decoder::idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride, const uint8_t* limit) {
-  int ws[64];
-  for (int c = 0; c < 8; c++) {
-    const int16_t* col = in + c;
-    const int16_t* qc = q + c;
-    int* w = ws + c;
-    if (col[8] == 0 && col[16] == 0 && col[24] == 0 && col[32] == 0 && col[40] == 0 && col[48] == 0 &&
-        col[56] == 0) {
-      int dcval = (int)((unsigned)(col[0] * qc[0]) << kPass1Bits);
-      for (int r = 0; r < 8; r++) w[8 * r] = dcval;
-      continue;
+// One 8-point pass over in[0], in[step], ..., in[7 * step] (16-bit values),
+// out[0..7] before the descale.
+template <typename T>
+inline __attribute__((always_inline)) void idct8(const T* in, int step, int32_t* out) {
+  const int32_t z2 = in[2 * step], z3 = in[6 * step];
+  const int32_t tmp3 = z2 * (F0541 + F0765) + z3 * F0541;
+  const int32_t tmp2 = z2 * F0541 + z3 * (F0541 - F1847);
+  const int32_t tmp0 = (int32_t)((uint32_t)wrap16(in[0] + in[4 * step]) << kConstBits);
+  const int32_t tmp1 = (int32_t)((uint32_t)wrap16(in[0] - in[4 * step]) << kConstBits);
+  const int32_t tmp10 = add32(tmp0, tmp3), tmp13 = sub32(tmp0, tmp3), tmp11 = add32(tmp1, tmp2),
+                tmp12 = sub32(tmp1, tmp2);
+  const int32_t i7 = in[7 * step], i5 = in[5 * step], i3 = in[3 * step], i1 = in[step];
+  const int32_t z3o = wrap16(i7 + i3), z4o = wrap16(i5 + i1);
+  const int32_t zz3 = z3o * (F1175 - F1961) + z4o * F1175;
+  const int32_t zz4 = z3o * F1175 + z4o * (F1175 - F0390);
+  const int32_t t0 = add32(i7 * (F0298 - F0899) + i1 * -F0899, zz3);
+  const int32_t t3 = add32(i7 * -F0899 + i1 * (F1501 - F0899), zz4);
+  const int32_t t1 = add32(i5 * (F2053 - F2562) + i3 * -F2562, zz4);
+  const int32_t t2 = add32(i5 * -F2562 + i3 * (F3072 - F2562), zz3);
+  out[0] = add32(tmp10, t3);
+  out[7] = sub32(tmp10, t3);
+  out[1] = add32(tmp11, t2);
+  out[6] = sub32(tmp11, t2);
+  out[2] = add32(tmp12, t1);
+  out[5] = sub32(tmp12, t1);
+  out[3] = add32(tmp13, t0);
+  out[4] = sub32(tmp13, t0);
+}
+
+// packssdw then packsswb (the 16-bit saturation is inside the 8-bit one),
+// then + 128.
+inline uint8_t to_sample(int32_t x) {
+  int32_t v = descale32(x, kConstBits + kPass1Bits + 3);
+  return (uint8_t)((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+}
+
+// A column or row whose AC inputs are all zero takes the value the full
+// pass gives it, without the pass (as jidctint.c does, with the SIMD's
+// saturation): the shortcuts change no bit.
+void Decoder::idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+  int ac = 0;
+  for (int k = 8; k < 64; k++) ac |= in[k];
+  int16_t ws[64];
+  int32_t o[8];
+  if (!ac) {  // the SIMD's test: every coefficient of rows 1-7 zero; psllw wraps
+    for (int c = 0; c < 8; c++) {
+      int16_t dc = (int16_t)wrap16(wrap16(in[c] * q[c]) * (1 << kPass1Bits));
+      for (int r = 0; r < 8; r++) ws[8 * r + c] = dc;
     }
-    int64_t z2 = col[16] * qc[16], z3 = col[48] * qc[48];
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * -F1847;
-    int64_t tmp3 = z1 + z2 * F0765;
-    z2 = col[0] * qc[0];
-    z3 = col[32] * qc[32];
-    int64_t tmp0 = (z2 + z3) * (1 << kConstBits);
-    int64_t tmp1 = (z2 - z3) * (1 << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = col[56] * qc[56];
-    tmp1 = col[40] * qc[40];
-    tmp2 = col[24] * qc[24];
-    tmp3 = col[8] * qc[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298;
-    tmp1 *= F2053;
-    tmp2 *= F3072;
-    tmp3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 *= -F1961;
-    z4 *= -F0390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits - kPass1Bits;
-    w[0] = (int)descale(tmp10 + tmp3, sh);
-    w[56] = (int)descale(tmp10 - tmp3, sh);
-    w[8] = (int)descale(tmp11 + tmp2, sh);
-    w[48] = (int)descale(tmp11 - tmp2, sh);
-    w[16] = (int)descale(tmp12 + tmp1, sh);
-    w[40] = (int)descale(tmp12 - tmp1, sh);
-    w[24] = (int)descale(tmp13 + tmp0, sh);
-    w[32] = (int)descale(tmp13 - tmp0, sh);
+  } else {
+    for (int c = 0; c < 8; c++) {
+      const int16_t* col = in + c;
+      if (!(col[8] | col[16] | col[24] | col[32] | col[40] | col[48] | col[56])) {
+        int16_t dc = (int16_t)sat16(wrap16(col[0] * q[c]) * (1 << kPass1Bits));
+        for (int r = 0; r < 8; r++) ws[8 * r + c] = dc;
+        continue;
+      }
+      int32_t dq[8];
+      for (int r = 0; r < 8; r++) dq[r] = wrap16(col[8 * r] * q[8 * r + c]);  // pmullw
+      idct8(dq, 1, o);
+      for (int r = 0; r < 8; r++) ws[8 * r + c] = (int16_t)sat16(descale32(o[r], kConstBits - kPass1Bits));
+    }
   }
   for (int r = 0; r < 8; r++) {
-    const int* w = ws + 8 * r;
-    uint8_t* o = out + (size_t)r * stride;
-    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 && w[6] == 0 && w[7] == 0) {
-      uint8_t dc = limit[(int)descale(w[0], kPass1Bits + 3) & 1023];
-      memset(o, dc, 8);
+    const int16_t* w = ws + 8 * r;
+    uint8_t* row = out + (size_t)r * stride;
+    if (!(w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7])) {
+      memset(row, to_sample(w[0] * (1 << kConstBits)), 8);
       continue;
     }
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * -F1847;
-    int64_t tmp3 = z1 + z2 * F0765;
-    int64_t tmp0 = ((int64_t)w[0] + w[4]) * (1 << kConstBits);
-    int64_t tmp1 = ((int64_t)w[0] - w[4]) * (1 << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298;
-    tmp1 *= F2053;
-    tmp2 *= F3072;
-    tmp3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 *= -F1961;
-    z4 *= -F0390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits + kPass1Bits + 3;
-    o[0] = limit[(int)descale(tmp10 + tmp3, sh) & 1023];
-    o[7] = limit[(int)descale(tmp10 - tmp3, sh) & 1023];
-    o[1] = limit[(int)descale(tmp11 + tmp2, sh) & 1023];
-    o[6] = limit[(int)descale(tmp11 - tmp2, sh) & 1023];
-    o[2] = limit[(int)descale(tmp12 + tmp1, sh) & 1023];
-    o[5] = limit[(int)descale(tmp12 - tmp1, sh) & 1023];
-    o[3] = limit[(int)descale(tmp13 + tmp0, sh) & 1023];
-    o[4] = limit[(int)descale(tmp13 - tmp0, sh) & 1023];
+    idct8(w, 1, o);
+    for (int c = 0; c < 8; c++) row[c] = to_sample(o[c]);
   }
 }
 
-// One output row of a chroma plane upsampled to full width (jdsample.c):
-// `near` is the chroma row the output row lies in, `far` the row above or
-// below it (h2v2), or null (h2v1).
-void upsample_row(const uint8_t* near, const uint8_t* far, int dw, int out_w, uint8_t* out) {
-  if (dw <= 2) {  // h2v1_upsample / h2v2_upsample: replication
-    for (int x = 0; x < out_w; x++) out[x] = near[x >> 1];
-    return;
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1): each block is
+// transformed from a copy in which the low AC coefficients (zigzag 1-9)
+// not known yet are estimated from the DC values of the 5x5 blocks around
+// it, and, while no AC scan has begun, the DC is interpolated too. An iMCU
+// row that the last scan reached takes that scan's coefficient bits; a
+// later one, the previous scan's. The neighbour rows and columns are
+// clamped as libjpeg clamps them, quirks included (its conditions are on
+// the iMCU row and the block row within it).
+void Decoder::smooth_component(Component& c, uint8_t* plane, int stride) {
+  const int last_imcu = imcu_rows - 1, v = c.v, last_col = c.wib - 1;
+  int cur_bits[10], prev_bits[10];
+  for (int k = 0; k < 10; k++) {
+    cur_bits[k] = c.coef_bits[k];
+    prev_bits[k] = scans > 1 ? c.prev_bits[k] : -1;
   }
-  if (!far) {  // h2v1_fancy_upsample
+  auto q = [&](int natural) { return (int64_t)(uint16_t)c.q[natural]; };
+  const int64_t Q00 = q(0), Q01 = q(1), Q10 = q(8), Q20 = q(16), Q11 = q(9), Q02 = q(2), Q03 = q(3), Q12 = q(10),
+                Q21 = q(17), Q30 = q(24);
+  auto predict = [](int64_t num, int64_t qk, int al) {
+    int pred = (int)(((qk << 7) + (num >= 0 ? num : -num)) / (qk << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    return num >= 0 ? pred : -pred;
+  };
+  int16_t ws[64];
+  for (int r = 0; r <= last_imcu; r++) {
+    int block_rows = v;
+    if (r == last_imcu) {
+      block_rows = c.hib % v;
+      if (block_rows == 0) block_rows = v;
+    }
+    const int* bits = r > last_good_imcu ? prev_bits : cur_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; k++) change_dc = change_dc && bits[k] == -1;
+    for (int br = 0; br < block_rows; br++) {
+      const int row = r * v + br;
+      const int prev = br > 0 || r > 0 ? row - 1 : row;
+      const int pprev = br > 1 || r > 1 ? row - 2 : prev;
+      const int next = br < block_rows - 1 || r < last_imcu ? row + 1 : row;
+      const int nnext = br < block_rows - 2 || r + 1 < last_imcu ? row + 2 : next;
+      const int rows[5] = {pprev, prev, row, next, nnext};
+      int dc[5][5];  // [row -2..+2][column -2..+2], a sliding window
+      for (int i = 0; i < 5; i++)
+        for (int j = 0; j < 5; j++) dc[i][j] = c.block(rows[i], 0)[0];
+      for (int bn = 0; bn <= last_col; bn++) {
+        memcpy(ws, c.block(row, bn), sizeof ws);
+        if (bn == 0 && bn < last_col)
+          for (int i = 0; i < 5; i++) dc[i][3] = c.block(rows[i], 1)[0];
+        if (bn + 1 < last_col)
+          for (int i = 0; i < 5; i++) dc[i][4] = c.block(rows[i], bn + 2)[0];
+        const int64_t DC01 = dc[0][0], DC02 = dc[0][1], DC03 = dc[0][2], DC04 = dc[0][3], DC05 = dc[0][4],
+                      DC06 = dc[1][0], DC07 = dc[1][1], DC08 = dc[1][2], DC09 = dc[1][3], DC10 = dc[1][4],
+                      DC11 = dc[2][0], DC12 = dc[2][1], DC13 = dc[2][2], DC14 = dc[2][3], DC15 = dc[2][4],
+                      DC16 = dc[3][0], DC17 = dc[3][1], DC18 = dc[3][2], DC19 = dc[3][3], DC20 = dc[3][4],
+                      DC21 = dc[4][0], DC22 = dc[4][1], DC23 = dc[4][2], DC24 = dc[4][3], DC25 = dc[4][4];
+        int al;
+        if ((al = bits[1]) != 0 && ws[1] == 0)  // AC01
+          ws[1] = (int16_t)predict(
+              Q00 * (change_dc ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 + 3 * DC10 -
+                                  3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 -
+                                  13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25)
+                               : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)),
+              Q01, al);
+        if ((al = bits[2]) != 0 && ws[8] == 0)  // AC10
+          ws[8] = (int16_t)predict(
+              Q00 * (change_dc ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 + 38 * DC08 +
+                                  13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                                  3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                               : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)),
+              Q10, al);
+        if ((al = bits[3]) != 0 && ws[16] == 0)  // AC20
+          ws[16] = (int16_t)predict(
+              Q00 * (change_dc ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 - 5 * DC14 +
+                                  2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+                               : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)),
+              Q20, al);
+        if ((al = bits[4]) != 0 && ws[9] == 0)  // AC11
+          ws[9] = (int16_t)predict(
+              Q00 * (change_dc ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 - DC25)
+                               : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 + DC04 - DC06 +
+                                  10 * DC07 - 10 * DC09)),
+              Q11, al);
+        if ((al = bits[5]) != 0 && ws[2] == 0)  // AC02
+          ws[2] = (int16_t)predict(
+              Q00 * (change_dc ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 + 7 * DC14 +
+                                  DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19)
+                               : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)),
+              Q02, al);
+        if (change_dc) {
+          if ((al = bits[6]) != 0 && ws[3] == 0)  // AC03
+            ws[3] = (int16_t)predict(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03, al);
+          if ((al = bits[7]) != 0 && ws[10] == 0)  // AC12
+            ws[10] = (int16_t)predict(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12, al);
+          if ((al = bits[8]) != 0 && ws[17] == 0)  // AC21
+            ws[17] = (int16_t)predict(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21, al);
+          if ((al = bits[9]) != 0 && ws[24] == 0)  // AC30
+            ws[24] = (int16_t)predict(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30, al);
+          ws[0] = (int16_t)predict(
+              Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 + 42 * DC08 +
+                     6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 +
+                     6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                     2 * DC25),
+              Q00, 0);
+        }
+        idct_islow(ws, c.q, plane + (size_t)row * 8 * stride + bn * 8, stride);
+        for (int i = 0; i < 5; i++)
+          for (int j = 0; j < 4; j++) dc[i][j] = dc[i][j + 1];
+      }
+    }
+  }
+}
+
+// One output row of a component upsampled to the image's width, as
+// jdsample.c's upsampler for its ratio (rh, rv) writes it. `plane` holds the
+// component's rows; row y of the output lies in row y / rv of it.
+void upsample_row(const uint8_t* plane, int stride, int dw, int dh, int rh, int rv, int y, int out_w,
+                  uint8_t* out) {
+  const int cy = y / rv;
+  const uint8_t* near = plane + (size_t)cy * stride;
+  auto far_row = [&](void) {  // jdmainct.c's context rows: the edge rows repeated
+    int fy = (y % 2) ? cy + 1 : cy - 1;
+    fy = fy < 0 ? 0 : fy > dh - 1 ? dh - 1 : fy;
+    return plane + (size_t)fy * stride;
+  };
+  if (rh == 2 && rv == 1 && dw > 2) {  // h2v1_fancy_upsample
     out[0] = near[0];
     out[1] = (uint8_t)((near[0] * 3 + near[1] + 2) >> 2);
     for (int x = 1; x < dw - 1; x++) {
@@ -798,37 +1243,56 @@ void upsample_row(const uint8_t* near, const uint8_t* far, int dw, int out_w, ui
     }
     out[2 * dw - 2] = (uint8_t)((near[dw - 1] * 3 + near[dw - 2] + 1) >> 2);
     out[2 * dw - 1] = near[dw - 1];
-    return;
-  }
-  // h2v2_fancy_upsample: column sums 3 * near + far, then the same triangle.
-  int last = near[0] * 3 + far[0];
-  int cur = last;
-  for (int x = 0; x < dw; x++) {
-    int next = x + 1 < dw ? near[x + 1] * 3 + far[x + 1] : cur;
-    out[2 * x] = (uint8_t)((cur * 3 + last + 8) >> 4);
-    out[2 * x + 1] = (uint8_t)((cur * 3 + next + 7) >> 4);
-    last = cur;
-    cur = next;
+  } else if (rh == 1 && rv == 2) {  // h1v2_fancy_upsample
+    const uint8_t* far = far_row();
+    const int bias = (y % 2) ? 2 : 1;
+    for (int x = 0; x < dw; x++) out[x] = (uint8_t)((near[x] * 3 + far[x] + bias) >> 2);
+  } else if (rh == 2 && rv == 2 && dw > 2) {  // h2v2_fancy_upsample: column sums 3 * near + far, then a triangle
+    const uint8_t* far = far_row();
+    int last = near[0] * 3 + far[0];
+    int cur = last;
+    for (int x = 0; x < dw; x++) {
+      int next = x + 1 < dw ? near[x + 1] * 3 + far[x + 1] : cur;
+      out[2 * x] = (uint8_t)((cur * 3 + last + 8) >> 4);
+      out[2 * x + 1] = (uint8_t)((cur * 3 + next + 7) >> 4);
+      last = cur;
+      cur = next;
+    }
+  } else {  // h2v1_upsample, h2v2_upsample, int_upsample: replication
+    for (int x = 0; x < out_w; x++) out[x] = near[x / rh];
   }
 }
 
 void Decoder::output(uint8_t* rgb) {
-  // jdmaster.c prepare_range_limit_table, as the IDCT indexes it (x & 1023).
-  uint8_t limit[1024];
-  for (int i = 0; i < 1024; i++) limit[i] = (uint8_t)(i < 128 ? i + 128 : i < 512 ? 255 : i < 896 ? 0 : i - 896);
-  std::vector<std::vector<uint8_t>> planes(comps.size());
-  std::vector<int> strides(comps.size());
-  for (size_t ci = 0; ci < comps.size(); ci++) {
+  const bool smooth = smoothing_ok();
+  const int nc = (int)comps.size();
+  std::vector<std::vector<uint8_t>> planes(nc);
+  std::vector<int> strides(nc);
+  for (int ci = 0; ci < nc; ci++) {
     Component& c = comps[ci];
     int stride = strides[ci] = c.wib * 8;
     planes[ci].resize((size_t)stride * c.hib * 8);
+    if (smooth) {
+      smooth_component(c, planes[ci].data(), stride);
+      continue;
+    }
     for (int by = 0; by < c.hib; by++)
       for (int bx = 0; bx < c.wib; bx++)
-        idct_islow(c.block(by, bx), c.q, planes[ci].data() + (size_t)by * 8 * stride + bx * 8, stride, limit);
+        idct_islow(c.block(by, bx), c.q, planes[ci].data() + (size_t)by * 8 * stride + bx * 8, stride);
   }
-  if (comps.size() == 1) {  // gray_rgb_convert
+  // Each component's row at full resolution, upsampled where its factors
+  // are below the largest (jdsample.c: full size where they are equal).
+  std::vector<std::vector<uint8_t>> up(nc, std::vector<uint8_t>((size_t)width + 8 * hmax));
+  auto row_of = [&](int ci, int y) -> const uint8_t* {
+    const Component& c = comps[ci];
+    int rh = hmax / c.h, rv = vmax / c.v;
+    if (rh == 1 && rv == 1) return planes[ci].data() + (size_t)y * strides[ci];
+    upsample_row(planes[ci].data(), strides[ci], c.dw, c.dh, rh, rv, y, width, up[ci].data());
+    return up[ci].data();
+  };
+  if (nc == 1) {  // gray_rgb_convert
     for (int y = 0; y < height; y++) {
-      const uint8_t* g = planes[0].data() + (size_t)y * strides[0];
+      const uint8_t* g = row_of(0, y);
       uint8_t* o = rgb + (size_t)y * width * 3;
       for (int x = 0; x < width; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = g[x];
     }
@@ -850,42 +1314,21 @@ void Decoder::output(uint8_t* rgb) {
   // component ids "RGB", say RGB; anything else is YCbCr.
   bool rgb_ids = comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B';
   bool ycc = saw_jfif || (saw_adobe ? adobe_transform != 0 : !rgb_ids);
-  int rh = hmax / comps[1].h, rv = vmax / comps[1].v;
-  std::vector<uint8_t> up1(width + 2), up2(width + 2);
   for (int y = 0; y < height; y++) {
-    const uint8_t* Y = planes[0].data() + (size_t)y * strides[0];
-    const uint8_t* ch[2];
-    for (int k = 0; k < 2; k++) {
-      const Component& c = comps[1 + k];
-      uint8_t* up = k ? up2.data() : up1.data();
-      const uint8_t* base = planes[1 + k].data();
-      int stride = strides[1 + k];
-      if (rh == 1) {
-        ch[k] = base + (size_t)y * stride;
-        continue;
-      }
-      int cy = rv == 2 ? y >> 1 : y;
-      const uint8_t* near = base + (size_t)cy * stride;
-      const uint8_t* far = nullptr;
-      if (rv == 2 && c.dw > 2) {
-        int fy = (y & 1) ? cy + 1 : cy - 1;
-        fy = fy < 0 ? 0 : fy > c.dh - 1 ? c.dh - 1 : fy;
-        far = base + (size_t)fy * stride;
-      }
-      upsample_row(near, far, c.dw, width, up);
-      ch[k] = up;
-    }
+    const uint8_t* Y = row_of(0, y);
+    const uint8_t* cb_row = row_of(1, y);
+    const uint8_t* cr_row = row_of(2, y);
     uint8_t* o = rgb + (size_t)y * width * 3;
     if (!ycc) {  // rgb_rgb_convert
       for (int x = 0; x < width; x++) {
         o[3 * x] = Y[x];
-        o[3 * x + 1] = ch[0][x];
-        o[3 * x + 2] = ch[1][x];
+        o[3 * x + 1] = cb_row[x];
+        o[3 * x + 2] = cr_row[x];
       }
       continue;
     }
     for (int x = 0; x < width; x++) {  // ycc_rgb_convert
-      int yy = Y[x], cb = ch[0][x], cr = ch[1][x];
+      int yy = Y[x], cb = cb_row[x], cr = cr_row[x];
       int r = yy + cr_r[cr];
       int g = yy + ((cb_g[cb] + cr_g[cr]) >> 16);
       int b = yy + cb_b[cb];

@@ -8,27 +8,20 @@ Same policy as the reference: -1 downscales images wider than 1600 px to
 from __future__ import annotations
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 from gaussian_transformer_tpu_torch.scene.cameras import Camera
 from gaussian_transformer_tpu_torch.utils.graphics import fov2focal
+from gaussian_transformer_tpu_torch.utils.resample import resize
 
 _warned = False
 
 
 def image_to_array(image: np.ndarray, resolution) -> np.ndarray:
-    """uint8 [H, W, C] -> float32 CHW in [0, 1] at ``resolution`` (w, h).
-
-    Same size: an exact conversion. Otherwise an antialiased bicubic resize
-    (torch's PIL-style filter; close to, not bit-equal with, Pillow's)."""
-    w, h = resolution
-    arr = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1).float()
-    if (h, w) != tuple(arr.shape[1:]):
-        arr = F.interpolate(
-            arr[None], size=(h, w), mode="bicubic", align_corners=False, antialias=True
-        )[0].round().clamp(0, 255)
-    return arr.numpy() / 255.0
+    """uint8 [H, W, C] -> float32 CHW in [0, 1] at ``resolution`` (w, h):
+    the reference's ``pil_to_array``, with Pillow's bicubic ``resize`` bit
+    for bit (``utils/resample.py``; RGBA through premultiplied alpha)."""
+    arr = resize(image, tuple(resolution)).astype(np.float32) / 255.0
+    return np.ascontiguousarray(arr.transpose(2, 0, 1))
 
 
 def load_cam(args, id, cam_info, resolution_scale, device=None) -> Camera:

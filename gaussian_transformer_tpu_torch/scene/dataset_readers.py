@@ -5,18 +5,21 @@ Same behaviours: bin-with-txt fallback, train/test split every ``llffhold``-th
 camera under --eval, points3D.bin -> PLY conversion on first load, NeRF++
 camera-extent normalization, random 100k-point init for Blender scenes.
 
-Images are decoded into uint8 [H, W, C] arrays (no Pillow). A COLMAP image
-folder is decoded by the native IO tier (``native/``) on a thread pool,
-grouped by size, as RGB: a JPEG always, with the tier's own decoder (bit
-for bit with the JAX package's libjpeg), and a PNG where the tier has
-libpng (an RGBA PNG loses its alpha, as in the JAX package's native path).
-Without libpng a PNG goes through ``utils/png.py`` (alpha kept). A JPEG
-raises ``native.CodecUnavailable`` only where the tier itself cannot be
-built (no C++ compiler), naming why, and ``IOError`` naming the file and
-the feature where its decoder cannot read it. The Blender reader
-composites each image's alpha over the background, so it decodes PNGs
-with ``utils/png.py`` (RGBA kept, as Pillow's ``convert("RGBA")``) and
-JPEGs with the native tier.
+Images are decoded into uint8 [H, W, C] arrays (no Pillow), by the native
+IO tier (``native/``) on a thread pool, grouped by size, with the tier's
+own JPEG and PNG decoders:
+* a COLMAP image folder as RGB, bit for bit with the JAX package's native
+  tier (libjpeg, libpng): an RGBA PNG loses its alpha there, as it does in
+  the JAX tier;
+* a Blender scene as RGBA, bit for bit with the JAX reader's
+  ``Image.open(p).convert("RGBA")``, whose alpha is composited over the
+  background here as there.
+A file the tier cannot decode raises ``IOError`` naming the file and the
+feature or fault; nothing falls back to another reader then. Only where
+the tier is unavailable (no C++ compiler, as for the bins) PNGs go through
+``utils/png.py`` (a COLMAP PNG with its channels as stored, alpha kept; a
+Blender PNG as Pillow's RGBA), and a JPEG raises
+``native.CodecUnavailable`` naming why.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from gaussian_transformer_tpu_torch.utils.graphics import (
     fov2focal,
     get_world2view,
 )
-from gaussian_transformer_tpu_torch.utils.png import read_png, to_rgba
+from gaussian_transformer_tpu_torch.utils.png import read_png, read_png_rgba
 from gaussian_transformer_tpu_torch.utils.sh import sh_to_rgb
 
 
@@ -76,25 +79,18 @@ def get_nerfpp_norm(cam_info: List[CameraInfo]) -> dict:
     return {"translate": -avg.flatten(), "radius": diagonal * 1.1}
 
 
-def _read_image(path: str) -> np.ndarray:
-    """One image as uint8 [H, W, C]: a PNG through ``utils/png.py`` (its
-    channels as stored), any other file through the native tier (RGB)."""
-    if native.codec_of(path) == "png":
-        return read_png(path)
-    return native.decode_folder([path])[path]
-
-
-def decode_images(paths) -> dict:
-    """{path: uint8 [H, W, C]} for an image folder: every JPEG, and every
-    PNG where the tier has libpng, on the native tier's thread pool (RGB);
-    the other PNGs through ``utils/png.py``. A JPEG raises
-    ``native.CodecUnavailable`` only when the tier is unavailable."""
-    built = native.codecs()
-    on_pool = [p for p in paths if native.codec_of(p) in built]
-    out = native.decode_folder(on_pool) if on_pool else {}
+def decode_images(paths, rgba: bool = False) -> dict:
+    """{path: uint8 [H, W, C]} for a list of images, on the native tier's
+    thread pool: RGB (C = 3), or with ``rgba`` Pillow's RGBA (C = 4).
+    Without the tier, PNGs go through ``utils/png.py`` (``read_png``, or
+    ``read_png_rgba``) and a JPEG raises ``native.CodecUnavailable``."""
+    if native.available():
+        return native.decode_folder(list(paths), rgba=rgba)
+    out = {}
     for p in paths:
-        if p not in out:
-            out[p] = _read_image(p)
+        if native.codec_of(p) != "png":
+            native.require_codec(p)  # raises, naming why the tier is unavailable
+        out[p] = read_png_rgba(p) if rgba else read_png(p)
     return out
 
 
@@ -198,8 +194,11 @@ def _read_cameras_from_transforms(path, transformsfile, white_background, extens
     with open(os.path.join(path, transformsfile)) as json_file:
         contents = json.load(json_file)
     fovx = contents["camera_angle_x"]
+    frames = contents["frames"]
+    image_paths = [os.path.join(path, os.path.join(path, f["file_path"] + extension)) for f in frames]
+    decoded = decode_images(image_paths, rgba=True)
 
-    for idx, frame in enumerate(contents["frames"]):
+    for idx, frame in enumerate(frames):
         cam_name = os.path.join(path, frame["file_path"] + extension)
         c2w = np.array(frame["transform_matrix"])
         # OpenGL/Blender (Y up, Z back) -> COLMAP (Y down, Z forward).
@@ -208,9 +207,9 @@ def _read_cameras_from_transforms(path, transformsfile, white_background, extens
         R = np.transpose(w2c[:3, :3])
         T = w2c[:3, 3]
 
-        image_path = os.path.join(path, cam_name)
+        image_path = image_paths[idx]
         image_name = Path(cam_name).stem
-        im_data = to_rgba(_read_image(image_path))
+        im_data = decoded[image_path]
         bg = np.array([1, 1, 1]) if white_background else np.array([0, 0, 0])
         norm_data = im_data / 255.0
         arr = norm_data[:, :, :3] * norm_data[:, :, 3:4] + bg * (1 - norm_data[:, :, 3:4])

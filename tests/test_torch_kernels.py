@@ -1036,3 +1036,57 @@ def test_layout_probe_kernel_rejects_unaligned(cuda):
         layout_probe.block_sums(torch.zeros(16, 2050, device=cuda), (16, 2048))
     with pytest.raises(ValueError):
         layout_probe.block_sums(torch.zeros(4096, 16, dtype=torch.float64, device=cuda), (2048, 16))
+
+
+# ------------------------------------------------------------------ images ---
+
+
+@pytest.mark.gpu
+def test_committed_image_digests_through_the_tier_on_the_card(cuda):
+    """On the card's machine (no libpng, libjpeg or Pillow there): every
+    committed PNG in both outputs and every JPEG mode file decode to the
+    digests recorded from libpng, Pillow and libjpeg, and a Blender view's
+    ``image_to_array`` at ``-r 2`` to the JAX reader's."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from gaussian_transformer_tpu_torch import native
+    from gaussian_transformer_tpu_torch.scene.camera_utils import image_to_array
+
+    testdata = Path(__file__).resolve().parent.parent / "gaussian_transformer_tpu_torch" / "native" / "testdata"
+
+    def digest(arr):
+        return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+    assert native.codecs() == ("jpeg", "png"), native.unavailable_reason()
+    record = json.loads((testdata / "png" / "digests.json").read_text())
+    paths = {n: str(testdata / "png" / n) for n in record["files"]}
+    rgb, rgba = native.decode_folder(list(paths.values())), native.decode_folder(list(paths.values()), rgba=True)
+    for n, p in paths.items():
+        assert digest(rgb[p]) == record["files"][n]["rgb"] and digest(rgba[p]) == record["files"][n]["rgba"], n
+    modes = json.loads((testdata / "jpeg_modes" / "digests.json").read_text())
+    got = native.decode_folder([str(testdata / "jpeg_modes" / n) for n in modes])
+    for n, want in modes.items():
+        assert digest(got[str(testdata / "jpeg_modes" / n)]) == want, n
+    view = rgba[paths["blender/train/r_0.png"]] / 255.0
+    composite = np.array(view[:, :, :3] * view[:, :, 3:4] * 255.0, dtype=np.uint8)
+    assert digest(image_to_array(composite, (400, 400))) == record["scene"]["r2"]["train/r_0"]
+
+
+def test_kernels_line_names_k1_to_k9_and_images_only_add_launches():
+    """``chip_smoke.py``'s kernels line keeps its entries for K1-K9 (and
+    K1/K2's bf16 entry points): section 35's ``image_launches`` adds a key
+    to K1-K4's entries and no entry."""
+    import chip_smoke
+
+    names = ["stream_fwd", "ssim_fwd", "stream_bwd", "ssim_bwd", "table_fwd", "table_bwd", "stream_fwd_bf16",
+             "stream_bwd_bf16", "stream_t_fwd", "stream_t_bwd", "layout_probe"]
+    src = open(chip_smoke.__file__).read()
+    assert [n for n in names if f'{{"name": "{n}", "route": "cuda",' in src] == names
+    entries = [{"name": n} for n in names]
+    chip_smoke.add_path_launches(entries, "image_launches", {"train": {"K1": 3, "K2": 2, "K3": 2, "K4": 2}})
+    assert [e["name"] for e in entries] == names
+    with_key = [e["name"] for e in entries if "image_launches" in e]
+    assert with_key == ["stream_fwd", "ssim_fwd", "stream_bwd", "ssim_bwd"]
+    assert entries[0]["image_launches"] == {"train": 3}

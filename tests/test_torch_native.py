@@ -4,11 +4,12 @@ bit: COLMAP images.bin and points3D.bin, float32 PLY reads and writes (the
 files byte for byte), PNG and JPEG decodes (JPEGs written here with PIL,
 in the tests only). Also: which channels of an RGBA PNG reach ``Camera``,
 the named error for a JPEG when the tier cannot be built, a build on a
-machine without libjpeg (JPEGs decode all the same: the tier has its own
-decoder, ``native/jpeg.cpp``; ``tests/test_torch_jpeg.py`` holds it to
-libjpeg in depth), a concurrent first build from two processes, and a
-COLMAP folder of JPEGs loaded through ``Scene`` as the JAX package loads
-it.
+machine without libjpeg, libpng or zlib (images decode all the same: the
+tier has its own decoders, ``native/jpeg.cpp`` and ``native/png.cpp``;
+``tests/test_torch_jpeg.py`` and ``tests/test_torch_png.py`` hold them to
+libjpeg, libpng and Pillow in depth), a concurrent first build from two
+processes, and a COLMAP folder of JPEGs loaded through ``Scene`` as the
+JAX package loads it.
 
 The committed JPEG fixture (``native/testdata/fixture.jpg`` and the RGB
 array the JAX native tier decodes from it, ``fixture_rgb.npy``) is
@@ -241,8 +242,8 @@ def _jax_scene(src, model):
 def test_rgba_png_reaches_camera_as_rgb_with_the_tier_built(tmp_path):
     """With the tier built (the JAX package's native behaviour), an RGBA
     PNG's alpha is dropped: ``Camera`` holds its RGB / 255, unmasked, as the
-    JAX ``Scene`` does. Decoded by ``utils/png.py`` (a tier without libpng)
-    the alpha is kept and masks the image, as Pillow's path does."""
+    JAX ``Scene`` does. ``utils/png.py``'s ``read_png`` (the reader where no
+    compiler builds the tier) keeps the alpha, as Pillow's path does."""
     views = _colmap_scene(tmp_path / "data", ".png", channels=4)
     cams = _port_scene(tmp_path / "data", tmp_path / "m1").get_train_cameras()
     jcams = _jax_scene(tmp_path / "data", tmp_path / "m2").get_train_cameras()
@@ -275,7 +276,7 @@ def test_colmap_jpeg_folder_loads_through_scene_as_in_jax(tmp_path):
     np.testing.assert_array_equal(scene.gaussians.xyz.detach().numpy()[:300], np.asarray(jscene.gaussians.xyz)[:300])
 
 
-# ------------------------------- a machine without libjpeg, or without g++ ---
+# ------------------- a machine without libjpeg, libpng or zlib, or without g++ ---
 
 
 @pytest.fixture
@@ -304,12 +305,12 @@ def test_no_compiler_names_the_missing_tier_and_pngs_still_load(tmp_path, fresh_
 
 
 def test_build_without_libjpeg_keeps_the_parsers_and_names_the_header(tmp_path, fresh_tier):
-    """A machine without libjpeg (a compiler that fails on jpeglib.h and
-    -ljpeg, as the card's machine has neither): the tier builds, with no
-    -ljpeg in any command, and decodes JPEGs bit for bit with the JAX
-    tier's libjpeg. Where png.h does not compile, PNG is left out, its
-    probe's missing header is named, JPEGs still decode, and an RGBA PNG
-    keeps its alpha (``utils/png.py``)."""
+    """A machine without libjpeg, libpng or zlib (a compiler that fails on
+    jpeglib.h, png.h or zlib.h and on -ljpeg, -lpng or -lz, as the card's
+    machine has no jpeglib.h and no png.h): the tier builds, with none of
+    those flags in any command and no header of them named, and decodes
+    JPEGs and PNGs with its own decoders, bit for bit with the JAX tier's
+    libjpeg and libpng; its RGBA output keeps a PNG's alpha."""
     log = tmp_path / "cxx.log"
     cxx = tmp_path / "g++"
     cxx.write_text("#!/bin/bash\n"
@@ -319,15 +320,21 @@ def test_build_without_libjpeg_keeps_the_parsers_and_names_the_header(tmp_path, 
                    "  if [ \"$a\" = - ]; then stdin=$(cat); src+=$stdin;\n"
                    "  elif [ -f \"$a\" ]; then src+=$(cat \"$a\"); fi\n"
                    "done\n"
-                   "if [[ \" $* \" == *' -ljpeg '* || $src == *'include <jpeglib.h>'* ]]; then\n"
-                   "  echo 'fatal error: jpeglib.h: No such file or directory' >&2; exit 1; fi\n"
+                   "for lib in jpeg png z; do\n"
+                   "  if [[ \" $* \" == *\" -l$lib \"* ]]; then echo \"ld: cannot find -l$lib\" >&2; exit 1; fi\n"
+                   "done\n"
+                   "for h in jpeglib.h png.h zlib.h; do\n"
+                   "  if [[ $src == *\"include <$h>\"* ]]; then\n"
+                   "    echo \"fatal error: $h: No such file or directory\" >&2; exit 1; fi\n"
+                   "done\n"
                    f"exec {native.compiler()} \"$@\" <<< \"$stdin\"\n")
     cxx.chmod(0o755)
     fresh_tier.setenv("CXX", str(cxx))
     assert native.available(), native.unavailable_reason()
     assert native.codecs() == ("jpeg", "png") and native.missing() == {}
     commands = log.read_text().splitlines()
-    assert any("jpeg.cpp" in c for c in commands) and not any("-ljpeg" in c.split() for c in commands), commands
+    assert any("jpeg.cpp" in c and "png.cpp" in c for c in commands), commands
+    assert not any(flag in c.split() for c in commands for flag in ("-ljpeg", "-lpng", "-lz")), commands
     _colmap_scene(tmp_path / "jpg", ".jpg", channels=3)
     p = str(tmp_path / "jpg/images/000.jpg")
     np.testing.assert_array_equal(dataset_readers.decode_images([p])[p],
@@ -336,16 +343,11 @@ def test_build_without_libjpeg_keeps_the_parsers_and_names_the_header(tmp_path, 
     np.testing.assert_array_equal(colmap.read_points3D_binary(path)[0],
                                   colmap.read_points3D_binary(path, native_io=False)[0])
 
-    fresh_tier.setattr(native, "_PROBES",
-                       {"png": ("#include <png_missing_here.h>\nint main() { return 0; }\n", "-lpng")})
-    native.build()
-    assert native.codecs() == ("jpeg",) and set(native.missing()) == {"png"}
-    assert "png_missing_here.h" in native.missing()["png"]
-    np.testing.assert_array_equal(dataset_readers.decode_images([p])[p],
-                                  jax_native.load_images([p], *jax_native.image_size(p))[0])
     views = _colmap_scene(tmp_path / "rgba", ".png", channels=4)
     p = str(tmp_path / "rgba/images/000.png")
-    np.testing.assert_array_equal(dataset_readers.decode_images([p])[p], views[0][1])  # RGBA kept
+    np.testing.assert_array_equal(dataset_readers.decode_images([p])[p],
+                                  jax_native.load_images([p], *jax_native.image_size(p))[0])  # RGB, as libpng
+    np.testing.assert_array_equal(dataset_readers.decode_images([p], rgba=True)[p], views[0][1])  # RGBA kept
 
 
 def test_concurrent_first_build_from_two_processes(tmp_path):
