@@ -328,7 +328,9 @@ The viewer bridge (``viewer/network_gui.py``), the native IO tier
     for 20 frames (train=True); the loss falls, the frames arrive whole.
     31c: with the listener bound and no client, one train step of section
     7's checkpoint with and without a pump before it: the same host
-    synchronisations by call site and the same CUDA kernels.
+    synchronisations by call site and the same kernel launches in each of
+    ``STEP_KERNEL_REPEATS`` steps (the host's launch calls; the profiler's
+    device events vary between identical steps, printed beside them).
 32. After section 29, on a fresh model of section 16's weights and its
     first batch: ``pump_stacked`` with train=False streams the cached
     decode, one frame a token, each equal to ``LiveViewerStream.compose``
@@ -377,11 +379,28 @@ The viewer bridge (``viewer/network_gui.py``), the native IO tier
     the PSNR on its training views rising; times: the 1080p PNG on one
     thread in the tier and in ``utils/png.py``, the Blender folder on the
     pool (images/s), ``image_to_array``'s resize of a 1080p view.
+36. The COLMAP conversion driver, ``cli.convert``, on a machine without
+    ImageMagick or colmap, with Pillow's import blocked while it runs
+    (the machine has a Pillow; the port must not need it): a capture of
+    the 8 committed 960x540
+    views in ``input/`` converted with ``--resize`` through a stand-in
+    colmap (a script written into the work dir, never part of the package:
+    it records its arguments, copies ``input/`` to ``images/`` and writes
+    the PINHOLE model where COLMAP's stages leave theirs), and a
+    resize-only capture (``--skip_matching --resize``) of ``1080p.jpg``,
+    ``1080p.png`` and the PNG mode files; the recorded commands against
+    the root script's, ``sparse/0`` against the model, every
+    ``images_2/4/8`` file against the digests of the root script's Pillow
+    output (``native/testdata/convert/digests.json``); the conversion's
+    time (images/s) and ``1080p.jpg``'s pyramid (ms, by stage); then
+    ``cli.train -i images_2 --eval`` for 300 steps, ``cli.render`` and
+    ``cli.metrics``, the test view's PSNR rising.
 
 The kernels line's K1-K4 entries carry the launches of sections 31-32 as
 ``viewer_launches`` (32b's as ``stream_fsdp`` and ``teacher_forced_fsdp``)
-and those of section 34's and 35's ``cli.train`` as
-``jpeg_launches`` and ``image_launches``.
+and those of section 34's, 35's and 36's ``cli.train`` (36: with its
+``cli.render`` and ``cli.metrics``) as ``jpeg_launches``,
+``image_launches`` and ``convert_launches``.
 
 Every timed section prints the SM clock (``nvidia-smi --query-gpu=clocks.sm``)
 before and after its window. The K3, K4, K7 and K8 entries of the kernels
@@ -405,6 +424,7 @@ import math
 import os
 import random
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -1079,6 +1099,7 @@ def run(args, device) -> dict:
     native_io_path(args, device, summary)
     summary["jpeg_launches"] = jpeg_path(args, device, summary)
     summary["image_launches"] = image_path(args, device, summary)
+    summary["convert_launches"] = convert_path(args, device, summary)
     summary.update(kernels_line)
     return summary
 
@@ -4069,6 +4090,7 @@ def flat_tier_path(args, device, summary, d_model=FLAT_D, layers=FLAT_LAYERS) ->
 VIEWER_REQUESTS = 20  # served frames timed in section 31
 VIEWER_TRAIN_ITERS = 30  # cli.train iterations with a client attached
 VIEWER_TRAIN_FRAMES = 20  # frames the client asks for during them
+STEP_KERNEL_REPEATS = 3  # section 31c's steps counted with and without a pump, each alone
 VIEWER_IMAGE_ATOL = 2e-5  # section 32b's frames under FSDP2 vs section 32's (the repo's image rule)
 # full_eval's synthetic roots: one scene per list (a child process per
 # render and one for the metrics), at this size.
@@ -4168,9 +4190,12 @@ def serve_until(client, tick, timeout: float = 300.0) -> None:
     client.join()
 
 
-def step_kernels(ckpt: Path, cam, gt, cfg, device, before=None) -> int:
-    """The CUDA kernels one warm train step of the state in ``ckpt`` launches
-    (torch.profiler), with ``before()`` called just before each step."""
+def step_kernels(ckpt: Path, cam, gt, cfg, device, before=None, repeats: int = STEP_KERNEL_REPEATS) -> dict:
+    """The CUDA kernels of ``repeats`` warm train steps of the state in
+    ``ckpt``, one ``kernel_count`` a step: {"launches": [...],
+    "device_events": [...]} (the host's launch calls, exact, and the
+    profiler's device events, which vary by tens between identical steps),
+    with ``before()`` called just before each step."""
     import torch
 
     from gaussian_transformer_tpu_torch.train.splat import OptConfig, restore, train_step
@@ -4184,7 +4209,9 @@ def step_kernels(ckpt: Path, cam, gt, cfg, device, before=None) -> int:
             before()
         train_step(scene, adam, stats, cam, bg, it, slrs, OptConfig(), cfg)
 
-    return step_profile(step)[3]
+    step()
+    counts = [kernel_count(step) for _ in range(repeats)]
+    return {k: [c[k] for c in counts] for k in ("launches", "device_events")}
 
 
 def viewer_path(args, device, summary, scene, fovx, test_c2ws, train_cfg) -> dict:
@@ -4305,9 +4332,12 @@ def viewer_path(args, device, summary, scene, fovx, test_c2ws, train_cfg) -> dic
                      "pump, no client": step_kernels(ckpt, cam0, gt, train_cfg, device, before=pump)}
         network_gui.listener.close()
         print("host synchronisations of one step by call site: " + json.dumps(syncs))
-        print(f"CUDA kernels of one step (torch.profiler): {kernels_n}")
+        print(f"CUDA kernels of {STEP_KERNEL_REPEATS} steps in turn (torch.profiler; host launch calls and device "
+              f"events, one a step): {kernels_n}")
         check(syncs["no listener"] == syncs["pump, no client"], "the pump adds no host synchronisation")
-        check(kernels_n["no listener"] == kernels_n["pump, no client"], "the pump adds no launch")
+        check(kernels_n["no listener"]["launches"] == kernels_n["pump, no client"]["launches"],
+              "the pump adds no launch (the host's launch calls of each step; the device events vary by tens "
+              "between identical steps)")
         summary.update(viewer_step_syncs=syncs, viewer_step_kernels=kernels_n)
     return out
 
@@ -5011,6 +5041,328 @@ def image_path(args, device, summary, iterations=None) -> dict:
     return {"train": launches}
 
 
+# -------------------------------------------------------------- convert ---
+
+CONVERT_DIR = ROOT / "gaussian_transformer_tpu_torch" / "native" / "testdata" / "convert"
+CONVERT_ITERATIONS = 300  # section 36's cli.train run on the converted images_2
+CONVERT_POINTS = 50_000  # the stand-in's points3D.bin (surface_points)
+CONVERT_TIMING_CALLS = 5  # one-thread pyramids of 1080p.jpg (the median is printed)
+
+# A stand-in for the colmap binary: written into a work directory by
+# section 36 and the convert tests, never part of the package. It records
+# its arguments (one JSON list a line in calls.jsonl beside it), exits with
+# STANDIN_COLMAP_FAIL's code at the stage it names ("<stage>:<code>"), and
+# leaves what each COLMAP stage leaves: the database, distorted/sparse/0,
+# and for image_undistorter input/ copied to images/ and the PINHOLE model
+# in <output>/sparse/ (COLMAP's undistorter's layout).
+STANDIN_COLMAP = '''#!{python}
+"""Stand-in colmap (not COLMAP): records its arguments, writes its outputs."""
+import json, os, shutil, sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+MODEL = {model!r}
+with open(os.path.join(HERE, "calls.jsonl"), "a") as f:
+    f.write(json.dumps(["colmap"] + sys.argv[1:]) + "\\n")
+stage, opts, args = sys.argv[1], {{}}, sys.argv[2:]
+while args:
+    key = args.pop(0)
+    if "=" in key:
+        key, value = key.split("=", 1)
+    else:
+        value = args.pop(0) if args else ""
+    opts[key] = value
+fail = os.environ.get("STANDIN_COLMAP_FAIL", "")
+if fail.split(":")[0] == stage:
+    sys.exit(int(fail.split(":")[1]))
+
+
+def model_into(out):
+    os.makedirs(out, exist_ok=True)
+    for name in sorted(os.listdir(MODEL)) if MODEL else []:
+        shutil.copyfile(os.path.join(MODEL, name), os.path.join(out, name))
+
+
+if stage == "feature_extractor":
+    open(opts["--database_path"], "wb").close()
+elif stage == "mapper":
+    model_into(os.path.join(opts["--output_path"], "0"))
+elif stage == "image_undistorter":
+    out = opts["--output_path"]
+    shutil.copytree(opts["--image_path"], os.path.join(out, "images"), dirs_exist_ok=True)
+    model_into(os.path.join(out, "sparse"))
+'''
+
+# A stand-in for ImageMagick's magick: records its arguments beside it,
+# exits with STANDIN_MAGICK_FAIL's code ("<percent>:<code>") on that resize,
+# and leaves the file as it is.
+STANDIN_MAGICK = '''#!{python}
+"""Stand-in magick (not ImageMagick): records its arguments."""
+import json, os, sys
+
+with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "calls.jsonl"), "a") as f:
+    f.write(json.dumps(["magick"] + sys.argv[1:]) + "\\n")
+fail = os.environ.get("STANDIN_MAGICK_FAIL", "")
+if fail and fail.split(":")[0] in sys.argv:
+    sys.exit(int(fail.split(":")[1]))
+'''
+
+
+def write_standin(directory, name: str, model=None) -> Path:
+    """The stand-in ``colmap`` or ``magick`` as an executable script in
+    ``directory`` (``model``: the colmap stand-in's model directory)."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    path = directory / name
+    text = STANDIN_COLMAP if name == "colmap" else STANDIN_MAGICK
+    path.write_text(text.format(python=sys.executable, model=None if model is None else str(model)))
+    path.chmod(0o755)
+    return path
+
+
+def standin_calls(directory) -> list:
+    """The argument lists the stand-ins in ``directory`` recorded, in order."""
+    log = Path(directory) / "calls.jsonl"
+    return [json.loads(line) for line in log.read_text().splitlines()] if log.exists() else []
+
+
+def expected_calls(sp, camera: str = "OPENCV", gpu: int = 1, skip_matching: bool = False) -> list:
+    """The colmap argument lists the root ``convert.py`` issues for ``sp``."""
+    db = f"{sp}/distorted/database.db"
+    calls = [] if skip_matching else [
+        ["colmap", "feature_extractor", "--database_path", db, "--image_path", f"{sp}/input",
+         "--ImageReader.single_camera", "1", "--ImageReader.camera_model", camera,
+         "--SiftExtraction.use_gpu", str(gpu)],
+        ["colmap", "exhaustive_matcher", "--database_path", db, "--SiftMatching.use_gpu", str(gpu)],
+        ["colmap", "mapper", "--database_path", db, "--image_path", f"{sp}/input", "--output_path",
+         f"{sp}/distorted/sparse", "--Mapper.ba_global_function_tolerance=0.000001"],
+    ]
+    return calls + [["colmap", "image_undistorter", "--image_path", f"{sp}/input", "--input_path",
+                     f"{sp}/distorted/sparse/0", "--output_path", str(sp), "--output_type", "COLMAP"]]
+
+
+def png_header(blob: bytes) -> bytes:
+    """IHDR, PLTE and tRNS of a PNG (type and data of each, in that order)."""
+    found, pos = {}, 8
+    while pos + 8 <= len(blob):
+        (n,) = struct.unpack(">I", blob[pos: pos + 4])
+        kind = blob[pos + 4: pos + 8]
+        found.setdefault(kind, blob[pos + 8: pos + 8 + n])
+        pos += 12 + n
+    return b"".join(k + found[k] for k in (b"IHDR", b"PLTE", b"tRNS") if k in found)
+
+
+def pyramid_digest(path) -> str:
+    """A JPEG's sha256; a PNG's over its IHDR, PLTE, tRNS and decoded
+    samples (big-endian at 16 bits), which Pillow's and the port's files
+    share (their IDATs differ with the deflate)."""
+    from gaussian_transformer_tpu_torch import native
+
+    blob = Path(path).read_bytes()
+    if not blob.startswith(b"\x89PNG"):
+        return hashlib.sha256(blob).hexdigest()
+    _, samples = native.image_samples(str(path))
+    return hashlib.sha256(png_header(blob) + samples.astype(samples.dtype.newbyteorder(">")).tobytes()).hexdigest()
+
+
+def pyramid_digests(sp) -> dict:
+    """{"images_N/<file>": pyramid_digest} of a converted capture."""
+    sp = Path(sp)
+    return {f"{sub}/{p.name}": pyramid_digest(p) for sub in ("images_2", "images_4", "images_8")
+            for p in sorted((sp / sub).iterdir())}
+
+
+def write_captures(work, seed: int) -> dict:
+    """Section 36's two captures under ``work``, as a user's capture folders
+    look before ``convert.py``: {"colmap": (folder, its stand-in's model
+    dir), "resize": (folder, None)}. The colmap capture's input/ holds the 8
+    committed 960x540 views (a PINHOLE model written around them with
+    ``surface_points`` is what the stand-in returns), the resize-only
+    capture's ``1080p.jpg``, ``1080p.png`` and the PNG mode files."""
+    from gaussian_transformer_tpu_torch.tools.synthetic import write_colmap_binary
+
+    work = Path(work)
+    shutil.rmtree(work, ignore_errors=True)
+    views = json.loads((JPEG_DIR / "views.json").read_text())
+    xyz, rgb = surface_points(CONVERT_POINTS, seed + 16)
+    write_colmap_binary(work / "model", [(v["c2w"], JPEG_DIR / v["file"]) for v in views["views"]],
+                        views["width"], views["height"], views["fovx"], xyz, rgb, images="input", seed=seed)
+    shutil.copytree(work / "model" / "input", work / "colmap" / "input")
+    (work / "resize" / "input").mkdir(parents=True)
+    for src in [JPEG_DIR / "1080p.jpg", PNG_DIR / "1080p.png"] + sorted((PNG_DIR / "modes").glob("*.png")):
+        shutil.copyfile(src, work / "resize" / "input" / src.name)
+    return {"colmap": (work / "colmap", work / "model" / "sparse" / "0"), "resize": (work / "resize", None)}
+
+
+def convert_captures(captures, record, work: Path):
+    """``cli.convert --resize`` on each capture of ``write_captures``
+    through the stand-in colmap, its commands, pyramid digests and
+    ``sparse/0`` checked: ({capture: ms}, {capture: source images})."""
+    from gaussian_transformer_tpu_torch.cli import convert as cli_convert
+
+    # No --magick_executable: the user's call. Where a magick is installed,
+    # a path that does not exist keeps the pyramid on the port's writer.
+    no_magick = [] if shutil.which("magick") is None else ["--magick_executable", str(work / "no-magick")]
+    runs = {"colmap": [], "resize": ["--skip_matching"]}
+    times, n_src = {}, {}
+    for name, extra in runs.items():
+        sp, model = captures[name]
+        standin = write_standin(work / f"bin_{name}", "colmap", model)
+        argv = ["-s", str(sp), "--colmap_executable", str(standin), "--resize"] + extra + no_magick
+        code, times[name] = timed(lambda: cli_convert.main(argv))
+        check(code == 0, f"cli.convert {' '.join(extra + ['--resize'])} on the {name} capture exits 0")
+        calls = standin_calls(standin.parent)
+        want = expected_calls(sp, skip_matching=bool(extra))
+        check(calls == want, f"the {name} capture: the stand-in recorded the root script's {len(want)} colmap "
+                             f"commands, in order ({[c[1] for c in calls]})")
+        n_src[name] = len(os.listdir(sp / "images"))
+        got, digests = pyramid_digests(sp), record[name]
+        off = sorted(k for k in set(got) | set(digests) if got.get(k) != digests.get(k))
+        check(not off, f"the {name} capture: {len(got)} pyramid files ({n_src[name]} images x 3) equal the root "
+                       f"script's Pillow output by their digests (off: {off[:5]})")
+        if model is not None:
+            check(sorted(os.listdir(sp / "sparse" / "0")) == sorted(os.listdir(model)) and all(
+                (sp / "sparse" / "0" / f).read_bytes() == (model / f).read_bytes() for f in os.listdir(model)),
+                f"the {name} capture: sparse/* moved into sparse/0, the undistorter's model byte for byte")
+    return times, n_src
+
+
+def convert_path(args, device, summary, iterations=None) -> dict:
+    """Section 36: ``cli.convert`` on the two captures of ``write_captures``
+    through the stand-in colmap, every pyramid file against the root
+    script's digests, the conversion's times, and ``cli.train -i images_2
+    --eval`` on the colmap capture for ``iterations`` steps (default
+    ``CONVERT_ITERATIONS``) with ``cli.render`` and ``cli.metrics``.
+    Returns the K1-K4 launches of that chain ({"train": {...}})."""
+    import statistics
+
+    import torch
+
+    from gaussian_transformer_tpu_torch import native
+    from gaussian_transformer_tpu_torch.cli import convert as cli_convert
+    from gaussian_transformer_tpu_torch.cli import metrics as cli_metrics
+    from gaussian_transformer_tpu_torch.cli import render as cli_render
+    from gaussian_transformer_tpu_torch.cli import train as cli_train
+    from gaussian_transformer_tpu_torch.render import render
+    from gaussian_transformer_tpu_torch.scene import Scene
+    from gaussian_transformer_tpu_torch.scene.gaussians import GaussianScene
+    from gaussian_transformer_tpu_torch.utils import imagefile
+
+    on_card = device.type == "cuda"
+    smi = smi_line(device)
+    iterations = iterations or CONVERT_ITERATIONS
+    t_section = time.perf_counter()
+    print("== 36. the COLMAP conversion driver: cli.convert through a stand-in colmap (a script of this run, not "
+          "COLMAP) with the images_2/4/8 pyramid written as Pillow writes it, with Pillow's import blocked and no "
+          "ImageMagick; "
+          "cli.train -i images_2 --eval, cli.render, cli.metrics")
+    import importlib.util
+
+    tools = {t: shutil.which(t) is not None for t in ("colmap", "magick")}
+    tools["Pillow"] = importlib.util.find_spec("PIL") is not None  # asked, never imported
+    _, build_ms = timed(native.build)
+    print(f"[{smi}] on this machine: {tools}; the tier built from the checkout's sources in {build_ms:.0f} ms: "
+          f"{native.available()} ({native.unavailable_reason() or 'with its JPEG encoder'})")
+    check(native.available(), "the native IO tier is built (the pyramid needs it without ImageMagick)")
+    record = json.loads((CONVERT_DIR / "digests.json").read_text())
+    work = Path(args.work) / "convert"
+    captures = write_captures(work, args.seed)
+    # Pillow's import fails while the captures convert: the pyramid cannot
+    # come from it, here or in a module the converter loads.
+    pil = {m: sys.modules.pop(m) for m in [m for m in sys.modules if m == "PIL" or m.startswith("PIL.")]}
+    sys.modules["PIL"] = None
+    try:
+        times, n_src = convert_captures(captures, record, work)
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(pil)
+    n_img = sum(n_src.values())
+    conv_s = sum(times.values()) / 1e3
+    print(f"[{smi}] host CPUs {os.cpu_count()}: cli.convert --resize: the colmap capture ({n_src['colmap']} views "
+          f"960x540 JPEG) {times['colmap']:.1f} ms, the resize-only capture ({n_src['resize']} files) "
+          f"{times['resize']:.1f} ms; {n_img / conv_s:.2f} images/s ({3 * n_img / conv_s:.1f} pyramid files/s) on "
+          f"{os.cpu_count()} threads")
+
+    big = str(captures["resize"][0] / "images" / "1080p.jpg")
+    scratch = work / "timing"
+    scratch.mkdir()
+    dsts = [(str(scratch / f"{sub}.jpg"), pct) for sub, pct, _ in cli_convert.PYRAMID]
+
+    def pyramid():  # one file of cli.convert's resize_folder: read, resize, encode, write
+        done, error = cli_convert.shrink(big, dsts)
+        if error is not None:
+            raise error
+        for dst, data in done:
+            Path(dst).write_bytes(data)
+
+    pyramid()
+    one = [timed(pyramid)[1] for _ in range(CONVERT_TIMING_CALLS)]
+    img, open_ms = timed(lambda: imagefile.open_image(big))
+    small = {}
+    resize_ms = save_ms = 0.0
+    for dst, pct in dsts:
+        small[dst], ms = timed(lambda: imagefile.resize_image(img, (round(1920 * pct), round(1080 * pct))))
+        resize_ms += ms
+        save_ms += timed(lambda: imagefile.save_image(small[dst], dst))[1]
+    one_ms = statistics.median(one)
+    print(f"[{smi}] 1080p.jpg's pyramid (960x540, 480x270, 240x135 JPEGs) on one thread: median {one_ms:.3f} ms "
+          f"of {len(one)} calls (min {min(one):.3f}, max {max(one):.3f}); one call by stage: decode "
+          f"{open_ms:.3f} ms, 3 resizes {resize_ms:.3f} ms, 3 encodes {save_ms:.3f} ms")
+
+    sp = captures["colmap"][0]
+    random.seed(args.seed)
+    ns = Namespace(sh_degree=1, source_path=str(sp), model_path=str(work / "load"), images="images_2", resolution=-1,
+                   white_background=False, eval=True)
+    loaded = Scene(ns, sh_degree=1, shuffle=False, device=device)
+    test = loaded.get_test_cameras()
+    check(len(test) == 1 and len(loaded.get_train_cameras()) == 7 and all(
+        tuple(c.original_image.shape) == (3, 270, 480) for c in test),
+        "the converted capture loads through Scene from images_2: 7 training views and 1 test view at 480x270")
+
+    def test_psnr(gaussians) -> float:
+        with torch.no_grad():
+            return float(np.mean([psnr_db(torch.clamp(render(c, gaussians)["render"], 0, 1), c.original_image)
+                                  for c in test]))
+
+    before = test_psnr(loaded.gaussians)
+    del loaded
+    model = work / "trained"
+    counters = kernel_counters()
+    zero_counts(counters)
+    dev_arg = [] if on_card else ["--device", str(device)]
+    t0 = time.time()
+    res = cli_train.main(["-s", str(sp), "-m", str(model), "-i", "images_2", "--eval", "--iterations",
+                          str(iterations), "--save_iterations", str(iterations), "--test_iterations",
+                          str(iterations), "--quiet"] + dev_arg)
+    t_train = time.time() - t0
+    cli_render.main(["-m", str(model), "--skip_train", "--quiet"] + dev_arg)
+    scores = cli_metrics.main(["-m", str(model)] + dev_arg)[str(model)][f"ours_{iterations}"]
+    launches = read_counts(counters)
+    losses = [h["loss"] for h in res["history"]]
+    print(f"[{smi}] cli.train -i images_2 --eval, {iterations} steps: {t_train:.1f} s, loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; with cli.render and cli.metrics, launches {launches}")
+    check(len(losses) == iterations and all(math.isfinite(v) for v in losses), "every loss is finite")
+    if on_card:
+        check(launches["K2"] == iterations and launches["K4"] == iterations and min(launches.values()) > 0,
+              f"K1-K4 ran on the converted capture, K2 and K4 once per step ({iterations})")
+    trained = GaussianScene.load_ply(str(model / "point_cloud" / f"iteration_{iterations}" / "point_cloud.ply"), 1,
+                                     device=device)
+    after = test_psnr(trained)
+    print(f"[{smi}] PSNR on the test view: {before:.3f} dB before, {after:.3f} dB after {iterations} steps "
+          f"(cli.metrics: PSNR {scores['PSNR']:.3f} dB, SSIM {scores['SSIM']:.4f})")
+    check(after > before and scores["PSNR"] > before,
+          f"training on the converted images_2 raised the test view's PSNR ({before:.3f} -> {after:.3f} dB)")
+    section_s = time.perf_counter() - t_section
+    print(f"[{smi}] section 36: {section_s:.1f} s")
+    summary.update(convert_path={"cpus": os.cpu_count(), "smi": smi, "tools": tools, "build_ms": build_ms,
+                                 "convert_ms": times,
+                                 "images": n_src, "images_per_s": n_img / conv_s, "pyramid_1080p_ms": one,
+                                 "pyramid_1080p_median_ms": one_ms, "decode_ms": open_ms, "resize_ms": resize_ms,
+                                 "encode_ms": save_ms, "train_s": t_train, "iterations": iterations,
+                                 "psnr_before": before, "psnr_after": after, "metrics": scores,
+                                 "launches": launches, "section_s": section_s})
+    return {"train": launches}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5066,6 +5418,7 @@ def main(argv=None) -> int:
         add_path_launches(summary["kernels"], "gate_launches", gate_path(args, device, summary))
         add_path_launches(summary["kernels"], "jpeg_launches", summary["jpeg_launches"])
         add_path_launches(summary["kernels"], "image_launches", summary["image_launches"])
+        add_path_launches(summary["kernels"], "convert_launches", summary["convert_launches"])
         add_path_launches(summary["kernels"], "viewer_launches",
                           {**summary["viewer_launches"], "stacked_stream": summary["stacked_stream_launches"],
                            **summary["stacked_stream_fsdp_launches"]})

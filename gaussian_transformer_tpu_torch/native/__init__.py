@@ -3,7 +3,9 @@
 COLMAP binary parsers, float32 PLY vertex tables and a thread-pool
 JPEG/PNG decoder with a bilinear resize: the same C ABI and the same
 Python functions as the JAX package's native tier, in the port's own copy,
-plus an RGBA output (``load_images(..., rgba=True)``).
+plus an RGBA output (``load_images(..., rgba=True)``), the samples a file
+holds in the mode Pillow opens it in (``image_samples``) and a JPEG
+encoder (``encode_jpeg``).
 
 Images decode with the tier's own decoders, so they need no library (no
 libjpeg, libpng or zlib): wherever the tier builds, ``codecs()`` holds
@@ -15,13 +17,17 @@ libjpeg, libpng or zlib): wherever the tier builds, ``codecs()`` holds
 * ``png.cpp``: every colour type and bit depth, all filters, Adam7, PLTE
   and tRNS, with its own inflate. Its RGB output is the JAX tier's libpng
   path; its RGBA output is Pillow's ``convert("RGBA")``.
+* ``jpeg_encode.cpp``: Pillow's ``save`` of an "L" or "RGB" JPEG with no
+  options (libjpeg-turbo's baseline path: quality 75, 4:2:0, the islow
+  DCT, Annex K's Huffman tables), byte for byte.
 A file it cannot decode raises ``IOError`` naming the file and the feature
 or fault (for a JPEG: 12-bit, lossless, hierarchical, 2 or 4 components,
 fractional sampling, as the JAX tier's libjpeg refuses them).
 
 At first use the library is built with ``g++ -O3 -fPIC -std=c++17 -shared
-gt_native.cpp jpeg.cpp png.cpp -lpthread`` into ``build/torch_native/`` at
-the repository root, under a name keyed by a hash of the sources and the
+gt_native.cpp jpeg.cpp png.cpp jpeg_encode.cpp -lpthread`` into
+``build/torch_native/`` at the repository root, under a name keyed by a
+hash of the sources, the header they share (``jpeg_tables.h``) and the
 flags. The build writes a temporary file and renames it into place, so
 processes that build at once never load a half-written library. Without a
 compiler the tier is unavailable (``available()`` is False,
@@ -43,8 +49,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-SOURCES = [Path(__file__).resolve().parent / name for name in ("gt_native.cpp", "jpeg.cpp", "png.cpp")]
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_native"
+_HERE = Path(__file__).resolve().parent
+SOURCES = [_HERE / name for name in ("gt_native.cpp", "jpeg.cpp", "png.cpp", "jpeg_encode.cpp")]
+HEADERS = [_HERE / "jpeg_tables.h"]
+BUILD_DIR = _HERE.parent.parent / "build" / "torch_native"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
 CODECS = ("jpeg", "png")
 
@@ -65,7 +73,7 @@ def compiler() -> Optional[str]:
 
 
 def library_path() -> Path:
-    key = b"".join(src.read_bytes() for src in SOURCES) + " ".join(CXX_FLAGS).encode()
+    key = b"".join(src.read_bytes() for src in SOURCES + HEADERS) + " ".join(CXX_FLAGS).encode()
     digest = hashlib.sha256(key).hexdigest()[:16]
     return BUILD_DIR / f"libgt_native-{digest}.so"
 
@@ -154,6 +162,11 @@ def _bind(lib) -> None:
         ]
     lib.gt_image_size.argtypes = [c.c_char_p, c.POINTER(c.c_int), c.POINTER(c.c_int)]
     lib.gt_image_error.argtypes = [c.c_char_p, c.c_char_p, c.c_int]
+    lib.gt_image_samples.argtypes = [c.c_char_p, c.POINTER(c.c_int32), c.POINTER(c.c_void_p), c.c_char_p, c.c_int]
+    lib.gt_jpeg_encode.argtypes = [
+        c.POINTER(c.c_uint8), c.c_int, c.c_int, c.c_int, c.c_char_p, c.c_int,
+        c.POINTER(c.POINTER(c.c_uint8)), c.POINTER(c.c_uint64),
+    ]
 
 
 def available() -> bool:
@@ -345,3 +358,55 @@ def decode_folder(paths: List[str], threads: int = 0, rgba: bool = False) -> Dic
         for p, arr in zip(group, load_images(group, w, h, threads, rgba)):
             out[p] = arr
     return out
+
+
+def image_samples(path: str) -> Tuple[str, np.ndarray]:
+    """The samples of a JPEG or PNG (told by its content) in the mode Pillow
+    opens it in: ("JPEG", uint8 [H, W, 1 or 3]) for a grayscale or colour
+    JPEG, or ("PNG", [H, W, C]) at the file's own depth: C by its colour
+    type, uint8 values below 2 ** depth for depths 1-8 (palette indices for
+    colour type 3), uint16 for 16. A file the tier cannot decode raises
+    ``IOError`` naming it and why; the tier unavailable raises
+    ``CodecUnavailable`` naming its reason."""
+    lib = _load()
+    if lib is None:
+        raise CodecUnavailable(f"{path}: decoding an image needs the native IO tier "
+                               f"(gaussian_transformer_tpu_torch/native): unavailable: {_why}")
+    info = (ctypes.c_int32 * 5)()
+    buf = ctypes.c_void_p()
+    msg = ctypes.create_string_buffer(512)
+    rc = lib.gt_image_samples(path.encode(), info, ctypes.byref(buf), msg, len(msg))
+    if rc != 0:
+        raise IOError(f"{path}: {msg.value.decode(errors='replace') or 'decode failed'} (status {rc})")
+    fmt, w, h, c, depth = (int(v) for v in info)
+    dtype = np.uint16 if depth == 16 else np.uint8
+    ptr = ctypes.cast(buf, ctypes.POINTER(ctypes.c_uint16 if depth == 16 else ctypes.c_uint8))
+    return ("PNG" if fmt else "JPEG"), _take(ptr, (h, w, c), dtype, lib)
+
+
+def encode_jpeg(samples: np.ndarray, comment: bytes = b"") -> bytes:
+    """uint8 [H, W] or [H, W, 1] ("L") or [H, W, 3] ("RGB") -> the JPEG file
+    Pillow's ``Image.save(path)`` writes for it with no options (quality 75,
+    4:2:0 for RGB), with ``comment`` as its COM segment where given, as
+    Pillow writes the comment an opened JPEG carried. Byte for byte with
+    Pillow 12.1.0's libjpeg-turbo 3.1.3."""
+    lib = _lib_or_raise()
+    arr = np.ascontiguousarray(samples)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] not in (1, 3):
+        raise ValueError(f"encode_jpeg takes uint8 [H, W] or [H, W, 1 or 3], got {arr.dtype} {arr.shape}")
+    h, w, c = arr.shape
+    if not (0 < w <= 65535 and 0 < h <= 65535) or len(comment) > 65533:
+        raise ValueError(f"a JPEG holds 1..65535 pixels a side and a comment of up to 65533 bytes: "
+                         f"{w}x{h}, {len(comment)} B")
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_uint64()
+    rc = lib.gt_jpeg_encode(arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), w, h, c, comment or None,
+                            len(comment), ctypes.byref(out), ctypes.byref(n))
+    if rc != 0:
+        raise MemoryError(f"gt_jpeg_encode failed (rc={rc})")
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.gt_free(ctypes.cast(out, ctypes.c_void_p))

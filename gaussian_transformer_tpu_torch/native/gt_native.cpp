@@ -5,12 +5,15 @@
 //   * a binary-little-endian float32 PLY vertex-table reader and writer
 //   * a thread-pool JPEG/PNG decoder with a bilinear resize, to RGB (the
 //     JAX tier's output) or RGBA (gt_load_images_rgba)
+//   * an image's samples in the mode Pillow opens it in (gt_image_samples),
+//     for the COLMAP converter's pyramid, which jpeg_encode.cpp's
+//     gt_jpeg_encode writes back
 // The C ABI is the JAX package's native tier's (native/gt_native.cpp at the
-// repository root), plus gt_codecs(), gt_load_images_rgba() and
-// gt_image_error(). Images go through the tier's own decoders, compiled
-// into the same library (jpeg.cpp, png.cpp), so they need no library: no
-// libjpeg, libpng or zlib. Python binds it through ctypes
-// (native/__init__.py).
+// repository root), plus gt_codecs(), gt_load_images_rgba(),
+// gt_image_error(), gt_image_samples() and gt_jpeg_encode(). Images go
+// through the tier's own codecs, compiled into the same library (jpeg.cpp,
+// png.cpp, jpeg_encode.cpp), so they need no library: no libjpeg, libpng or
+// zlib. Python binds it through ctypes (native/__init__.py).
 
 #include <cstdint>
 #include <cstdio>
@@ -26,9 +29,13 @@
 // jpeg.cpp
 uint8_t* gt_jpeg_decode(const uint8_t* data, size_t size, int* w, int* h, int* status, std::string* why);
 int gt_jpeg_size(const uint8_t* data, size_t size, int* w, int* h);
+uint8_t* gt_jpeg_samples(const uint8_t* data, size_t size, int* w, int* h, int* channels, int* status,
+                         std::string* why);
 // png.cpp
 uint8_t* gt_png_decode(const uint8_t* data, size_t size, int channels, int* w, int* h, int* status,
                        std::string* why);
+void* gt_png_samples(const uint8_t* data, size_t size, int* w, int* h, int* channels, int* depth, int* status,
+                     std::string* why);
 
 extern "C" {
 
@@ -353,6 +360,33 @@ int gt_image_error(const char* path, char* msg, int len) {
   free(out);
   snprintf(msg, (size_t)len, "%s", why.c_str());
   return status;
+}
+
+// An image's samples as Pillow opens it, the format told by its content
+// (the PNG signature, else JPEG): info = {format (0 JPEG, 1 PNG), width,
+// height, channels, depth}; *out a malloc'd buffer (gt_jpeg_samples,
+// gt_png_samples). Returns 0, or the decoder's status with the reason in
+// msg (at most len bytes).
+int gt_image_samples(const char* path, int32_t* info, void** out, char* msg, int len) {
+  std::vector<uint8_t> buf;
+  std::string why;
+  int w = 0, h = 0, channels = 0, depth = 8, status = -1;
+  *out = nullptr;
+  if (!slurp(path, buf)) {
+    why = "cannot read the file";
+  } else if (buf.size() >= 8 && memcmp(buf.data(), "\x89PNG\r\n\x1a\n", 8) == 0) {
+    info[0] = 1;
+    *out = gt_png_samples(buf.data(), buf.size(), &w, &h, &channels, &depth, &status, &why);
+  } else {
+    info[0] = 0;
+    *out = gt_jpeg_samples(buf.data(), buf.size(), &w, &h, &channels, &status, &why);
+  }
+  info[1] = w;
+  info[2] = h;
+  info[3] = channels;
+  info[4] = depth;
+  snprintf(msg, (size_t)len, "%s", why.c_str());
+  return *out ? 0 : status;
 }
 
 }  // extern "C"

@@ -57,14 +57,11 @@
 #include <string>
 #include <vector>
 
+#include "jpeg_tables.h"
+
 namespace {
 
-// jutils.c jpeg_natural_order, with its 16 guard entries for corrupt runs.
-const int kNatural[64 + 16] = {
-    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,  12, 19, 26, 33,
-    40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
-    29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
-    47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+using namespace gt_jpeg;
 
 // Statuses: gt_load_images passes them on per image, and gt_image_error
 // returns them with the message.
@@ -77,6 +74,7 @@ enum Status {
   kHierarchical = -6,
   kComponents = -7,
   kSampling = -8,
+  kTruncated = -9,  // the samples decode only: Pillow's open refuses a file cut before EOI
 };
 
 struct Failure {
@@ -101,35 +99,6 @@ struct Huff {
   uint8_t vals[256];
   uint16_t look[1 << kLook];
 };
-
-// jstdhuff.c: Annex K's tables (K.3), which jdhuff.c takes for slots 0
-// and 1 when no DHT defined them.
-const uint8_t kStdBits[4][17] = {
-    {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},      // DC luminance
-    {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0},      // DC chrominance
-    {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},   // AC luminance
-    {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};  // AC chrominance
-const uint8_t kStdDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
-const uint8_t kStdAcLuma[162] = {
-    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22, 0x71,
-    0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
-    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37,
-    0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
-    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
-    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
-    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
-    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
-    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
-const uint8_t kStdAcChroma[162] = {
-    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71, 0x13, 0x22,
-    0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
-    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36,
-    0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
-    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
-    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
-    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
-    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
-    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 HuffSpec standard_table(bool dc, int index) {
   HuffSpec s;
@@ -1341,15 +1310,27 @@ void Decoder::output(uint8_t* rgb) {
 
 }  // namespace
 
-// Decode a JPEG held in memory to RGB8 (malloc'd, width x height x 3).
-// Returns null and sets *status (a Status) and `why` when it cannot.
-uint8_t* gt_jpeg_decode(const uint8_t* data, size_t size, int* w, int* h, int* status, std::string* why) {
+// Decode a JPEG held in memory to RGB8 (malloc'd, width x height x 3), or
+// with `native` to the samples Pillow opens it to: one channel ("L") for a
+// one-component file, RGB for three (*channels says which), and a file
+// whose data ends before EOI refused, as Pillow's load refuses it. Returns null
+// and sets *status (a Status) and `why` when it cannot.
+static uint8_t* decode(const uint8_t* data, size_t size, bool native, int* w, int* h, int* channels, int* status,
+                       std::string* why) {
   try {
     Decoder d(data, size);
     d.parse();
-    uint8_t* out = (uint8_t*)malloc((size_t)d.width * d.height * 3);
+    if (native && d.in.fake)  // libjpeg reads on (a warning); Pillow's load raises "image file is truncated"
+      fail(kTruncated, "image file is truncated (the data ends before EOI)");
+    const size_t n = (size_t)d.width * d.height;
+    uint8_t* out = (uint8_t*)malloc(n * 3);
     if (!out) fail(kUnreadable, "out of memory");
     d.output(out);
+    *channels = 3;
+    if (native && d.comps.size() == 1) {  // gray_rgb_convert replicated the plane: keep one copy
+      for (size_t i = 0; i < n; i++) out[i] = out[3 * i];
+      *channels = 1;
+    }
     *w = d.width;
     *h = d.height;
     *status = kOk;
@@ -1362,6 +1343,16 @@ uint8_t* gt_jpeg_decode(const uint8_t* data, size_t size, int* w, int* h, int* s
     if (why) *why = e.what();
   }
   return nullptr;
+}
+
+uint8_t* gt_jpeg_decode(const uint8_t* data, size_t size, int* w, int* h, int* status, std::string* why) {
+  int channels;
+  return decode(data, size, false, w, h, &channels, status, why);
+}
+
+uint8_t* gt_jpeg_samples(const uint8_t* data, size_t size, int* w, int* h, int* channels, int* status,
+                         std::string* why) {
+  return decode(data, size, true, w, h, channels, status, why);
 }
 
 // The frame's size from the first SOFn (any of them), reading markers up to

@@ -530,3 +530,35 @@ uint8_t* gt_png_decode(const uint8_t* data, size_t size, int channels, int* w, i
   }
   return nullptr;
 }
+
+// A PNG's samples as the file holds them, for Pillow's modes: width x height
+// x channels values at the file's depth (1, 2, 4 and 8 bits one a byte, 16
+// bits one a uint16), malloc'd; *channels and *depth from IHDR. Palette and
+// tRNS are the caller's to read. Returns null and sets *status and `why`
+// when it cannot.
+void* gt_png_samples(const uint8_t* data, size_t size, int* w, int* h, int* channels, int* depth, int* status,
+                     std::string* why) {
+  try {
+    Png png = parse(data, size);
+    const size_t n = png.samples.size(), each = png.depth == 16 ? 2 : 1;
+    void* out = malloc(n * each);
+    if (!out) fail("out of memory", kUnreadable);
+    if (each == 2)
+      memcpy(out, png.samples.data(), n * 2);
+    else
+      for (size_t i = 0; i < n; i++) ((uint8_t*)out)[i] = (uint8_t)png.samples[i];
+    *w = (int)png.width;
+    *h = (int)png.height;
+    *channels = png.channels;
+    *depth = png.depth;
+    *status = kOk;
+    return out;
+  } catch (const Failure& f) {
+    *status = f.status;
+    if (why) *why = f.what;
+  } catch (const std::exception& e) {
+    *status = kUnreadable;
+    if (why) *why = e.what();
+  }
+  return nullptr;
+}

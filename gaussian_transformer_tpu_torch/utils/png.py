@@ -21,9 +21,10 @@ checks it. Three views of a file:
   to 255, not cut to its high byte) and where it matches a tRNS key (on
   the 8-bit samples: see ``_pillow_key_alpha``).
 
-The writer emits 8-bit, filter type 0 rows. Unfiltering is vectorised in
-numpy but for the Average and Paeth rows, whose bytes depend on their left
-neighbour and run serially.
+The writer emits every mode Pillow saves (gray at 1, 8 and 16 bits,
+gray+alpha, RGB, RGBA, palette with PLTE and tRNS) in filter type 0 rows.
+Unfiltering is vectorised in numpy but for the Average and Paeth rows,
+whose bytes depend on their left neighbour and run serially.
 """
 
 from __future__ import annotations
@@ -62,25 +63,65 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     )
 
 
-def write_png(path: str, image: np.ndarray, level: int = 6) -> None:
-    """Write a uint8 image [H, W] or [H, W, C] with C in {1, 2, 3, 4}."""
+def _pack(rows: np.ndarray, depth: int) -> np.ndarray:
+    """[h, w * c] sample values -> [h, stride] bytes at ``depth``, big-endian
+    and most significant bits first, the last byte of a row zero-padded."""
+    h, n = rows.shape
+    if depth == 16:
+        return rows.astype(">u2").view(np.uint8).reshape(h, 2 * n)
+    if depth == 8:
+        return rows.astype(np.uint8)
+    per = 8 // depth
+    vals = np.zeros((h, -(-n // per) * per), np.uint8)
+    vals[:, :n] = rows
+    shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+    return np.bitwise_or.reduce(vals.reshape(h, -1, per) << shifts, axis=2).astype(np.uint8)
+
+
+def write_png(path: str, image: np.ndarray, level: int = 6, **header) -> None:
+    """Write ``encode_png(image, level, **header)`` to ``path``."""
+    data = encode_png(image, level, **header)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(image: np.ndarray, level: int = 6, *, depth: int = 8, palette: Optional[bytes] = None,
+               trns: Optional[bytes] = None, icc: Optional[bytes] = None) -> bytes:
+    """The PNG file of an image [H, W] or [H, W, C] with C in {1, 2, 3, 4}: gray,
+    gray+alpha, RGB, RGBA at ``depth`` 8 (uint8) or 16 (uint16); gray also
+    at 1, 2 and 4 (uint8 values below 2 ** depth). With ``palette`` (the
+    PLTE's bytes) C is 1 and the samples are indices (colour type 3, depth
+    1, 2, 4 or 8). ``trns`` is the tRNS chunk's bytes; ``icc`` a profile,
+    written as Pillow writes it (iCCP "ICC Profile", zlib's default level).
+    Chunks come in Pillow's order: IHDR, iCCP, PLTE, tRNS, IDAT, IEND; rows
+    take filter type 0."""
     arr = np.asarray(image)
-    if arr.dtype != np.uint8:
-        raise ValueError(f"write_png takes uint8 images, got {arr.dtype}")
     if arr.ndim == 2:
         arr = arr[:, :, None]
-    if arr.ndim != 3 or arr.shape[2] not in _COLOR_TYPE:
+    if arr.ndim != 3 or arr.shape[2] not in _COLOR_TYPE or (palette is not None and arr.shape[2] != 1):
         raise ValueError(f"unsupported image shape {arr.shape}")
     h, w, c = arr.shape
-    rows = np.empty((h, 1 + w * c), np.uint8)
-    rows[:, 0] = 0  # filter type 0 (None) on every row
-    rows[:, 1:] = np.ascontiguousarray(arr).reshape(h, w * c)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(_chunk(b"IHDR", ihdr))
-        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), level)))
-        f.write(_chunk(b"IEND", b""))
+    color_type = 3 if palette is not None else _COLOR_TYPE[c]
+    if depth not in _DEPTHS[color_type]:
+        raise ValueError(f"bit depth {depth} is not allowed for colour type {color_type}")
+    if arr.dtype != (np.uint16 if depth == 16 else np.uint8):
+        raise ValueError(f"write_png takes {'uint16' if depth == 16 else 'uint8'} samples at depth {depth}, "
+                         f"got {arr.dtype}")
+    if depth < 8 and arr.size and int(arr.max()) >= 1 << depth:
+        raise ValueError(f"a sample of {int(arr.max())} does not fit in {depth} bits")
+    packed = _pack(np.ascontiguousarray(arr).reshape(h, w * c), depth)
+    rows = np.zeros((h, 1 + packed.shape[1]), np.uint8)  # filter type 0 (None) on every row
+    rows[:, 1:] = packed
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)
+    parts = [_SIGNATURE, _chunk(b"IHDR", ihdr)]
+    if icc:
+        parts.append(_chunk(b"iCCP", b"ICC Profile\0\0" + zlib.compress(icc)))
+    if palette is not None:
+        parts.append(_chunk(b"PLTE", bytes(palette)))
+    if trns is not None:
+        parts.append(_chunk(b"tRNS", bytes(trns)))
+    parts += [_chunk(b"IDAT", zlib.compress(rows.tobytes(), level)), _chunk(b"IEND", b"")]
+    return b"".join(parts)
 
 
 def _paeth_row(line: list, up: list, bpp: int) -> list:

@@ -17,6 +17,16 @@ without Pillow, in the same steps:
 RGBA (and LA) is resized through premultiplied alpha, as Pillow resizes
 it through ``RGBa``/``La`` and converts back. Every step is integer
 arithmetic on numpy arrays, one loop over the taps.
+
+The other modes a PNG opens in, as Pillow 12.1.0 resizes them:
+* ``I;16`` (16-bit gray, uint16 here): the same taps with the float64
+  weights (no fixed point), each output rounded half away from zero, its
+  low and high bytes each clipped to 0..255 (``ImagingResample`` on
+  ``I;16``: an overshoot above 65535 keeps its low byte), per pass;
+* ``1`` and ``P``, for which ``resize`` switches to NEAREST
+  (``resize_nearest``): ``ImagingScaleAffine``'s source index
+  ``int(x0)`` with ``x0 = scale / 2`` advanced by ``scale`` one output
+  column at a time, in float64 as Pillow accumulates it.
 """
 
 from __future__ import annotations
@@ -37,9 +47,9 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-def coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Pillow's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for one
-    axis: (first tap [out], taps used [out], fixed-point weights [out, ksize])."""
+def _weights(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pillow's ``precompute_coeffs`` for one axis: (first tap [out], taps
+    used [out], float64 weights [out, ksize] normalised to sum 1)."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = 2.0 * filterscale
@@ -54,6 +64,13 @@ def coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, n
         w[:, x] = np.where(x < xmax, _bicubic((x + xmin - center + 0.5) * ss), 0.0)
         ww = ww + w[:, x]
     w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    return xmin, xmax, w
+
+
+def coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pillow's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for one
+    axis: (first tap [out], taps used [out], fixed-point weights [out, ksize])."""
+    xmin, xmax, w = _weights(in_size, out_size)
     scaled = w * (1 << PRECISION_BITS)
     fixed = np.trunc(np.where(w < 0, -0.5 + scaled, 0.5 + scaled)).astype(np.int64)
     return xmin, xmax, fixed
@@ -73,6 +90,44 @@ def _pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
         idx = np.minimum(xmin + x, in_size - 1)  # a tap past xmax has weight 0
         acc += np.take(src, idx, axis=axis) * k[:, x].reshape(shape)
     return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def _pass16(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One ``I;16`` pass along ``axis`` of uint16 [H, W, 1]."""
+    in_size = img.shape[axis]
+    xmin, _, k = _weights(in_size, out_size)
+    shape = [1, 1, 1]
+    shape[axis] = out_size
+    acc = np.zeros(img.shape[:axis] + (out_size,) + img.shape[axis + 1:])
+    src = img.astype(np.float64)
+    for x in range(k.shape[1]):  # summed in tap order, as Pillow sums them
+        idx = np.minimum(xmin + x, in_size - 1)
+        acc += np.take(src, idx, axis=axis) * k[:, x].reshape(shape)
+    v = np.trunc(np.where(acc >= 0, acc + 0.5, acc - 0.5)).astype(np.int64)
+    lo = np.clip(np.fmod(v, 256), 0, 255)  # C's %: negative for a negative sum, then clipped
+    hi = np.clip(v >> 8, 0, 255)
+    return (lo + (hi << 8)).astype(np.uint16)
+
+
+def nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """``ImagingScaleAffine``'s source index of each output column or row."""
+    scale = in_size / out_size
+    pos = scale * 0.5
+    idx = np.empty(out_size, np.int64)
+    for x in range(out_size):  # accumulated, as Pillow accumulates it
+        idx[x] = int(pos)
+        pos += scale
+    return np.minimum(idx, in_size - 1)
+
+
+def resize_nearest(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """[H, W, ...] of any dtype -> [h, w, ...] at ``size`` = (w, h), as
+    ``Image.resize`` returns a "1" or "P" image (NEAREST)."""
+    w, h = size
+    if w <= 0 or h <= 0:
+        raise ValueError(f"bad size {size}")
+    img = np.asarray(image)
+    return np.ascontiguousarray(img[nearest_index(img.shape[0], h)][:, nearest_index(img.shape[1], w)])
 
 
 def _premultiply(img: np.ndarray) -> np.ndarray:
@@ -96,16 +151,25 @@ def _unpremultiply(img: np.ndarray) -> np.ndarray:
 
 
 def resize(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """uint8 [H, W, C] (C = 1 L, 2 LA, 3 RGB, 4 RGBA) -> uint8 [h, w, C] at
-    ``size`` = (w, h), as ``Image.fromarray(image).resize(size)`` returns it."""
+    """uint8 [H, W, C] (C = 1 L, 2 LA, 3 RGB, 4 RGBA) or uint16 [H, W, 1]
+    (I;16) -> the same at ``size`` = (w, h), as ``Image.resize(size)``
+    returns it (BICUBIC)."""
     img = np.ascontiguousarray(image)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (1, 2, 3, 4):
-        raise ValueError(f"resize takes uint8 [H, W, C] with C in 1..4, got {img.dtype} {img.shape}")
+    i16 = img.dtype == np.uint16 and img.ndim == 3 and img.shape[2] == 1
+    if not i16 and (img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (1, 2, 3, 4)):
+        raise ValueError(f"resize takes uint8 [H, W, C] with C in 1..4 or uint16 [H, W, 1], "
+                         f"got {img.dtype} {img.shape}")
     w, h = size
     if w <= 0 or h <= 0:
         raise ValueError(f"bad size {size}")
     if (h, w) == img.shape[:2]:
         return img.copy()
+    if i16:
+        if w != img.shape[1]:
+            img = _pass16(img, 1, w)
+        if h != img.shape[0]:
+            img = _pass16(img, 0, h)
+        return img
     alpha = img.shape[2] in (2, 4)
     if alpha:
         img = _premultiply(img)
