@@ -1969,7 +1969,7 @@ def trace_path(args, device, summary) -> None:
 
     from gaussian_transformer_tpu_torch.convert import scene_from_numpy
     from gaussian_transformer_tpu_torch.render import RenderConfig, render
-    from gaussian_transformer_tpu_torch.utils.profiling import annotate, device_memory_stats, trace
+    from gaussian_transformer_tpu_torch.utils.profiling import device_memory_stats, span, trace
 
     print("== 27. utils/profiling.trace around one bf16 render of test view 0")
     t_sec = time.time()
@@ -1980,7 +1980,7 @@ def trace_path(args, device, summary) -> None:
     with torch.no_grad():
         render(cam, scene, RenderConfig(precision="bf16"))
         with trace(str(logdir)):
-            with annotate("bf16_render"):
+            with span("bf16_render"):
                 render(cam, scene, RenderConfig(precision="bf16"))
     files = sorted(logdir.glob("*.pt.trace.json"))
     check(len(files) == 1, f"one Chrome trace written into {logdir} ({[f.name for f in files]})")

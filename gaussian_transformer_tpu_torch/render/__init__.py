@@ -52,6 +52,7 @@ from gaussian_transformer_tpu_torch.render.tiles import (
     compute_rects,
     num_tiles,
 )
+from gaussian_transformer_tpu_torch.utils.profiling import span
 
 __all__ = ["render", "render_naive", "RenderConfig", "TILE", "tune_config", "prepare_stream", "prepare_table"]
 
@@ -221,22 +222,24 @@ def prepare_stream(viewpoint_camera, pc, cfg: RenderConfig = RenderConfig(),
         raise NotImplementedError(
             "render() runs the row layout; the transposed stream compositor (K7, K8) is "
             "gaussian_transformer_tpu_torch.attic.stream_t.stream_image_t")
-    proj, means2d, include, grid_w, grid_h = _project_for_binning(
-        viewpoint_camera, pc, cfg, scaling_modifier, override_color, screenspace_offset)
-    binned = bin_stream(
-        means2d.detach(),
-        proj.depths.detach(),
-        proj.rect_bin,
-        include,
-        proj.conics.detach() if cfg.tile_cull else None,
-        proj.opacities.detach() if cfg.tile_cull else None,
-        grid_w=grid_w,
-        grid_h=grid_h,
-        max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
-        max_instances=cfg.max_instances,
-        max_stream=cfg.max_stream,
-        chunk=_auto_chunk(means2d.shape[0], grid_w * grid_h, cfg),
-    )
+    with span("render.project"):
+        proj, means2d, include, grid_w, grid_h = _project_for_binning(
+            viewpoint_camera, pc, cfg, scaling_modifier, override_color, screenspace_offset)
+    with span("render.bin"):
+        binned = bin_stream(
+            means2d.detach(),
+            proj.depths.detach(),
+            proj.rect_bin,
+            include,
+            proj.conics.detach() if cfg.tile_cull else None,
+            proj.opacities.detach() if cfg.tile_cull else None,
+            grid_w=grid_w,
+            grid_h=grid_h,
+            max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+            max_instances=cfg.max_instances,
+            max_stream=cfg.max_stream,
+            chunk=_auto_chunk(means2d.shape[0], grid_w * grid_h, cfg),
+        )
     return StreamInputs(proj, means2d, binned, grid_w, grid_h)
 
 
@@ -292,42 +295,46 @@ def render(
     override_color: Optional[torch.Tensor] = None,
     screenspace_offset: Optional[torch.Tensor] = None,
 ):
-    """Render a GaussianScene from a Camera/MiniCam on the scene's device."""
-    dev = pc.get_xyz.device
-    bg = torch.zeros(3, device=dev) if bg_color is None else torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
-    args = (viewpoint_camera, pc, cfg, scaling_modifier, override_color, screenspace_offset)
-    if cfg.use_pallas and cfg.use_stream:
-        s = prepare_stream(*args)
-        p = s.proj
-        img_pad, t_pad = stream_image(
-            s.binned, s.means2d, p.conics, p.rgbs, p.opacities, bg, grid_w=s.grid_w, grid_h=s.grid_h,
-            # As in the reference, only "bf16" selects the bf16 rows.
-            precision="bf16" if cfg.precision == "bf16" else "fp32",
-        )
-        extra = {"n_padded": s.binned.n_padded, "n_tiles": s.grid_w * s.grid_h}
-    elif cfg.use_pallas:
-        # The reference's composite_image_pallas: build the table, K5, blend.
-        s = prepare_table(*args)
-        color, final_t = composite_table_tiles(s.props(), s.binned.tile_counts, s.grid_w)
-        img_pad, t_pad = tiles_to_image(color, final_t, None, bg, grid_w=s.grid_w, grid_h=s.grid_h)
-        extra = {}
-    else:
-        # The reference's composite_image on the same depth-sorted lists.
-        s = prepare_table(*args)
-        img_pad, t_pad = composite_image(s.binned.tile_lists, *s.sorted_props(), bg, grid_w=s.grid_w,
-                                         grid_h=s.grid_h, tile_block=cfg.tile_block)
-        extra = {}
-    H, W = viewpoint_camera.image_height, viewpoint_camera.image_width
-    return {
-        "render": img_pad[:, :H, :W],
-        "viewspace_points": screenspace_offset,
-        "visibility_filter": s.proj.radii > 0,
-        "radii": s.proj.radii,
-        "final_T": t_pad[:H, :W],
-        "overflow": s.binned.overflow,
-        "n_instances": s.binned.n_instances,
-        **extra,
-    }
+    """Render a GaussianScene from a Camera/MiniCam on the scene's device
+    (the span ``render``; on the stream path its children ``render.project``,
+    ``render.bin``, ``render.gather`` and ``render.composite``)."""
+    with span("render"):
+        dev = pc.get_xyz.device
+        bg = (torch.zeros(3, device=dev) if bg_color is None
+              else torch.as_tensor(bg_color, dtype=torch.float32, device=dev))
+        args = (viewpoint_camera, pc, cfg, scaling_modifier, override_color, screenspace_offset)
+        if cfg.use_pallas and cfg.use_stream:
+            s = prepare_stream(*args)
+            p = s.proj
+            img_pad, t_pad = stream_image(
+                s.binned, s.means2d, p.conics, p.rgbs, p.opacities, bg, grid_w=s.grid_w, grid_h=s.grid_h,
+                # As in the reference, only "bf16" selects the bf16 rows.
+                precision="bf16" if cfg.precision == "bf16" else "fp32",
+            )
+            extra = {"n_padded": s.binned.n_padded, "n_tiles": s.grid_w * s.grid_h}
+        elif cfg.use_pallas:
+            # The reference's composite_image_pallas: build the table, K5, blend.
+            s = prepare_table(*args)
+            color, final_t = composite_table_tiles(s.props(), s.binned.tile_counts, s.grid_w)
+            img_pad, t_pad = tiles_to_image(color, final_t, None, bg, grid_w=s.grid_w, grid_h=s.grid_h)
+            extra = {}
+        else:
+            # The reference's composite_image on the same depth-sorted lists.
+            s = prepare_table(*args)
+            img_pad, t_pad = composite_image(s.binned.tile_lists, *s.sorted_props(), bg, grid_w=s.grid_w,
+                                             grid_h=s.grid_h, tile_block=cfg.tile_block)
+            extra = {}
+        H, W = viewpoint_camera.image_height, viewpoint_camera.image_width
+        return {
+            "render": img_pad[:, :H, :W],
+            "viewspace_points": screenspace_offset,
+            "visibility_filter": s.proj.radii > 0,
+            "radii": s.proj.radii,
+            "final_T": t_pad[:H, :W],
+            "overflow": s.binned.overflow,
+            "n_instances": s.binned.n_instances,
+            **extra,
+        }
 
 
 def render_naive(viewpoint_camera, pc, bg_color=None, scaling_modifier: float = 1.0,

@@ -56,6 +56,7 @@ import torch
 
 from gaussian_transformer_tpu_torch.kernels import CudaKernel
 from gaussian_transformer_tpu_torch.render.tiles import TILE
+from gaussian_transformer_tpu_torch.utils.profiling import count, span
 
 P = TILE * TILE
 PROPS_F = 16
@@ -569,10 +570,13 @@ def stream_image(binned, means2d, conics, rgbs, opac, bg, *, grid_w: int, grid_h
     the instance stream. The property arrays are in the original per-Gaussian
     order that ``binned.stream_gauss`` indexes; ``precision`` is the
     compositor's row type ("fp32" or "bf16")."""
-    stream_gauss, chunk_tile = used_stream(binned)
-    props = stream_gather(pack_props(means2d, conics, rgbs, opac), binned, stream_gauss)
-    color, final_t = composite_stream_tiles(props, chunk_tile, binned.tile_counts, grid_w, grid_h, precision)
-    return tiles_to_image(color, final_t, binned.covered, bg, grid_w=grid_w, grid_h=grid_h)
+    with span("render.gather"):
+        stream_gauss, chunk_tile = used_stream(binned)
+        count("render.rows_used", stream_gauss.shape[0])
+        props = stream_gather(pack_props(means2d, conics, rgbs, opac), binned, stream_gauss)
+    with span("render.composite"):
+        color, final_t = composite_stream_tiles(props, chunk_tile, binned.tile_counts, grid_w, grid_h, precision)
+        return tiles_to_image(color, final_t, binned.covered, bg, grid_w=grid_w, grid_h=grid_h)
 
 
 def tiles_to_image(color, final_t, covered, bg, *, grid_w: int, grid_h: int):

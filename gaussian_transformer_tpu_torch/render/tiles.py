@@ -19,6 +19,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from gaussian_transformer_tpu_torch.utils.profiling import count
+
 TILE = 16  # pixels per tile side
 CHUNK = 32  # rows per compositor chunk (stream layout granularity)
 
@@ -240,6 +242,7 @@ def bin_stream(
     dev = means2d.device
     i64 = torch.int64
     I = max_instances if max_instances > 0 else max(8192, 16 * C)
+    count("render.slots_sorted", I)
     I_pad = max_stream if max_stream > 0 else I + (T // 2 + 256) * chunk
     I_pad = ((I_pad + chunk - 1) // chunk) * chunk
     G = I_pad // chunk

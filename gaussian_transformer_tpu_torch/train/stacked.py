@@ -71,6 +71,7 @@ from gaussian_transformer_tpu_torch.ops.chamfer import chamfer_distance
 from gaussian_transformer_tpu_torch.ops.losses import l1_loss, ssim
 from gaussian_transformer_tpu_torch.render import RenderConfig, render
 from gaussian_transformer_tpu_torch.train.adafactor import Adafactor
+from gaussian_transformer_tpu_torch.utils.profiling import span
 
 STACK = 8
 
@@ -204,54 +205,59 @@ class TrainingScene:
         )
 
     def make_batch(self, cam_idxs: Sequence[int]) -> Optional[StackedBatch]:
-        fold = 2**self.stack
-        vis = np.zeros(self.n_alive, bool)
-        cams = []
-        for i in cam_idxs:
-            vis |= self._visibility(i)
-            cams.append(self.cameras[i])
+        """The spans ``stacked.batch.build`` (visibility, fold, window and
+        padding on the host) and ``stacked.batch.upload`` (the copies to the
+        device and the masks)."""
+        with span("stacked.batch.build"):
+            fold = 2**self.stack
+            vis = np.zeros(self.n_alive, bool)
+            cams = []
+            for i in cam_idxs:
+                vis |= self._visibility(i)
+                cams.append(self.cameras[i])
 
-        seen = self.tokens[vis]
-        seen = seen[: (len(seen) // fold) * fold]
-        if len(seen) < 2 * fold:
-            return None
-        folded = stack_tokens(torch.from_numpy(seen), self.stack).numpy()  # [L, D]
-        L = folded.shape[0]
+            seen = self.tokens[vis]
+            seen = seen[: (len(seen) // fold) * fold]
+            if len(seen) < 2 * fold:
+                return None
+            folded = stack_tokens(torch.from_numpy(seen), self.stack).numpy()  # [L, D]
+            L = folded.shape[0]
 
-        # Scheduled contiguous window.
-        mid = L // 2
-        low = int(mid - mid * self.dropout)
-        high = int(mid + mid * self.dropout)
-        offset = int((self.rng.random_sample() * 0.8 + 0.1) * (low + (L - high)) - (L - high))
-        low -= offset
-        high -= offset
-        low, high = max(0, low), min(L, max(high, low + 1))
+            # Scheduled contiguous window.
+            mid = L // 2
+            low = int(mid - mid * self.dropout)
+            high = int(mid + mid * self.dropout)
+            offset = int((self.rng.random_sample() * 0.8 + 0.1) * (low + (L - high)) - (L - high))
+            low -= offset
+            high -= offset
+            low, high = max(0, low), min(L, max(high, low + 1))
 
-        start = start_token(self.stack).numpy()
-        padt = pad_token(self.stack).numpy()
+            start = start_token(self.stack).numpy()
+            padt = pad_token(self.stack).numpy()
 
-        def pad_to(arr, mult):
-            want = ((len(arr) + mult - 1) // mult) * mult
-            return np.concatenate([arr, np.tile(padt, (want - len(arr), 1))], axis=0)
+            def pad_to(arr, mult):
+                want = ((len(arr) + mult - 1) // mult) * mult
+                return np.concatenate([arr, np.tile(padt, (want - len(arr), 1))], axis=0)
 
-        src = pad_to(np.concatenate([folded[:low], folded[high:]], axis=0), self.bucket)
-        tgt_full = pad_to(np.concatenate([start[None], folded[low:high]], axis=0), self.bucket)
+            src = pad_to(np.concatenate([folded[:low], folded[high:]], axis=0), self.bucket)
+            tgt_full = pad_to(np.concatenate([start[None], folded[low:high]], axis=0), self.bucket)
 
-        dev = self.device
-        trg = torch.from_numpy(tgt_full[None, :-1]).to(dev)
-        src_t = torch.from_numpy(src[None]).to(dev)
-        # The static buckets pad with PAD tokens, which must be masked out of
-        # the encoder.
-        src_mask = ~fuzzy_token_equal(src_t, pad_token(self.stack))[:, None, :]
-        return StackedBatch(
-            src=src_t,
-            src_mask=src_mask,
-            trg=trg,
-            trg_y=torch.from_numpy(tgt_full[None, 1:]).to(dev),
-            trg_mask=make_std_mask(trg, self.stack),
-            cameras=cams,
-            ntokens=high - low,
-        )
+        with span("stacked.batch.upload"):
+            dev = self.device
+            trg = torch.from_numpy(tgt_full[None, :-1]).to(dev)
+            src_t = torch.from_numpy(src[None]).to(dev)
+            # The static buckets pad with PAD tokens, which must be masked out of
+            # the encoder.
+            src_mask = ~fuzzy_token_equal(src_t, pad_token(self.stack))[:, None, :]
+            return StackedBatch(
+                src=src_t,
+                src_mask=src_mask,
+                trg=trg,
+                trg_y=torch.from_numpy(tgt_full[None, 1:]).to(dev),
+                trg_mask=make_std_mask(trg, self.stack),
+                cameras=cams,
+                ntokens=high - low,
+            )
 
 
 def dropout_generator(device, key: Sequence[int]) -> torch.Generator:
@@ -273,26 +279,30 @@ def greedy_decode(model: EncoderDecoder, src, src_mask, max_len: int, stack: int
     def rng(i):
         return None if dropout_key is None else dropout_generator(dev, tuple(dropout_key) + (i,))
 
-    memory = model.encode(src, src_mask, rng(0))
-    # Unwritten tail rows are causally masked and never read, but they do
-    # flow through the pre-norm LayerNorm, whose sqrt(var) has an infinite
-    # derivative at var = 0: constant filler rows would turn the gradients
-    # into NaN. An iota filler keeps every row's variance > 0.
-    filler = (torch.arange(D, dtype=src.dtype, device=dev) * 1e-3).expand(1, max_len, D)
-    causal = subsequent_mask(max_len, dev)
-    ys = torch.cat([start_token(stack).to(dev, src.dtype).expand(1, 1, D), filler[:, 1:]], dim=1)
+    with span("stacked.encode"):
+        memory = model.encode(src, src_mask, rng(0))
+    # One span around the whole loop: the backward's recomputations of
+    # ``step`` open none.
+    with span("stacked.decode"):
+        # Unwritten tail rows are causally masked and never read, but they do
+        # flow through the pre-norm LayerNorm, whose sqrt(var) has an infinite
+        # derivative at var = 0: constant filler rows would turn the gradients
+        # into NaN. An iota filler keeps every row's variance > 0.
+        filler = (torch.arange(D, dtype=src.dtype, device=dev) * 1e-3).expand(1, max_len, D)
+        causal = subsequent_mask(max_len, dev)
+        ys = torch.cat([start_token(stack).to(dev, src.dtype).expand(1, 1, D), filler[:, 1:]], dim=1)
 
-    def step(ys, i):
-        # The generator is made here, so a recomputation draws the same masks.
-        out = model.decode(memory, src_mask, ys, causal, rng(i + 1))
-        return model.generator(out[:, i])
+        def step(ys, i):
+            # The generator is made here, so a recomputation draws the same masks.
+            out = model.decode(memory, src_mask, ys, causal, rng(i + 1))
+            return model.generator(out[:, i])
 
-    for i in range(max_len - 1):
-        if remat and torch.is_grad_enabled():
-            nxt = checkpoint(step, ys, i, use_reentrant=False, preserve_rng_state=False)
-        else:
-            nxt = step(ys, i)
-        ys = torch.cat([ys[:, : i + 1], nxt[:, None, :], filler[:, i + 2:]], dim=1)
+        for i in range(max_len - 1):
+            if remat and torch.is_grad_enabled():
+                nxt = checkpoint(step, ys, i, use_reentrant=False, preserve_rng_state=False)
+            else:
+                nxt = step(ys, i)
+            ys = torch.cat([ys[:, : i + 1], nxt[:, None, :], filler[:, i + 2:]], dim=1)
     return ys
 
 
@@ -323,30 +333,31 @@ def make_loss_fn(model: EncoderDecoder, handler: GaussianHandler, render_cfg: Re
     (loss, metrics)."""
 
     def loss_fn(src, trg_y, cams, src_mask=None, dropout_key=None):
-        pred = greedy_decode(model, src, src_mask, trg_y.shape[1] + 1, stack, dropout_key)[:, 1:]
-        pred_list = unstack_tokens(pred[0], stack)  # [Lt * 2^s, 26]
-        tgt_list = unstack_tokens(trg_y[0], stack)
+        ys = greedy_decode(model, src, src_mask, trg_y.shape[1] + 1, stack, dropout_key)
+        with span("stacked.loss"):
+            pred_list = unstack_tokens(ys[0, 1:], stack)  # [Lt * 2^s, 26]
+            tgt_list = unstack_tokens(trg_y[0], stack)
 
-        # PAD fat tokens of the buckets must not contribute to the loss. A
-        # fat token's 2^s Gaussians are contiguous after the unstack.
-        valid_fat = ~fuzzy_token_equal(trg_y[0], pad_token(stack))  # [Lt]
-        valid = valid_fat.repeat_interleave(2**stack)  # [Lt * 2^s]
-        n_valid = torch.clamp(valid.float().sum(), min=1.0)
+            # PAD fat tokens of the buckets must not contribute to the loss. A
+            # fat token's 2^s Gaussians are contiguous after the unstack.
+            valid_fat = ~fuzzy_token_equal(trg_y[0], pad_token(stack))  # [Lt]
+            valid = valid_fat.repeat_interleave(2**stack)  # [Lt * 2^s]
+            n_valid = torch.clamp(valid.float().sum(), min=1.0)
 
-        d1, d2, _, _ = chamfer_distance(pred_list[None], tgt_list[None], a_valid=valid[None],
-                                        b_valid=valid[None])
-        chamfer = d1.sum() / n_valid + d2.sum() / n_valid
-        metrics = {"chamfer": chamfer.detach()}
-        loss = chamfer
-        # The gate is the step's one intended host synchronisation: the JAX
-        # package's lax.cond becomes a Python branch on one read of chamfer.
-        if float(chamfer.detach()) < 3.0:
-            img_loss, overflow = image_loss(pred_list, tgt_list, valid, handler, cams, render_cfg)
-            loss = chamfer + img_loss
-            metrics.update(img_loss=img_loss.detach(), overflow=overflow)
-        else:
-            metrics["img_loss"] = torch.zeros((), device=chamfer.device)
-        return loss, metrics
+            d1, d2, _, _ = chamfer_distance(pred_list[None], tgt_list[None], a_valid=valid[None],
+                                            b_valid=valid[None])
+            chamfer = d1.sum() / n_valid + d2.sum() / n_valid
+            metrics = {"chamfer": chamfer.detach()}
+            loss = chamfer
+            # The gate is the step's one intended host synchronisation: the JAX
+            # package's lax.cond becomes a Python branch on one read of chamfer.
+            if float(chamfer.detach()) < 3.0:
+                img_loss, overflow = image_loss(pred_list, tgt_list, valid, handler, cams, render_cfg)
+                loss = chamfer + img_loss
+                metrics.update(img_loss=img_loss.detach(), overflow=overflow)
+            else:
+                metrics["img_loss"] = torch.zeros((), device=chamfer.device)
+            return loss, metrics
 
     return loss_fn
 
@@ -503,21 +514,28 @@ def make_train_step(model: EncoderDecoder, handler: GaussianHandler, render_cfg:
     """Returns step(src, trg_y, cams, lr, src_mask=None, dropout_key=None) ->
     (loss, metrics): one loss, its backward and one update at ``lr`` (the
     JAX step's ``updates * lr``: Adam's rule at ``lr``, ``Adafactor``'s
-    update scaled by it)."""
+    update scaled by it). Spans: the root ``stacked.step``; ``stacked.encode``,
+    ``stacked.decode`` (``greedy_decode``), ``stacked.loss`` (the rest of the
+    loss), ``stacked.backward`` and ``stacked.optimizer`` (the zeroing of
+    the gradients and the update) under it."""
     from gaussian_transformer_tpu_torch.parallel.fsdp import is_sharded, reduce_replicated_grads
 
     loss_fn = make_loss_fn(model, handler, render_cfg, stack)
 
     def step(src, trg_y, cams, lr: float, src_mask=None, dropout_key=None):
-        optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(src, trg_y, cams, src_mask, dropout_key)
-        loss.backward()
-        if is_sharded(model):
-            reduce_replicated_grads(model)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
-        return loss.detach(), metrics
+        with span("stacked.step"):
+            with span("stacked.optimizer"):
+                optimizer.zero_grad(set_to_none=True)
+            loss, metrics = loss_fn(src, trg_y, cams, src_mask, dropout_key)
+            with span("stacked.backward"):
+                loss.backward()
+                if is_sharded(model):
+                    reduce_replicated_grads(model)
+            with span("stacked.optimizer"):
+                for group in optimizer.param_groups:
+                    group["lr"] = lr
+                optimizer.step()
+            return loss.detach(), metrics
 
     return step
 

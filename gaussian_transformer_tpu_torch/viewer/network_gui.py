@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from gaussian_transformer_tpu_torch.scene.cameras import MiniCam
+from gaussian_transformer_tpu_torch.utils.profiling import span
 
 host = "127.0.0.1"
 port = 6009
@@ -153,10 +154,12 @@ def image_to_bytes(image) -> memoryview:
     """[3, H, W] float render -> the protocol's raw HWC uint8 buffer:
     ``(clip(image, 0, 1) * 255)`` truncated, as numpy's ``astype(uint8)``
     does. The conversion runs where the tensor lies; one copy of the uint8
-    bytes reaches the host."""
-    img = torch.as_tensor(image)
-    arr = (img.clamp(0.0, 1.0) * 255).to(torch.uint8).permute(1, 2, 0).contiguous()
-    return memoryview(arr.cpu().numpy())
+    bytes reaches the host (the span ``frame.bytes``, where the host waits
+    for the frame's device work)."""
+    with span("frame.bytes"):
+        img = torch.as_tensor(image)
+        arr = (img.clamp(0.0, 1.0) * 255).to(torch.uint8).permute(1, 2, 0).contiguous()
+        return memoryview(arr.cpu().numpy())
 
 
 def pump_stacked(render_train_fn, stream, source_path: str = "", device=None, group=None) -> None:
