@@ -15,18 +15,21 @@ The serving path:
    Blender-layout dataset of 1920x1080 test views; the ground truth is the
    port's own render plus N(0, 0.05) noise.
 3. Kernel checks on one main-path view: K1 (stream compositor forward) and
-   K3 (fused SSIM forward) against their plain PyTorch versions; exact
-   checksums of K1's outputs and K3's mean (equal checksums: equal bits),
-   and K1's warp
+   K3 (fused SSIM forward) against their plain PyTorch versions, K10
+   (projection) against its plain chain bit for bit on every output; exact
+   checksums of K1's outputs, K3's mean and K10's outputs (equal checksums:
+   equal bits), and K1's warp
    steps and uniform-skip steps counted by the plain walk with K1's 8x4
    warp map to the runs' real ends.
 4. The main path: ``cli.render`` then ``cli.metrics`` through their
    ``main(argv)``, with the kernel launch counters zeroed just before and
-   read just after; checks overflow, SSIM, and the PSNR against a numpy
+   read just after (K1 and K10 once a view, K3 once a scored view); checks
+   overflow, SSIM, and the PSNR against a numpy
    recomputation from the written PNGs.
 5. Times (CUDA events) of K1 and K3 (over repeated launches, and with the
    L2 cache flushed before each launch) and their plain versions, K3's
-   launch-only time (its C entry point on prepared inputs), the per-view
+   launch-only time (its C entry point on prepared inputs), K10's launch
+   beside the projection stage and the plain chain, the per-view
    render time, each kernel's bound, and K1's time per warp step; a forward
    and a backward through ``fused_ssim`` under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation).
@@ -531,6 +534,24 @@ def checksum(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
+def float_bits(t):
+    """A float32 tensor's bits as int32 (other types as they are): equal
+    bits compare equal, NaN included."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def k10_launch_only(project, scene, view):
+    """K10's launch on the scene's leaves as ``project_scene`` hands them
+    over, without the autograd wrapper."""
+    leaves = [getattr(scene, k).detach().contiguous() for k in project.LEAVES]
+    cam = [view[k] for k in project.CAMERA]
+    static = (view["image_width"], view["image_height"], view["tan_fovx"], view["tan_fovy"],
+              scene.active_sh_degree, 1.0)
+    return lambda: project._launch_project(static, *leaves, None, *cam)
+
+
 def warp_steps(name, steps) -> dict:
     """Prints and returns a forward kernel's (steps, uniform-skip steps), as
     the plain walk counts them with the kernel's 8x4 warps and row range."""
@@ -930,7 +951,7 @@ def run(args, device) -> dict:
     from gaussian_transformer_tpu_torch.ops import fused_ssim
     from gaussian_transformer_tpu_torch.render import project_view
     from gaussian_transformer_tpu_torch.render import prepare_stream, render
-    from gaussian_transformer_tpu_torch.render import stream
+    from gaussian_transformer_tpu_torch.render import project, stream
 
     on_card = device.type == "cuda"
     summary = {"seed": args.seed, "gaussians": args.gaussians, "views": args.views,
@@ -983,6 +1004,20 @@ def run(args, device) -> dict:
         print(f"K1 checksum of (color, final T) on test view 0: {k1_sum}")
         k1_steps = warp_steps("K1", stream.stream_warp_steps(props, ct, counts, s.grid_w, s.grid_h))
 
+        view0 = project.view_args(cam0)
+        k10_before = project.PROJECT_FWD.launches
+        k10_out = project.project_scene(scene, view0)
+        p10_out = project.project_scene_plain(scene, view0)
+        k10_diff = {name: int((float_bits(a) != float_bits(b)).sum()) for name, a, b in
+                    zip(project.Projected._fields + ("include",), (*k10_out[0], k10_out[1]), (*p10_out[0], p10_out[1]))}
+        print(f"K10 vs plain: values that differ in their bits, by output: {k10_diff}")
+        check(not any(k10_diff.values()), "K10 matches its plain version bit for bit")
+        if on_card:
+            check(project.PROJECT_FWD.launches == k10_before + 1, "K10 launched once for the projection")
+        k10_sum = checksum(*k10_out[0], k10_out[1])
+        print(f"K10 checksum of its outputs on test view 0: {k10_sum}")
+        del k10_out, p10_out
+
         img = render(cam0, scene)["render"]
         gt = torch.clamp(img + 0.05 * torch.randn(img.shape, generator=torch.Generator(device).manual_seed(args.seed), device=device), 0, 1)
         k3 = fused_ssim.fused_ssim(img, gt)
@@ -997,11 +1032,13 @@ def run(args, device) -> dict:
     print("== 4. main path: cli.render then cli.metrics")
     stream.STREAM_FWD.launches = 0
     fused_ssim.SSIM_FWD.launches = 0
+    project.PROJECT_FWD.launches = 0
     t0 = time.time()
     dev_arg = [] if on_card else ["--device", str(device)]
     stats = cli_render.main(["-m", str(model), "--skip_train", "--quiet"] + dev_arg)
     t_render = time.time() - t0
     k1_launches = stream.STREAM_FWD.launches
+    k10_launches = project.PROJECT_FWD.launches
     t0 = time.time()
     scores = cli_metrics.main(["-m", str(model)] + dev_arg)[str(model)]
     t_metrics = time.time() - t0
@@ -1010,6 +1047,7 @@ def run(args, device) -> dict:
           f"K1 launches {k1_launches}, K3 launches {k3_launches}")
     if on_card:
         check(k1_launches == args.views, f"K1 launched once per rendered view ({args.views})")
+        check(k10_launches == args.views, f"K10 launched once per rendered view ({args.views})")
         check(k3_launches == args.views, f"K3 launched once per scored view ({args.views})")
     check(len(stats) == args.views and all(v["overflow"] == 0 for v in stats),
           f"overflow == 0 on every view ({[v['overflow'] for v in stats]})")
@@ -1038,6 +1076,8 @@ def run(args, device) -> dict:
                 "project+bin": cuda_ms(lambda: prepare_stream(cam0, scene), reps=5),
                 "gather": cuda_ms(lambda: s.props(), reps=5),
             }
+            k10_ms = cuda_ms(k10_launch_only(project, scene, view0), reps=50)
+            k10_plain_ms = cuda_ms(lambda: project.project_scene_plain(scene, view0), reps=5)
             profile = render_profile(lambda: render(cam0, scene))
             k1_ms = cuda_ms(lambda: stream.composite_stream_tiles(props, ct, counts, s.grid_w, s.grid_h), reps=20)
             k1_plain_ms = cuda_ms(lambda: stream.composite_stream_tiles_plain(props, ct, s.grid_w, s.grid_h), reps=2)
@@ -1062,6 +1102,11 @@ def run(args, device) -> dict:
         print(f"[{smi}] K1 {k1_ms:.4f} ms (L2 cold {k1_cold_ms:.4f}), plain {k1_plain_ms:.2f} ms, "
               f"bound {k1_bound:.4f} ms ({k1_by}: {k1_bytes} B, {k1_ops} fp32 ops); "
               f"{sm_cycles(k1_ms, clk, k1_steps['steps']):.2f} SM cycles per warp step")
+        k10_bound = roofline.project_kernel(scene.capacity, scene.features_rest.shape[1], scene.active_sh_degree)
+        k10_build = ptxas_report("project_fwd.cu")
+        print(f"[{smi}] K10 {k10_ms:.4f} ms launch-only (project_view {stages['project']:.4f} ms), plain "
+              f"{k10_plain_ms:.3f} ms, bound {k10_bound.roofline_ms:.4f} ms ({k10_bound.bound}: "
+              f"{k10_bound.nbytes} B, {k10_bound.ops} fp32 ops); build {k10_build}")
         k3_build = ptxas_report("ssim_fwd.cu")
         print(f"[{smi}] K3 {k3_ms:.4f} ms (L2 cold {k3_cold_ms:.4f}; launch-only {k3_launch_ms:.4f}), "
               f"plain {k3_plain_ms:.3f} ms, bound {k3_bound:.4f} ms ({k3_by}: {k3_bytes} B, {k3_ops} fp32 ops); "
@@ -1083,6 +1128,11 @@ def run(args, device) -> dict:
              "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
              "tolerance": {"atol": K3_ATOL}, "launch_only_ms": k3_launch_ms, "checksum": k3_sum,
              "ptxas": k3_build},
+            {"name": "project_fwd", "route": "cuda",
+             "source": "gaussian_transformer_tpu_torch/csrc/project_fwd.cu",
+             "replaces": None, "launches": k10_launches, "bits_differ": k10_diff, "ms": k10_ms,
+             "project_view_ms": stages["project"], "plain_ms": k10_plain_ms, "bound_ms": k10_bound.roofline_ms,
+             "bound_by": k10_bound.bound, "library_ms": None, "checksum": k10_sum, "ptxas": k10_build},
         ]
         summary.update(smi=smi, render_ms=render_ms, stage_ms=stages, walked_pairs=pairs, live_pairs=live,
                        real_rows=real_rows, render_profile=profile)

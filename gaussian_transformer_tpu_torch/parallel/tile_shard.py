@@ -141,18 +141,18 @@ def render_tile_sharded(viewpoint_camera, pc, cfg, group=None, bg_color=None, sc
     bins the (replicated) scene once, then composites its share of the
     instance stream over ``group``. Binning without tile culling, as the
     JAX package's tile-sharded render bins."""
-    from gaussian_transformer_tpu_torch.render import _auto_chunk, project_view
+    from gaussian_transformer_tpu_torch.render import _auto_chunk
+    from gaussian_transformer_tpu_torch.render.project import project_scene, view_args
 
     H, W = viewpoint_camera.image_height, viewpoint_camera.image_width
     dev = pc.get_xyz.device
     bg = torch.zeros(3, device=dev) if bg_color is None else torch.as_tensor(bg_color, dtype=torch.float32,
                                                                             device=dev)
-    proj = project_view(viewpoint_camera, pc)
+    proj, include = project_scene(pc, view_args(viewpoint_camera))
     means2d = proj.means2d
     if screenspace_offset is not None:
         means2d = means2d + screenspace_offset
     grid_w, grid_h = num_tiles(W), num_tiles(H)
-    include = (proj.radii > 0) & (proj.opacities >= 1.0 / 255.0)
     binned = bin_stream(
         means2d.detach(), proj.depths.detach(), proj.rect_bin, include,
         grid_w=grid_w, grid_h=grid_h, max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,

@@ -4,7 +4,8 @@
 ``render(camera, scene, ...)`` returns the reference's dict: ``render``
 [3, H, W], ``viewspace_points``, ``visibility_filter``, ``radii``, plus the
 ``final_T``, ``overflow`` and ``n_instances`` diagnostics (and ``n_padded``,
-``n_tiles`` on the stream path). Pipeline: project (project.py), then
+``n_tiles`` on the stream path). Pipeline: project (project.py: kernel K10
+on CUDA, which also writes the binning's include mask), then
 
 - ``use_stream=True`` (default): padded-CSR binning (tiles.bin_stream), then
   the stream compositor (stream.py, kernels K1 and K2 on CUDA; with
@@ -28,13 +29,12 @@ layout (kernels K7 and K8) is ``attic/stream_t.py stream_image_t``.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from gaussian_transformer_tpu_torch.render.composite import composite_image
-from gaussian_transformer_tpu_torch.render.project import Projected, project_gaussians
+from gaussian_transformer_tpu_torch.render.project import Projected, project_scene, view_args
 from gaussian_transformer_tpu_torch.render.stream import (
     pack_props,
     stream_gather,
@@ -157,25 +157,9 @@ def tune_config(cfg: RenderConfig, probe, headroom: float = 0.0, floor: int = 81
 
 
 def project_view(viewpoint_camera, pc, scaling_modifier=1.0, override_color=None) -> Projected:
-    """Project a scene's (activated) Gaussians for one camera."""
-    shs = None if override_color is not None else pc.get_features
-    return project_gaussians(
-        pc.get_xyz,
-        pc.get_scaling,
-        pc.get_rotation,
-        pc.get_opacity[:, 0],
-        shs,
-        override_color,
-        world_view_transform=viewpoint_camera.world_view_transform,
-        full_proj_transform=viewpoint_camera.full_proj_transform,
-        camera_center=viewpoint_camera.camera_center,
-        image_width=viewpoint_camera.image_width,
-        image_height=viewpoint_camera.image_height,
-        tan_fovx=math.tan(viewpoint_camera.fovx * 0.5),
-        tan_fovy=math.tan(viewpoint_camera.fovy * 0.5),
-        active_sh_degree=pc.active_sh_degree,
-        scaling_modifier=scaling_modifier,
-    )
+    """Project a scene's (activated) Gaussians for one camera: kernel K10 for
+    a scene on the card, the plain chain on the CPU (``project_scene``)."""
+    return project_scene(pc, view_args(viewpoint_camera), scaling_modifier, override_color)[0]
 
 
 class StreamInputs(NamedTuple):
@@ -204,13 +188,11 @@ class StreamInputs(NamedTuple):
 def _project_for_binning(viewpoint_camera, pc, cfg, scaling_modifier, override_color,
                          screenspace_offset):
     """(proj, screen means with the offset, include mask, grid_w, grid_h)."""
-    proj = project_view(viewpoint_camera, pc, scaling_modifier, override_color)
+    proj, include = project_scene(pc, view_args(viewpoint_camera), scaling_modifier, override_color)
     means2d = proj.means2d
     if screenspace_offset is not None:
         means2d = means2d + screenspace_offset
     grid_w, grid_h = num_tiles(viewpoint_camera.image_width), num_tiles(viewpoint_camera.image_height)
-    # Opacity below 1/255 can never pass the alpha skip: keep it out of the lists.
-    include = (proj.radii > 0) & (proj.opacities >= 1.0 / 255.0)
     return proj, means2d, include, grid_w, grid_h
 
 
@@ -345,9 +327,7 @@ def render_naive(viewpoint_camera, pc, bg_color=None, scaling_modifier: float = 
     H, W = viewpoint_camera.image_height, viewpoint_camera.image_width
     dev = pc.get_xyz.device
     bg = torch.zeros(3, device=dev) if bg_color is None else torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
-    proj = project_view(viewpoint_camera, pc, scaling_modifier, override_color)
-
-    include = (proj.radii > 0) & (proj.opacities >= 1.0 / 255.0)
+    proj, include = project_scene(pc, view_args(viewpoint_camera), scaling_modifier, override_color)
     inf = torch.full_like(proj.depths, float("inf"))
     order = torch.argsort(torch.where(include, proj.depths, inf), stable=True)
     xy = proj.means2d[order]

@@ -13,15 +13,41 @@ order, so integer outputs match the reference exactly).
 
 Everything is structure-of-arrays: rank-1 [C] columns, no batched 3x3
 matmuls. Invalid / culled Gaussians get radius 0 and opacity 0.
+
+``project_scene`` projects a scene from its stored leaves: on CUDA tensors
+through kernel K10 (csrc/project_fwd.cu), one pass that applies the scene's
+activations, runs the chain below and writes every field of ``Projected``
+and the binning's include mask, bit for bit as the chain computes them; on
+CPU tensors through ``project_scene_plain``, the activations and the chain
+as PyTorch ops. K10's gradient recomputes the plain chain on the saved
+leaves and differentiates it.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import ctypes
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from gaussian_transformer_tpu_torch.kernels import CudaKernel
+from gaussian_transformer_tpu_torch.scene.gaussians import TensorScene
+from gaussian_transformer_tpu_torch.utils.profiling import count
 from gaussian_transformer_tpu_torch.utils.sh import C0, C1, eval_sh
+
+# K10: one launch per projected view; its counter is ``render.project.fused``.
+PROJECT_FWD = CudaKernel(
+    "project_fwd.cu",
+    "project_fwd",
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 10,
+)
+# The scene's stored leaves K10 reads, in its argument order.
+LEAVES = ("xyz", "scaling", "rotation", "opacity", "alive", "features_dc", "features_rest")
+# The camera's tensors projection reads.
+CAMERA = ("world_view_transform", "full_proj_transform", "camera_center")
+# features_rest rows K10 takes (SH degree 3).
+MAX_REST = 15
 
 
 class Projected(NamedTuple):
@@ -244,3 +270,165 @@ def project_gaussians(
         radii_bin=radii_bin,
         rect_bin=rect_bin,
     )
+
+
+def view_args(camera) -> dict:
+    """What projection reads of a camera: its matrices and centre, its size
+    and the tangents of its half fields of view."""
+    return dict(
+        world_view_transform=camera.world_view_transform,
+        full_proj_transform=camera.full_proj_transform,
+        camera_center=camera.camera_center,
+        image_width=camera.image_width,
+        image_height=camera.image_height,
+        tan_fovx=math.tan(camera.fovx * 0.5),
+        tan_fovy=math.tan(camera.fovy * 0.5),
+    )
+
+
+def include_mask(proj: Projected) -> torch.Tensor:
+    """The Gaussians binning keeps: a radius, and an opacity that can pass
+    the compositor's 1/255 alpha skip."""
+    return (proj.radii > 0) & (proj.opacities >= 1.0 / 255.0)
+
+
+def project_scene_plain(pc, view: dict, scaling_modifier: float = 1.0,
+                        override_color: Optional[torch.Tensor] = None) -> Tuple[Projected, torch.Tensor]:
+    """K10's plain version: (Projected, include) of the scene's activated
+    Gaussians (its ``get_*`` properties) for the view ``view_args`` gives."""
+    shs = None if override_color is not None else pc.get_features
+    proj = project_gaussians(
+        pc.get_xyz,
+        pc.get_scaling,
+        pc.get_rotation,
+        pc.get_opacity[:, 0],
+        shs,
+        override_color,
+        **view,
+        active_sh_degree=pc.active_sh_degree,
+        scaling_modifier=scaling_modifier,
+    )
+    return proj, include_mask(proj)
+
+
+def project_scene(pc, view: dict, scaling_modifier: float = 1.0,
+                  override_color: Optional[torch.Tensor] = None) -> Tuple[Projected, torch.Tensor]:
+    """(Projected, include) of a scene for one view: K10 where the scene
+    lies on the card, the plain chain where it lies on the CPU."""
+    if pc.get_xyz.is_cuda:
+        return project_fused(pc, view, scaling_modifier, override_color)
+    return project_scene_plain(pc, view, scaling_modifier, override_color)
+
+
+def project_fused(pc, view: dict, scaling_modifier: float = 1.0,
+                  override_color: Optional[torch.Tensor] = None) -> Tuple[Projected, torch.Tensor]:
+    """(Projected, include) through K10, differentiable in the scene's
+    leaves, the override colour and the camera's tensors."""
+    leaves = [getattr(pc, k).contiguous() for k in LEAVES]
+    dev = leaves[0].device
+    cam = [view[k].to(dev, torch.float32).contiguous() for k in CAMERA]
+    static = (view["image_width"], view["image_height"], view["tan_fovx"], view["tan_fovy"],
+              pc.active_sh_degree, float(scaling_modifier))
+    oc = None if override_color is None else override_color.contiguous()
+    out = _ProjectFused.apply(static, *leaves, oc, *cam)
+    return Projected(*out[:8]), out[8]
+
+
+def _plain_on_inputs(static, inputs) -> Tuple[Projected, torch.Tensor]:
+    """``project_scene_plain`` on ``_ProjectFused``'s inputs."""
+    width, height, tan_fovx, tan_fovy, degree, smod = static
+    fields = dict(zip(LEAVES, inputs))
+    oc = inputs[len(LEAVES)]
+    cam = dict(zip(CAMERA, inputs[len(LEAVES) + 1:]))
+    scene = TensorScene(**fields, active_sh_degree=degree)
+    view = dict(cam, image_width=width, image_height=height, tan_fovx=tan_fovx, tan_fovy=tan_fovy)
+    return project_scene_plain(scene, view, smod, oc)
+
+
+class _ProjectFused(torch.autograd.Function):
+    """K10 forward. The backward recomputes the plain chain on the saved
+    leaves and hands the float outputs' cotangents to autograd: the JAX
+    package's projection has no kernel of its own (XLA differentiates its
+    ops), so the gradients are the plain chain's, bit for bit. The integer
+    outputs and the include mask are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, static, *inputs):
+        out = _launch_project(static, *inputs)
+        ctx.mark_non_differentiable(out[3], out[6], out[7], out[8])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs)
+        ctx.static = static
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            inputs = [None if x is None else x.detach().requires_grad_(n)
+                      for x, n in zip(ctx.saved_tensors, need)]
+            proj, _ = _plain_on_inputs(ctx.static, inputs)
+        pairs = [(o, g) for o, g in zip(proj, grads) if g is not None and o.requires_grad]
+        wrt = [x for x, n in zip(inputs, need) if n]
+        got = [None] * len(wrt)
+        if pairs and wrt:
+            outs, cots = zip(*pairs)
+            got = list(torch.autograd.grad(outs, wrt, cots, allow_unused=True))
+        got = iter(got)
+        return (None, *[next(got) if n else None for n in need])
+
+
+def _launch_project(static, xyz, scaling, rotation, opacity, alive, features_dc, features_rest, override_color,
+                    world_view_transform, full_proj_transform, camera_center):
+    """K10: the outputs of ``_ProjectFused.forward`` (``Projected``'s fields,
+    then the include mask). Raises on what the kernel does not take before
+    anything is launched."""
+    width, height, tan_fovx, tan_fovy, degree, smod = static
+    if not 0 <= degree <= 3:
+        raise ValueError(f"K10 evaluates SH degrees 0-3, got {degree}")
+    n = xyz.shape[0]
+    rest = features_rest.shape[1] if features_rest.dim() == 3 else -1
+    if not (degree + 1) ** 2 - 1 <= rest <= MAX_REST:
+        raise ValueError(f"features_rest must be [C, R, 3] with {(degree + 1) ** 2 - 1} <= R <= {MAX_REST} "
+                         f"at SH degree {degree}, got {list(features_rest.shape)}")
+    f32 = torch.float32
+    expected = [
+        ("xyz", xyz, f32, (n, 3)), ("scaling", scaling, f32, (n, 3)), ("rotation", rotation, f32, (n, 4)),
+        ("opacity", opacity, f32, (n, 1)), ("alive", alive, torch.bool, (n,)),
+        ("features_dc", features_dc, f32, (n, 1, 3)), ("features_rest", features_rest, f32, (n, rest, 3)),
+        ("world_view_transform", world_view_transform, f32, (4, 4)),
+        ("full_proj_transform", full_proj_transform, f32, (4, 4)), ("camera_center", camera_center, f32, (3,)),
+    ] + ([("override_color", override_color, f32, (n, 3))] if override_color is not None else [])
+    for name, t, dtype, shape in expected:
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)}, got {t.dtype} "
+                             f"{list(t.shape)}{'' if t.is_contiguous() else ' (strided)'}")
+    dev = xyz.device
+    devices = {t.device for _, t, _, _ in expected}
+    if dev.type != "cuda" or len(devices) > 1:
+        raise ValueError(f"K10 takes CUDA tensors on one device, got {sorted(map(str, devices))}")
+    kw = dict(device=dev)
+    means2d = torch.empty(n, 2, dtype=f32, **kw)
+    depths = torch.empty(n, dtype=f32, **kw)
+    conics = torch.empty(n, 3, dtype=f32, **kw)
+    radii = torch.empty(n, dtype=torch.int32, **kw)
+    rgbs = torch.empty(n, 3, dtype=f32, **kw)
+    opac = torch.empty(n, dtype=f32, **kw)
+    radii_bin = torch.empty(n, dtype=torch.int32, **kw)
+    rect_bin = torch.empty(n, 2, dtype=torch.int32, **kw)
+    include = torch.empty(n, dtype=torch.bool, **kw)
+    out = (means2d, depths, conics, radii, rgbs, opac, radii_bin, rect_bin, include)
+    # The plain chain's Python floats, each rounded to float32 once where
+    # PyTorch rounds the scalar.
+    focal_x = width / (2.0 * tan_fovx)
+    focal_y = height / (2.0 * tan_fovy)
+    PROJECT_FWD.launch(
+        xyz.data_ptr(), scaling.data_ptr(), rotation.data_ptr(), opacity.data_ptr(), alive.data_ptr(),
+        features_dc.data_ptr(), features_rest.data_ptr(),
+        None if override_color is None else override_color.data_ptr(),
+        world_view_transform.data_ptr(), full_proj_transform.data_ptr(), camera_center.data_ptr(),
+        n, rest, degree, width, height, smod, focal_x, focal_y, 1.3 * tan_fovx, 1.3 * tan_fovy,
+        *(t.data_ptr() for t in out), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    count("render.project.fused", 1)
+    return out

@@ -96,6 +96,21 @@ def project(c: int, sh_degree: int = 1) -> StageRoofline:
     return StageRoofline(read + write, c * (310 + 6 * (sh_degree + 1) ** 2))
 
 
+# K10 (csrc/project_fwd.cu) a Gaussian: the stored leaves it reads besides
+# features_rest (xyz 12, scaling 12, rotation 16, opacity 4, alive 1,
+# features_dc 12) and what it writes (means2d 8, depth 4, conic 12, radius
+# 4, rgb 12, opacity 4, binning radius 4, rect 8, include 1).
+K10_READ_BYTES = 12 + 12 + 16 + 4 + 1 + 12
+K10_WRITE_BYTES = 8 + 4 + 12 + 4 + 12 + 4 + 4 + 8 + 1
+
+
+def project_kernel(c: int, rest_rows: int, sh_degree: int) -> StageRoofline:
+    """K10 over ``c`` slots: the leaves read once (features_rest's
+    ``rest_rows`` rows of 12 B whole: the kernel stages them so), the
+    outputs written once, ``project``'s operations."""
+    return StageRoofline(c * (K10_READ_BYTES + 12 * rest_rows + K10_WRITE_BYTES), project(c, sh_degree).ops)
+
+
 def binning(i: int, i_pad: int, c: int) -> StageRoofline:
     """``render/tiles.py bin_stream`` over an instance budget of ``i`` rows
     and a stream of ``i_pad`` rows: the expansion reads each Gaussian's
